@@ -1,0 +1,51 @@
+"""Public wrappers around the port's kernels (mirrors ``repro.kernels.ops``).
+
+Dispatch follows the tensor's device and nothing else:
+  * CPU tensor  -> the plain PyTorch version (``ref.py``)
+  * CUDA tensor -> the hand-written CUDA kernel; a kernel that cannot build or
+    launch raises, it never falls back to the plain version.
+
+The kernels mask their own ragged edges, so no operand is padded here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import kmeans_assign as _km
+from repro_torch.kernels import recon_gate as _rg
+from repro_torch.kernels import ref
+
+# Every CUDA kernel of the port, by name (launch counters, builds).
+KERNELS = {"kmeans_assign": _km.KERNEL, "recon_gate": _rg.KERNEL}
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def kmeans_assign(x, centroids):
+    """x: (..., n, d), centroids: (..., k, d) -> (assign (..., n) int32,
+    min_d2 (..., n) f32). A (N, n, d) stack is one launch on the card."""
+    if not _on_cuda(x):
+        return ref.kmeans_assign_ref(x, centroids)
+    return _km.kmeans_assign_cuda(x.to(torch.float32).contiguous(),
+                                  centroids.to(torch.float32).contiguous())
+
+
+def recon_gate_score(y, x, mask):
+    """y, x: (..., R, P); mask: (..., R) -> (...,) masked mean MSE.
+
+    Per-sample pixel-mean squared error averaged over each group's valid
+    samples: the AE exchange gate's subset score."""
+    if not _on_cuda(y):
+        return ref.recon_gate_ref(y, x, mask)
+    lead = y.shape[:-2]
+    r, p = y.shape[-2:]
+    yf = y.to(torch.float32).reshape(-1, r, p).contiguous()
+    xf = x.to(torch.float32).reshape(-1, r, p).contiguous()
+    mf = mask.to(torch.float32).reshape(-1, r).contiguous()
+    return _rg.recon_gate_cuda(yf, xf, mf).reshape(lead)

@@ -1,0 +1,92 @@
+"""Card-only checks of the port's CUDA kernels and of the device path.
+
+Marked ``gpu``; each test decides at run time whether a card is present and
+skips here otherwise. On a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: the suite's conftest imports JAX, which that machine
+lacks; this file needs neither.)
+
+Tolerances as in ``chip_smoke.py``: kmeans_assign min_d2 1e-5 relative to
+||x||^2 + max ||c||^2 and assignments exact off near-ties; recon_gate 1e-5
+relative."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(30, 1998, 32, 3), (5, 37, 11, 11),
+                                   (1, 1, 4, 2)])
+def test_kmeans_assign_kernel_matches_plain(dev, shape):
+    n, rows, d, k = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, rows, d), generator=g, device=dev)
+    c = torch.randn((n, k, d), generator=g, device=dev)
+    before = ops.KERNELS["kmeans_assign"].launches
+    a, m = ops.kmeans_assign(x, c)
+    assert ops.KERNELS["kmeans_assign"].launches == before + 1
+    ra, rm = ref.kmeans_assign_ref(x, c)
+    scale = (x * x).sum(-1) + (c * c).sum(-1).amax(-1, keepdim=True)
+    assert bool(((m - rm).abs() <= 1e-5 * scale + 1e-6).all())
+    d2 = torch.cdist(x, c) ** 2
+    top2 = torch.topk(d2, min(2, k), dim=-1, largest=False).values
+    near = (top2[..., -1] - top2[..., 0]) < 1e-5 * scale + 1e-6
+    assert bool(((a == ra) | near).all())
+
+
+@pytest.mark.parametrize("shape", [(30, 1998, 784), (90, 40, 784),
+                                   (7, 13, 10)])
+def test_recon_gate_kernel_matches_plain(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(1)
+    y = torch.rand(shape, generator=g, device=dev)
+    x = torch.rand(shape, generator=g, device=dev)
+    m = (torch.rand(shape[:2], generator=g, device=dev) < 0.8).float()
+    m[0] = 0.0
+    out = ops.recon_gate_score(y, x, m)
+    want = ref.recon_gate_ref(y, x, m)
+    assert float(out[0]) == 0.0
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-7)
+
+
+def test_kernels_refuse_bad_inputs(dev):
+    from repro_torch.kernels import kmeans_assign, recon_gate
+    x = torch.zeros((2, 8, 4), device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        kmeans_assign.kmeans_assign_cuda(x, x[:, :3])
+    y = torch.zeros((2, 8, 4), device=dev)
+    with pytest.raises(ValueError):
+        recon_gate.recon_gate_cuda(y, y, torch.zeros((2, 7), device=dev))
+
+
+def test_small_pipeline_card_matches_host(dev):
+    from repro_torch.core import exchange as ex
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import qlearning as ql
+    from repro_torch.models.autoencoder import AEConfig
+    rng = np.random.default_rng(0)
+    xs = [rng.uniform(size=(20 + i, 8, 8, 1)).astype(np.float32) * (1 + i)
+          for i in range(5)]
+    cfg = pl.PipelineConfig(n_pca=4, kmeans_iters=5,
+                            rl=ql.RLConfig(n_episodes=30, buffer_size=10),
+                            exchange=ex.ExchangeConfig(reserve_per_cluster=6))
+    ae_cfg = AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
+    host = pl.run_pipeline(xs, None, ae_cfg, cfg, device="cpu")
+    card = pl.run_pipeline(xs, None, ae_cfg, cfg, draws=host.draws,
+                           device=dev)
+    assert torch.equal(host.in_edge, card.in_edge.cpu())
+    assert torch.equal(host.lam_after, card.lam_after.cpu())
+    assert (host.moved_counts == card.moved_counts).all()

@@ -3,18 +3,25 @@
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel of the main path from ``src/repro_torch/csrc``
+1. Builds every CUDA kernel of both paths from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and prints ptxas's resource lines.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes, and times both with CUDA events.
-3. Runs the pipeline at a small size on the card and on the host with the
-   same draws: the card's run (kernels) must agree with the host's (plain
-   versions, which the CPU tests hold against the JAX reference).
-4. Drives the main path at full width: the paper's AE on an FMNIST-sized
-   synthetic world (10 classes x 6,000 train images), N = 30 clients,
-   ``PipelineConfig()`` defaults, then ``fl_train`` and
-   ``linear_evaluation``, with every kernel's launch count set to 0 just
-   before and read just after.
+   paths' shapes and at edge shapes, and times both with CUDA events.
+3. Runs the pipeline, then the smoke Llama's prefill and decode, at a small
+   size on the card and on the host with the same inputs: the card's run
+   (kernels) must agree with the host's (plain versions, which the CPU tests
+   hold against the JAX reference).
+4. Drives the smart-exchange main path at full width: the paper's AE on an
+   FMNIST-sized synthetic world (10 classes x 6,000 train images), N = 30
+   clients, ``PipelineConfig()`` defaults, then ``fl_train`` and
+   ``linear_evaluation``.
+5. Drives the serving path at full width: Llama-3.2-1B (its config
+   unchanged, weights drawn from a seed), batch 4, 2,048-token prompts, 32
+   sampled tokens, through ``launch.serve.serve``; then holds the prefill's
+   kernel route against its plain route in float32.
+
+Phases 4 and 5 each set every kernel's launch count to 0 just before their
+run and read the counts just after.
 
 Prints the card's name and power limit, a JSON line of the kernels and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
@@ -30,6 +37,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 
 
 def log(*args):
@@ -79,9 +87,9 @@ def graph_ms(fn, iters=50, replays=5):
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -131,6 +139,107 @@ def check_recon(ops, ref, y, x, m, label):
     log(f"  recon_gate {label}: groups {o.numel()}, max err "
         f"{float(err.max()):.3e}")
     return float(err.max())
+
+
+def check_flash(ops, ref, q, k, v, label, **kw):
+    """Kernel vs plain on the same inputs. float32: rtol = atol = 2e-5 (the
+    same f32 sums in another order). bfloat16: against the plain version on
+    the f32 values of the same inputs within one bf16 rounding of the output
+    (rtol 8e-3, atol 1e-3), and against the plain bf16 route, which rounds p
+    to bf16 before p.v, within 3e-2. Returns the max abs error against the
+    plain version on the f32 values."""
+    import torch
+    out = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs()
+    if q.dtype == torch.float32:
+        ok = bool((err <= 2e-5 + 2e-5 * want.abs()).all())
+        err_plain = err
+    else:
+        ok = bool((err <= 1e-3 + 8e-3 * want.abs()).all())
+        err_plain = (out.float() - ref.flash_attention_ref(q, k, v, **kw)
+                     .float()).abs()
+        ok = ok and bool((err_plain <= 3e-2).all())
+    if not ok or out.dtype != q.dtype or out.shape != q.shape:
+        raise AssertionError(f"flash_attention {label}: max err "
+                             f"{float(err.max())}, against the plain "
+                             f"{q.dtype} route {float(err_plain.max())}")
+    log(f"  flash_attention {label}: max err {float(err.max()):.3e} (plain "
+        f"{str(q.dtype)[6:]} route {float(err_plain.max()):.3e})")
+    return float(err.max())
+
+
+def flash_phase(torch, ops, ref, fa_mod, dev):
+    """Phase 2, flash_attention: the kernel against its plain version at the
+    served prefill's shape (bf16 and f32) and at edge shapes, then timed at
+    the served shape beside SDPA as a yardstick."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def qkv(b, s, lk, h, kv, hd, dtype=torch.bfloat16):
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, s, h, hd), (b, lk, kv, hd),
+                                   (b, lk, kv, hd)))
+
+    def misaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    # the served prefill: Llama-3.2-1B, batch 4, 2,048-token prompts
+    q, k, v = qkv(4, 2048, 2048, 32, 8, 64)
+    err = check_flash(ops, ref, q, k, v, "served (4,2048,32,64) bf16")
+    check_flash(ops, ref, *(t.float() for t in (q, k, v)),
+                "served (4,2048,32,64) f32")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        check_flash(ops, ref, *qkv(1, 100, 100, 4, 2, 64, dtype),
+                    f"ragged S = L = 100 {name}")
+        check_flash(ops, ref, *qkv(2, 128, 128, 8, 1, 64, dtype),
+                    f"MQA Kv=1 {name}")
+        for window in (8, 100):
+            check_flash(ops, ref, *qkv(1, 256, 256, 4, 2, 64, dtype),
+                        f"window {window} {name}", window=window)
+        check_flash(ops, ref, *qkv(1, 32, 128, 4, 4, 64, dtype),
+                    f"q_offset 96, S 32, L 128 {name}", q_offset=96)
+        for hd in (128, 256):
+            check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd, dtype),
+                        f"hd {hd} {name}")
+        # storage one element off the 16-byte line: element-by-element loads
+        off = tuple(misaligned(t) for t in qkv(2, 100, 100, 4, 2, 64, dtype))
+        assert all(t.data_ptr() % 16 for t in off)
+        check_flash(ops, ref, *off, f"misaligned views {name}")
+
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys
+    pairs = b * h * s * (s + 1) // 2
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()), 4 * hd * pairs,
+                       BF16_FLOPS_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91",
+        max_abs_err=err,
+        ms=graph_ms(lambda: fa_mod.flash_attention_cuda(q, k, v), iters=10,
+                    replays=3),
+        plain_ms=graph_ms(lambda: ref.flash_attention_ref(q, k, v), iters=3,
+                          replays=3),
+        call_ms=cuda_ms(lambda: fa_mod.flash_attention_cuda(q, k, v),
+                        iters=20),
+        plain_call_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+                              iters=5, warmup=2),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10,
+            replays=3),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"  flash_attention served shape: {4 * hd * pairs / 1e9:.1f} GFLOP "
+        f"unmasked, kernel {4 * hd * pairs / row['ms'] / 1e9:.1f} TFLOP/s; "
+        f"SDPA (yardstick, never called by the port) {row['library_ms']:.5f}"
+        f" ms")
+    return row
 
 
 def kernel_phase(torch, ops, ref, km_mod, rg_mod, dev):
@@ -281,6 +390,169 @@ def reference_phase(torch, dev):
         f"{fh.eval_loss.tolist()}")
 
 
+def transformer_reference_phase(torch, ops, dev):
+    """Phase 3, transformer: the smoke Llama (2 layers, d_model 256, vocab
+    512) with the same parameters and tokens; prefill logits through the
+    kernel on the card against the plain route on the host, then 8
+    teacher-forced decode steps. Tolerances, absolute on logits of size ~1:
+    float32 1e-4 (f32 sums in other orders); bfloat16 3e-2 (the kernel keeps
+    p in f32 where the plain route rounds it to bf16, and bf16 activations
+    round at other places on the two devices)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    flash = ops.KERNELS["flash_attention"]
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+        cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype=dtype)
+        model = build_model(cfg)
+        host_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+        card_p = tree_map(lambda a: a.to(dev), host_p)
+        toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                             generator=torch.Generator().manual_seed(1))
+        hl, hc = model.prefill(host_p, {"tokens": toks[:, :40]}, max_len=48)
+        before = flash.launches
+        cl, cc = model.prefill(card_p, {"tokens": toks[:, :40].to(dev)},
+                               max_len=48, use_flash=True)
+        if flash.launches != before + cfg.n_layers:
+            raise AssertionError("small prefill did not launch the kernel "
+                                 "once per layer")
+        errs = [float((cl.cpu() - hl).abs().max())]
+        for t in range(40, 48):
+            hl, hc = model.decode(host_p, hc, {"token": toks[:, t:t + 1]})
+            cl, cc = model.decode(card_p, cc,
+                                  {"token": toks[:, t:t + 1].to(dev)})
+            errs.append(float((cl.cpu() - hl).abs().max()))
+        if max(errs) > tol:
+            raise AssertionError(f"small transformer {dtype}: logits differ "
+                                 f"by {errs} (tol {tol})")
+        log(f"  small transformer {dtype} agrees: prefill max err "
+            f"{errs[0]:.3e}, decode max err {max(errs[1:]):.3e} "
+            f"(|logits| <= {float(hl.abs().max()):.3f})")
+
+
+def device_profile(torch, label, fn):
+    """Runs ``fn`` once under ``torch.profiler`` and prints its wall time
+    (ending in a device sync, profiler overhead included), the device's busy
+    time (the sum of its kernel, copy and set durations: one stream, so they
+    do not overlap), the count of device events and the kernels with the
+    most device time. Returns fn's result and the busy ms (None when the
+    profiler saw no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log(f"  profile {label}: wall {wall:.2f} ms; device time not "
+            "measured (the profiler saw no device events)")
+        return out, None
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    log(f"  profile {label}: wall {wall:.2f} ms (profiled), device busy "
+        f"{busy:.2f} ms over {len(events)} device events")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    return out, busy
+
+
+def serve_phase(torch, ops, dev):
+    """Phase 5: Llama-3.2-1B served at full width; returns launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    batch, prompt, gen = 4, 2048, 32
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                           device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {model.n_params():,} parameters "
+        f"({cfg.param_dtype}), drawn in {time.perf_counter() - t0:.2f} s")
+    serve(model, params, tokens, 2, generator=g, device=dev)   # warm-up
+
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(model, params, tokens, gen, temperature=1.0, generator=g,
+                device=dev)
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the kernel route against the plain route, float32 activations, batch 1
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32)
+    flash = ops.KERNELS["flash_attention"]
+    n0 = flash.launches
+    lk, cache = m32.prefill(params, {"tokens": tokens[:1]}, use_flash=True,
+                            max_len=prompt + 1)
+    prefill_launches = flash.launches - n0
+    lp, _ = m32.prefill(params, {"tokens": tokens[:1]}, use_flash=False)
+    n0 = flash.launches
+    m32.decode(params, cache, {"token": tokens[:1, :1]})
+    decode_launches = flash.launches - n0
+    err32 = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+
+    toks = res.tokens
+    checks = {
+        "flash_attention launched 16 times (once per layer of the prefill)":
+            launches["flash_attention"] == cfg.n_layers,
+        "no other kernel launched": launches["kmeans_assign"] == 0
+            and launches["recon_gate"] == 0,
+        "f32 prefill launched the kernel 16 times, a decode step 0":
+            prefill_launches == cfg.n_layers and decode_launches == 0,
+        f"tokens ({batch}, {gen}) in [0, vocab)":
+            tuple(toks.shape) == (batch, gen)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        "prefill logits finite": bool(torch.isfinite(res.logits).all())
+            and tuple(res.logits.shape) == (batch, 1, cfg.vocab_size),
+        # f32: the routes differ only in the order of attention's f32 sums
+        "f32 kernel route agrees with the plain route within 1e-3":
+            err32 <= 1e-3,
+    }
+    steps = gen - 1
+    log(f"  prefill {batch}x{prompt}: {res.prefill_s * 1e3:.2f} ms "
+        f"({batch * prompt / res.prefill_s:.0f} tok/s)")
+    log(f"  decode {steps} steps x {batch} seqs: {res.decode_s * 1e3:.2f} ms "
+        f"({steps * batch / res.decode_s:.0f} tok/s, "
+        f"{res.decode_s * 1e3 / steps:.3f} ms per step)")
+    log(f"  peak device memory {peak:.2f} GiB")
+    log(f"  f32 last-token logits, kernel vs plain route: max err "
+        f"{err32:.3e} (|logits| <= {scale:.3f})")
+    log(f"  sampled tokens[0][:8] {toks[0, :8].tolist()}")
+    log(f"  launches {launches}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serving checks failed: {failed}")
+
+    # where the served path's device time goes, and how idle the card is
+    (_, cache), busy = device_profile(
+        torch, f"prefill {batch}x{prompt}", lambda: model.prefill(
+            params, {"tokens": tokens}, max_len=prompt + gen, use_flash=True))
+    if busy is not None:
+        log(f"  prefill device idle share {1 - busy / (res.prefill_s * 1e3):.3f}"
+            f" of the unprofiled prefill's {res.prefill_s * 1e3:.2f} ms")
+    _, busy = device_profile(torch, "one decode step", lambda: model.decode(
+        params, cache, {"token": toks[:, :1]}))
+    if busy is not None:
+        step = res.decode_s * 1e3 / steps
+        log(f"  decode device idle share {1 - busy / step:.3f} of the "
+            f"unprofiled serve loop's {step:.3f} ms per step")
+    return launches
+
+
 def main_path(torch, ops, dev):
     """Phase 4: the full-width main path; returns the launch counts."""
     from repro_torch.core.pipeline import PipelineConfig, run_pipeline
@@ -373,11 +645,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import kmeans_assign as km_mod
     from repro_torch.kernels import recon_gate as rg_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -396,12 +671,23 @@ def main() -> int:
 
     log("== phase 2: kernels against their plain versions")
     rows = kernel_phase(torch, ops, ref, km_mod, rg_mod, dev)
+    rows["flash_attention"] = r = flash_phase(torch, ops, ref, fa_mod, dev)
+    log(f"  {r['name']}: device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f}"
+        f" ms; per call {r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f}"
+        f" ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); SDPA "
+        f"{r['library_ms']:.5f} ms")
 
-    log("== phase 3: small run, card against host")
+    log("== phase 3: small runs, card against host")
     reference_phase(torch, dev)
+    transformer_reference_phase(torch, ops, dev)
 
-    log("== phase 4: main path at full width")
+    log("== phase 4: smart-exchange main path at full width")
     launches = main_path(torch, ops, dev)
+
+    log("== phase 5: serving Llama-3.2-1B at full width")
+    launches["flash_attention"] = serve_phase(torch, ops,
+                                              dev)["flash_attention"]
+    log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
         row["launches"] = launches[name]

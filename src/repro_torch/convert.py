@@ -17,7 +17,25 @@ from repro_torch.models.common import tree_map
 
 
 def _tensor(a, device):
-    return torch.as_tensor(np.array(a, copy=True), device=device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":   # numpy's bf16 extension type: widen
+        return torch.as_tensor(a.astype(np.float32),    # exactly, then narrow
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(a, device=device)
+
+
+def lm_params(tree, device="cpu") -> dict:
+    """A transformer's parameter tree ({"embed", "scan": (...), "tail":
+    (...), "final_norm", "head"}); the layouts match, so this is a copy."""
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def lm_cache(cache, device="cpu") -> dict:
+    """A prefill/decode cache {"pos", "scan", "tail"} with its K/V ring
+    buffers; ``pos`` becomes a Python int."""
+    return {"pos": int(np.asarray(cache["pos"])),
+            "scan": tree_map(lambda a: _tensor(a, device), cache["scan"]),
+            "tail": tree_map(lambda a: _tensor(a, device), cache["tail"])}
 
 
 def ae_params(tree, device="cpu") -> dict:

@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import recon_gate as _rg
 from repro_torch.kernels import ref
 
 # Every CUDA kernel of the port, by name (launch counters, builds).
-KERNELS = {"kmeans_assign": _km.KERNEL, "recon_gate": _rg.KERNEL}
+KERNELS = {"kmeans_assign": _km.KERNEL, "recon_gate": _rg.KERNEL,
+           "flash_attention": _fa.KERNEL}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -49,3 +51,20 @@ def recon_gate_score(y, x, mask):
     xf = x.to(torch.float32).reshape(-1, r, p).contiguous()
     mf = mask.to(torch.float32).reshape(-1, r).contiguous()
     return _rg.recon_gate_cuda(yf, xf, mf).reshape(lead)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q: (B,S,H,hd); k,v: (B,L,Kv,hd) -> (B,S,H,hd).
+
+    On the card, non-causal attention whose KV length is not a multiple of
+    the JAX wrapper's KV block raises ``NotImplementedError``, as there: that
+    wrapper pads KV and cannot mask the padding without the causal test."""
+    if not _on_cuda(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+    lk = k.shape[1]
+    block_k = min(512, max(8, 1 << (lk - 1).bit_length()))
+    if not causal and lk % block_k:
+        raise NotImplementedError("non-causal padded flash attention")
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)

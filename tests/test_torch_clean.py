@@ -11,8 +11,11 @@ import torch
 import repro_torch
 from repro_torch.core import exchange as tex
 from repro_torch.core import pipeline as tpl
+from repro_torch.configs import get_smoke_config
 from repro_torch.fl import trainer as ttr
+from repro_torch.launch import serve as tsrv
 from repro_torch.models.autoencoder import AEConfig
+from repro_torch.models.registry import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -47,9 +50,15 @@ def test_port_has_the_slice_modules():
                 "core/rewards.py", "core/qlearning.py", "core/exchange.py",
                 "core/pipeline.py", "data/partition.py", "data/synthetic.py",
                 "models/common.py", "models/autoencoder.py", "fl/trainer.py",
-                "fl/linear_eval.py", "convert.py"):
+                "fl/linear_eval.py", "convert.py",
+                "kernels/flash_attention.py", "configs/base.py",
+                "configs/__init__.py", "configs/llama32_1b.py",
+                "configs/llama32_3b.py", "configs/llama3_8b.py",
+                "models/rope.py", "models/attention.py",
+                "models/transformer.py", "models/registry.py",
+                "launch/serve.py"):
         assert mod in names
-    for src in ("kmeans_assign.cu", "recon_gate.cu"):
+    for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
 
 
@@ -77,3 +86,9 @@ def test_entry_points_raise_without_a_card():
         tex.run_exchange(xs, None, torch.zeros(3, 4, dtype=torch.long),
                          torch.ones(3, 3, 3), torch.tensor([1, 2, 0]),
                          torch.zeros(3, 3), cfg)
+    model = build_model(get_smoke_config("llama3.2-1b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsrv.serve(model, params, torch.zeros((1, 4), dtype=torch.long), 2)

@@ -10,7 +10,7 @@ lacks; this file needs neither.)
 
 Tolerances as in ``chip_smoke.py``: kmeans_assign min_d2 1e-5 relative to
 ||x||^2 + max ||c||^2 and assignments exact off near-ties; recon_gate 1e-5
-relative."""
+relative; flash_attention as stated in its tests."""
 import numpy as np
 import pytest
 import torch
@@ -70,6 +70,87 @@ def test_kernels_refuse_bad_inputs(dev):
     y = torch.zeros((2, 8, 4), device=dev)
     with pytest.raises(ValueError):
         recon_gate.recon_gate_cuda(y, y, torch.zeros((2, 7), device=dev))
+
+
+FLASH_CASES = [  # b, s, lk, h, kv, hd, window, q_offset
+    (1, 100, 100, 2, 2, 64, None, 0),      # ragged S = L
+    (2, 64, 64, 8, 1, 64, None, 0),        # MQA
+    (1, 128, 128, 4, 2, 32, 8, None),      # window 8
+    (1, 128, 128, 4, 2, 32, 100, None),    # window 100
+    (1, 32, 128, 4, 4, 32, None, 96),      # chunked prefill
+    (1, 200, 200, 4, 2, 128, None, 0),
+    (1, 130, 130, 2, 1, 256, None, 0),
+    (2, 300, 300, 32, 8, 64, None, 0),     # the served model's heads
+]
+
+
+def _flash_inputs(dev, b, s, lk, h, kv, hd, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g, device=dev)
+    k = torch.randn((b, lk, kv, hd), generator=g, device=dev)
+    v = torch.randn((b, lk, kv, hd), generator=g, device=dev)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, case, dtype):
+    """f32: 2e-5 (the same f32 sums in another order, online softmax).
+    bf16: held against the plain version on the f32 values of the same bf16
+    inputs, to one bf16 rounding of the output (rtol 8e-3, atol 1e-3), since
+    the kernel keeps p in f32 where the plain bf16 route rounds it."""
+    b, s, lk, h, kv, hd, window, q_offset = case
+    q, k, v = (t.to(dtype) for t in _flash_inputs(dev, b, s, lk, h, kv, hd))
+    kw = dict(causal=True, window=window, q_offset=q_offset or 0)
+    before = ops.KERNELS["flash_attention"].launches
+    out = ops.flash_attention(q, k, v, **kw)
+    assert ops.KERNELS["flash_attention"].launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    tol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 1e-3)
+    torch.testing.assert_close(out.float(), want, rtol=tol[0], atol=tol[1])
+
+
+def test_flash_attention_kernel_strided_and_non_causal(dev):
+    """Strided views (q sliced out of a fused qkv buffer) and a non-causal
+    call whose KV length is a block multiple; a padded one refuses."""
+    qkv = torch.randn((2, 64, 3, 4, 64), device=dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q[:, :60], k[:, :60], v[:, :60], causal=False)
+
+
+def _misaligned(t):
+    """A copy of t whose storage starts one element past a 16-byte line."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_misaligned_views(dev, dtype):
+    """Pointers off the 16-byte line take the kernel's element-by-element
+    loads; same tolerances as test_flash_attention_kernel_matches_plain."""
+    q, k, v = (_misaligned(t.to(dtype))
+               for t in _flash_inputs(dev, 2, 100, 100, 4, 2, 64, seed=3))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, window=40)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=40)
+    tol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 1e-3)
+    torch.testing.assert_close(out.float(), want, rtol=tol[0], atol=tol[1])
+
+
+def test_flash_attention_refuses_bad_inputs(dev):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(dev, 1, 8, 8, 2, 2, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = (t.double() for t in _flash_inputs(dev, 1, 8, 8, 2, 2, 64))
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, k, v)
 
 
 def test_small_pipeline_card_matches_host(dev):

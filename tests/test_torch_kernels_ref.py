@@ -1,5 +1,5 @@
-"""The port's plain flash-attention oracle against the JAX one (no kernel
-on the first slice's path; later slices hold their kernel against it).
+"""The port's plain flash-attention oracle against the JAX one (the CUDA
+kernel is held against it on the card: tests/test_torch_gpu.py).
 Tolerance: rtol/atol 1e-5 (float32 softmax attention over <= 24 keys)."""
 import jax.numpy as jnp
 import numpy as np

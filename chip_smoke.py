@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel of both paths from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once) and prints ptxas's resource lines.
+1. Prints ``nvcc --version``, builds every CUDA kernel of both paths from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once) and prints
+   ptxas's resource lines.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   paths' shapes and at edge shapes, and times both with CUDA events.
+   paths' shapes and at edge shapes, and times both with CUDA events. Each
+   flash check asserts which of the two flash kernels ``route`` sent it to.
 3. Runs the pipeline, then the smoke Llama's prefill and decode, at a small
    size on the card and on the host with the same inputs: the card's run
    (kernels) must agree with the host's (plain versions, which the CPU tests
@@ -17,11 +19,14 @@
    ``linear_evaluation``.
 5. Drives the serving path at full width: Llama-3.2-1B (its config
    unchanged, weights drawn from a seed), batch 4, 2,048-token prompts, 32
-   sampled tokens, through ``launch.serve.serve``; then holds the prefill's
-   kernel route against its plain route in float32.
+   sampled tokens, through ``launch.serve.serve`` (bf16 activations: the
+   tensor-core flash kernel); then serves the same weights with float32
+   activations (the CUDA-core flash kernel) and holds that prefill's kernel
+   route against its plain route.
 
-Phases 4 and 5 each set every kernel's launch count to 0 just before their
-run and read the counts just after.
+Phases 4 and 5 set every kernel's launch count to 0 just before each run
+they drive (the main path, the bf16 serve, the f32 serve) and read the
+counts just after.
 
 Prints the card's name and power limit, a JSON line of the kernels and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
@@ -141,15 +146,22 @@ def check_recon(ops, ref, y, x, m, label):
     return float(err.max())
 
 
-def check_flash(ops, ref, q, k, v, label, **kw):
+def check_flash(ops, ref, q, k, v, label, kernel, **kw):
     """Kernel vs plain on the same inputs. float32: rtol = atol = 2e-5 (the
     same f32 sums in another order). bfloat16: against the plain version on
     the f32 values of the same inputs within one bf16 rounding of the output
     (rtol 8e-3, atol 1e-3), and against the plain bf16 route, which rounds p
     to bf16 before p.v, within 3e-2. Returns the max abs error against the
-    plain version on the f32 values."""
+    plain version on the f32 values. ``kernel`` names the flash kernel that
+    must launch, once."""
     import torch
+    before = {n: k_.launches for n, k_ in ops.KERNELS.items()}
     out = ops.flash_attention(q, k, v, **kw)
+    moved = {n for n, k_ in ops.KERNELS.items()
+             if k_.launches != before[n]}
+    if moved != {kernel} or ops.KERNELS[kernel].launches != before[kernel] + 1:
+        raise AssertionError(f"flash_attention {label}: launched {moved}, "
+                             f"expected {kernel} once")
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
     err = (out.float() - want).abs()
@@ -165,17 +177,21 @@ def check_flash(ops, ref, q, k, v, label, **kw):
         raise AssertionError(f"flash_attention {label}: max err "
                              f"{float(err.max())}, against the plain "
                              f"{q.dtype} route {float(err_plain.max())}")
-    log(f"  flash_attention {label}: max err {float(err.max()):.3e} (plain "
+    log(f"  {kernel} {label}: max err {float(err.max()):.3e} (plain "
         f"{str(q.dtype)[6:]} route {float(err_plain.max()):.3e})")
     return float(err.max())
 
 
 def flash_phase(torch, ops, ref, fa_mod, dev):
-    """Phase 2, flash_attention: the kernel against its plain version at the
-    served prefill's shape (bf16 and f32) and at edge shapes, then timed at
-    the served shape beside SDPA as a yardstick."""
+    """Phase 2, flash attention: both kernels against their plain version at
+    the served prefills' shapes and at edge shapes, each check asserting the
+    kernel that ``route`` picked; then each kernel timed at the shape of the
+    prefill that launches it in phase 5 (the tensor-core one at batch 4 in
+    bf16, the CUDA-core one at batch 1 in float32) beside its bound and SDPA
+    as a yardstick. Returns the two kernels' rows."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(2)
+    sm90, simt = "flash_attention_sm90", "flash_attention"
 
     def qkv(b, s, lk, h, kv, hd, dtype=torch.bfloat16):
         return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -189,57 +205,104 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
 
     # the served prefill: Llama-3.2-1B, batch 4, 2,048-token prompts
     q, k, v = qkv(4, 2048, 2048, 32, 8, 64)
-    err = check_flash(ops, ref, q, k, v, "served (4,2048,32,64) bf16")
-    check_flash(ops, ref, *(t.float() for t in (q, k, v)),
-                "served (4,2048,32,64) f32")
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    err = check_flash(ops, ref, q, k, v, "served (4,2048,32,64) bf16", sm90)
+    check_flash(ops, ref, q32, k32, v32, "served (4,2048,32,64) f32", simt)
+    # the f32 serve's prefill: batch 1
+    q32, k32, v32 = (t[:1] for t in (q32, k32, v32))
+    err32 = check_flash(ops, ref, q32, k32, v32,
+                        "f32 served (1,2048,32,64) f32", simt)
+
+    # the tensor-core kernel's edges: bf16, head_dim 64 and 128
+    check_flash(ops, ref, *qkv(1, 2048, 2048, 24, 8, 128),
+                "Llama-3.2-3B-like (1,2048,24,128) Kv 8 bf16", sm90)
+    for n in (100, 2047):
+        check_flash(ops, ref, *qkv(1, n, n, 4, 2, 64),
+                    f"ragged S = L = {n} bf16", sm90)
+    check_flash(ops, ref, *qkv(1, 300, 300, 4, 2, 128),
+                "ragged S = L = 300 hd 128 bf16", sm90)
+    check_flash(ops, ref, *qkv(2, 128, 128, 8, 1, 64), "MQA Kv=1 bf16", sm90)
+    for window in (8, 100):
+        check_flash(ops, ref, *qkv(1, 256, 256, 4, 2, 64),
+                    f"window {window} bf16", sm90, window=window)
+    check_flash(ops, ref, *qkv(1, 32, 128, 4, 4, 64),
+                "q_offset 96, S 32, L 128 bf16", sm90, q_offset=96)
+    for hd in (64, 128):
+        check_flash(ops, ref, *qkv(2, 256, 256, 8, 2, hd),
+                    f"non-causal L 256 hd {hd} bf16", sm90, causal=False)
+    fused = torch.randn((2, 300, 8 + 2 + 2, 64), generator=g,
+                        device=dev).bfloat16()
+    check_flash(ops, ref, fused[:, :, :8], fused[:, :, 8:10],
+                fused[:, :, 10:], "strided fused-qkv view (H 8, Kv 2) bf16",
+                sm90)
+
+    # the CUDA-core kernel: float32, and bf16 that TMA or wgmma cannot take
+    check_flash(ops, ref, *qkv(1, 100, 100, 4, 2, 64, torch.float32),
+                "ragged S = L = 100 f32", simt)
+    check_flash(ops, ref, *qkv(2, 128, 128, 8, 1, 64, torch.float32),
+                "MQA Kv=1 f32", simt)
+    for window in (8, 100):
+        check_flash(ops, ref, *qkv(1, 256, 256, 4, 2, 64, torch.float32),
+                    f"window {window} f32", simt, window=window)
+    check_flash(ops, ref, *qkv(1, 32, 128, 4, 4, 64, torch.float32),
+                "q_offset 96, S 32, L 128 f32", simt, q_offset=96)
+    for hd in (32, 128, 256):
+        check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd, torch.float32),
+                    f"hd {hd} f32", simt)
+    for hd in (32, 256):
+        check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd),
+                    f"hd {hd} bf16", simt)
+    odd = torch.randn((2, 100, 4, 68), generator=g, device=dev).bfloat16()
+    check_flash(ops, ref, odd[..., :64], odd[:, :, :2, :64],
+                odd[:, :, 2:, :64], "strides of 68 elements bf16", simt)
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype)[6:]
-        check_flash(ops, ref, *qkv(1, 100, 100, 4, 2, 64, dtype),
-                    f"ragged S = L = 100 {name}")
-        check_flash(ops, ref, *qkv(2, 128, 128, 8, 1, 64, dtype),
-                    f"MQA Kv=1 {name}")
-        for window in (8, 100):
-            check_flash(ops, ref, *qkv(1, 256, 256, 4, 2, 64, dtype),
-                        f"window {window} {name}", window=window)
-        check_flash(ops, ref, *qkv(1, 32, 128, 4, 4, 64, dtype),
-                    f"q_offset 96, S 32, L 128 {name}", q_offset=96)
-        for hd in (128, 256):
-            check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd, dtype),
-                        f"hd {hd} {name}")
         # storage one element off the 16-byte line: element-by-element loads
         off = tuple(misaligned(t) for t in qkv(2, 100, 100, 4, 2, 64, dtype))
         assert all(t.data_ptr() % 16 for t in off)
-        check_flash(ops, ref, *off, f"misaligned views {name}")
+        check_flash(ops, ref, *off, f"misaligned views {str(dtype)[6:]}",
+                    simt)
 
-    b, s, h, hd = q.shape
-    kv = k.shape[2]
-    # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys
-    pairs = b * h * s * (s + 1) // 2
-    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()), 4 * hd * pairs,
-                       BF16_FLOPS_PER_S)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:91",
-        max_abs_err=err,
-        ms=graph_ms(lambda: fa_mod.flash_attention_cuda(q, k, v), iters=10,
-                    replays=3),
-        plain_ms=graph_ms(lambda: ref.flash_attention_ref(q, k, v), iters=3,
-                          replays=3),
-        call_ms=cuda_ms(lambda: fa_mod.flash_attention_cuda(q, k, v),
-                        iters=20),
-        plain_call_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
-                              iters=5, warmup=2),
-        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10,
-            replays=3),
-        bound_ms=b_ms, bound_by=b_by)
-    log(f"  flash_attention served shape: {4 * hd * pairs / 1e9:.1f} GFLOP "
-        f"unmasked, kernel {4 * hd * pairs / row['ms'] / 1e9:.1f} TFLOP/s; "
-        f"SDPA (yardstick, never called by the port) {row['library_ms']:.5f}"
-        f" ms")
-    return row
+    rows = {}
+    for name, src, args, fn, peak, e in (
+            (sm90, "flash_attention_sm90.cu", (q, k, v),
+             fa_mod.flash_attention_sm90, BF16_FLOPS_PER_S, err),
+            (simt, "flash_attention.cu", (q32, k32, v32),
+             fa_mod.flash_attention_cuda, F32_FLOPS_PER_S, err32)):
+        b, s, h, hd = args[0].shape
+        # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys
+        flops = 4 * hd * (b * h * s * (s + 1) // 2)
+        # q, k, v read once, out written once
+        moved = args[0].element_size() * (2 * args[0].numel()
+                                          + 2 * args[1].numel())
+        b_ms, b_by = bound(moved, flops, peak)
+        fast = name == sm90
+        qt, kt, vt = (t.transpose(1, 2) for t in args)
+        rows[name] = r = dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            max_abs_err=e,
+            ms=graph_ms(lambda: fn(*args), iters=20 if fast else 5,
+                        replays=3),
+            plain_ms=graph_ms(lambda: ref.flash_attention_ref(*args),
+                              iters=3, replays=3),
+            call_ms=cuda_ms(lambda: fn(*args), iters=50 if fast else 10),
+            plain_call_ms=cuda_ms(lambda: ref.flash_attention_ref(*args),
+                                  iters=5, warmup=2),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+                iters=10 if fast else 5, replays=3),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"  {name} {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: "
+            f"{flops / 1e9:.1f} GFLOP unmasked, kernel "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s; SDPA (yardstick, never "
+            f"called by the port) {r['library_ms']:.5f} ms")
+    # the CUDA-core kernel on the bf16 served inputs, beside the tensor-core
+    # one in the same run
+    simt_bf16 = graph_ms(lambda: fa_mod.flash_attention_cuda(q, k, v),
+                         iters=5, replays=3)
+    log(f"  flash_attention (CUDA cores) {tuple(q.shape)} bf16: device "
+        f"{simt_bf16:.5f} ms")
+    return rows
 
 
 def kernel_phase(torch, ops, ref, km_mod, rg_mod, dev):
@@ -397,13 +460,16 @@ def transformer_reference_phase(torch, ops, dev):
     teacher-forced decode steps. Tolerances, absolute on logits of size ~1:
     float32 1e-4 (f32 sums in other orders); bfloat16 3e-2 (the kernel keeps
     p in f32 where the plain route rounds it to bf16, and bf16 activations
-    round at other places on the two devices)."""
+    round at other places on the two devices). The f32 prefill runs the
+    CUDA-core flash kernel, the bf16 one the tensor-core kernel (head_dim
+    64)."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.common import tree_map
     from repro_torch.models.registry import build_model
-    flash = ops.KERNELS["flash_attention"]
-    for dtype, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+    for dtype, tol, kernel in (("float32", 1e-4, "flash_attention"),
+                               ("bfloat16", 3e-2, "flash_attention_sm90")):
+        flash = ops.KERNELS[kernel]
         cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype=dtype)
         model = build_model(cfg)
         host_p = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -415,8 +481,8 @@ def transformer_reference_phase(torch, ops, dev):
         cl, cc = model.prefill(card_p, {"tokens": toks[:, :40].to(dev)},
                                max_len=48, use_flash=True)
         if flash.launches != before + cfg.n_layers:
-            raise AssertionError("small prefill did not launch the kernel "
-                                 "once per layer")
+            raise AssertionError(f"small {dtype} prefill did not launch "
+                                 f"{kernel} once per layer")
         errs = [float((cl.cpu() - hl).abs().max())]
         for t in range(40, 48):
             hl, hc = model.decode(host_p, hc, {"token": toks[:, t:t + 1]})
@@ -464,7 +530,8 @@ def device_profile(torch, label, fn):
 
 
 def serve_phase(torch, ops, dev):
-    """Phase 5: Llama-3.2-1B served at full width; returns launch counts."""
+    """Phase 5: Llama-3.2-1B served at full width; returns the launch counts
+    of the bf16 serve and of the f32 serve."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -490,34 +557,47 @@ def serve_phase(torch, ops, dev):
     launches = {name: k.launches for name, k in ops.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    # the kernel route against the plain route, float32 activations, batch 1
+    # the same weights served with float32 activations, batch 1: the
+    # CUDA-core flash kernel
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     m32 = build_model(cfg32)
-    flash = ops.KERNELS["flash_attention"]
-    n0 = flash.launches
+    serve(m32, params, tokens[:1], 2, generator=g, device=dev)   # warm-up
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    res32 = serve(m32, params, tokens[:1], 2, generator=g, device=dev)
+    launches32 = {name: k.launches for name, k in ops.KERNELS.items()}
+
+    # its prefill's kernel route against its plain route; one decode step
     lk, cache = m32.prefill(params, {"tokens": tokens[:1]}, use_flash=True,
                             max_len=prompt + 1)
-    prefill_launches = flash.launches - n0
     lp, _ = m32.prefill(params, {"tokens": tokens[:1]}, use_flash=False)
-    n0 = flash.launches
+    n0 = {name: k.launches for name, k in ops.KERNELS.items()}
     m32.decode(params, cache, {"token": tokens[:1, :1]})
-    decode_launches = flash.launches - n0
+    decode_launches = sum(k.launches - n0[name]
+                          for name, k in ops.KERNELS.items())
     err32 = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
 
     toks = res.tokens
+    others = ("kmeans_assign", "recon_gate")
     checks = {
-        "flash_attention launched 16 times (once per layer of the prefill)":
-            launches["flash_attention"] == cfg.n_layers,
-        "no other kernel launched": launches["kmeans_assign"] == 0
-            and launches["recon_gate"] == 0,
-        "f32 prefill launched the kernel 16 times, a decode step 0":
-            prefill_launches == cfg.n_layers and decode_launches == 0,
+        "bf16 serve: flash_attention_sm90 launched 16 times (once per layer"
+        " of the prefill, none in decode)":
+            launches["flash_attention_sm90"] == cfg.n_layers,
+        "bf16 serve: no other kernel launched":
+            launches["flash_attention"] == 0
+            and all(launches[n] == 0 for n in others),
+        "f32 serve: flash_attention launched 16 times, no other kernel":
+            launches32["flash_attention"] == cfg.n_layers
+            and launches32["flash_attention_sm90"] == 0
+            and all(launches32[n] == 0 for n in others),
+        "f32 decode step launched no kernel": decode_launches == 0,
         f"tokens ({batch}, {gen}) in [0, vocab)":
             tuple(toks.shape) == (batch, gen)
             and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
         "prefill logits finite": bool(torch.isfinite(res.logits).all())
-            and tuple(res.logits.shape) == (batch, 1, cfg.vocab_size),
+            and tuple(res.logits.shape) == (batch, 1, cfg.vocab_size)
+            and bool(torch.isfinite(res32.logits).all()),
         # f32: the routes differ only in the order of attention's f32 sums
         "f32 kernel route agrees with the plain route within 1e-3":
             err32 <= 1e-3,
@@ -531,8 +611,9 @@ def serve_phase(torch, ops, dev):
     log(f"  peak device memory {peak:.2f} GiB")
     log(f"  f32 last-token logits, kernel vs plain route: max err "
         f"{err32:.3e} (|logits| <= {scale:.3f})")
+    log(f"  f32 serve, prefill 1x{prompt}: {res32.prefill_s * 1e3:.2f} ms")
     log(f"  sampled tokens[0][:8] {toks[0, :8].tolist()}")
-    log(f"  launches {launches}")
+    log(f"  launches, bf16 serve {launches}; f32 serve {launches32}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serving checks failed: {failed}")
@@ -550,7 +631,7 @@ def serve_phase(torch, ops, dev):
         step = res.decode_s * 1e3 / steps
         log(f"  decode device idle share {1 - busy / step:.3f} of the "
             f"unprofiled serve loop's {step:.3f} ms per step")
-    return launches
+    return launches, launches32
 
 
 def main_path(torch, ops, dev):
@@ -661,6 +742,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     log("== phase 1: build")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    log("  " + " / ".join(line.strip() for line in nvcc[-2:]))
     t0 = time.perf_counter()
     _build.build_all(list(ops.KERNELS.values()))
     log(f"  built {list(ops.KERNELS)} in {time.perf_counter() - t0:.2f} s")
@@ -671,11 +755,13 @@ def main() -> int:
 
     log("== phase 2: kernels against their plain versions")
     rows = kernel_phase(torch, ops, ref, km_mod, rg_mod, dev)
-    rows["flash_attention"] = r = flash_phase(torch, ops, ref, fa_mod, dev)
-    log(f"  {r['name']}: device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f}"
-        f" ms; per call {r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f}"
-        f" ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); SDPA "
-        f"{r['library_ms']:.5f} ms")
+    flash_rows = flash_phase(torch, ops, ref, fa_mod, dev)
+    rows.update(flash_rows)
+    for r in flash_rows.values():
+        log(f"  {r['name']}: device {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms; per call {r['call_ms']:.5f} ms, plain "
+            f"{r['plain_call_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); SDPA {r['library_ms']:.5f} ms")
 
     log("== phase 3: small runs, card against host")
     reference_phase(torch, dev)
@@ -685,8 +771,9 @@ def main() -> int:
     launches = main_path(torch, ops, dev)
 
     log("== phase 5: serving Llama-3.2-1B at full width")
-    launches["flash_attention"] = serve_phase(torch, ops,
-                                              dev)["flash_attention"]
+    served, served32 = serve_phase(torch, ops, dev)
+    launches["flash_attention_sm90"] = served["flash_attention_sm90"]
+    launches["flash_attention"] = served32["flash_attention"]
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():

@@ -3,7 +3,9 @@
 Dispatch follows the tensor's device and nothing else:
   * CPU tensor  -> the plain PyTorch version (``ref.py``)
   * CUDA tensor -> the hand-written CUDA kernel; a kernel that cannot build or
-    launch raises, it never falls back to the plain version.
+    launch raises, it never falls back to the plain version or to another
+    kernel. Flash attention has two kernels on the card, and
+    ``flash_attention.route`` alone picks between them.
 
 The kernels mask their own ragged edges, so no operand is padded here.
 """
@@ -18,7 +20,8 @@ from repro_torch.kernels import ref
 
 # Every CUDA kernel of the port, by name (launch counters, builds).
 KERNELS = {"kmeans_assign": _km.KERNEL, "recon_gate": _rg.KERNEL,
-           "flash_attention": _fa.KERNEL}
+           "flash_attention": _fa.KERNEL,
+           "flash_attention_sm90": _fa.KERNEL_SM90}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -56,7 +59,9 @@ def recon_gate_score(y, x, mask):
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """q: (B,S,H,hd); k,v: (B,L,Kv,hd) -> (B,S,H,hd).
 
-    On the card, non-causal attention whose KV length is not a multiple of
+    On the card, ``flash_attention.route`` picks the kernel: the tensor-core
+    one for TMA-addressable bf16 with head_dim 64 or 128, the CUDA-core one
+    otherwise. Non-causal attention whose KV length is not a multiple of
     the JAX wrapper's KV block raises ``NotImplementedError``, as there: that
     wrapper pads KV and cannot mask the padding without the causal test."""
     if not _on_cuda(q):
@@ -66,5 +71,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     block_k = min(512, max(8, 1 << (lk - 1).bit_length()))
     if not causal and lk % block_k:
         raise NotImplementedError("non-causal padded flash attention")
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+    kernel = (_fa.flash_attention_sm90 if _fa.route(q, k, v) == "sm90"
+              else _fa.flash_attention_cuda)
+    return kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
-no JAX and nothing of the JAX package, and the port's entry points run on
-the card unless asked for the CPU."""
+"""The port stands alone: ``src/repro_torch/``, ``chip_smoke.py`` and
+``tools/flash_sm90_ablation.py`` import no JAX and nothing of the JAX
+package, and the port's entry points run on the card unless asked for the
+CPU."""
 import ast
 import pathlib
 
@@ -19,7 +20,7 @@ from repro_torch.models.registry import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_ablation.py"]
 
 
 def _imports(path):
@@ -58,7 +59,8 @@ def test_port_has_the_slice_modules():
                 "models/transformer.py", "models/registry.py",
                 "launch/serve.py"):
         assert mod in names
-    for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu"):
+    for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu",
+                "flash_attention_sm90.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
 
 

@@ -10,7 +10,10 @@ lacks; this file needs neither.)
 
 Tolerances as in ``chip_smoke.py``: kmeans_assign min_d2 1e-5 relative to
 ||x||^2 + max ||c||^2 and assignments exact off near-ties; recon_gate 1e-5
-relative; flash_attention as stated in its tests."""
+relative; flash_attention as stated in its tests. Each flash test asserts
+which of the two flash kernels (``flash_attention.route``) launched."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -84,6 +87,16 @@ FLASH_CASES = [  # b, s, lk, h, kv, hd, window, q_offset
 ]
 
 
+@contextlib.contextmanager
+def _launched(name):
+    """Asserts that the block launched kernel ``name`` once and no other."""
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    yield
+    after = {n: k.launches for n, k in ops.KERNELS.items()}
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {name: 1}
+
+
 def _flash_inputs(dev, b, s, lk, h, kv, hd, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, s, h, hd), generator=g, device=dev)
@@ -102,9 +115,9 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     b, s, lk, h, kv, hd, window, q_offset = case
     q, k, v = (t.to(dtype) for t in _flash_inputs(dev, b, s, lk, h, kv, hd))
     kw = dict(causal=True, window=window, q_offset=q_offset or 0)
-    before = ops.KERNELS["flash_attention"].launches
-    out = ops.flash_attention(q, k, v, **kw)
-    assert ops.KERNELS["flash_attention"].launches == before + 1
+    sm90 = dtype == torch.bfloat16 and hd in (64, 128)
+    with _launched("flash_attention_sm90" if sm90 else "flash_attention"):
+        out = ops.flash_attention(q, k, v, **kw)
     assert out.dtype == dtype and out.shape == q.shape
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
     tol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 1e-3)
@@ -116,7 +129,8 @@ def test_flash_attention_kernel_strided_and_non_causal(dev):
     call whose KV length is a block multiple; a padded one refuses."""
     qkv = torch.randn((2, 64, 3, 4, 64), device=dev)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    out = ops.flash_attention(q, k, v, causal=False)
+    with _launched("flash_attention"):
+        out = ops.flash_attention(q, k, v, causal=False)
     want = ref.flash_attention_ref(q, k, v, causal=False)
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
     with pytest.raises(NotImplementedError):
@@ -137,7 +151,8 @@ def test_flash_attention_kernel_misaligned_views(dev, dtype):
     q, k, v = (_misaligned(t.to(dtype))
                for t in _flash_inputs(dev, 2, 100, 100, 4, 2, 64, seed=3))
     assert all(t.data_ptr() % 16 for t in (q, k, v))
-    out = ops.flash_attention(q, k, v, window=40)
+    with _launched("flash_attention"):
+        out = ops.flash_attention(q, k, v, window=40)
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=40)
     tol = (2e-5, 2e-5) if dtype == torch.float32 else (8e-3, 1e-3)
     torch.testing.assert_close(out.float(), want, rtol=tol[0], atol=tol[1])
@@ -151,6 +166,66 @@ def test_flash_attention_refuses_bad_inputs(dev):
     q, k, v = (t.double() for t in _flash_inputs(dev, 1, 8, 8, 2, 2, 64))
     with pytest.raises(TypeError):
         fa.flash_attention_cuda(q, k, v)
+
+
+SM90_CASES = [  # b, s, lk, h, kv, hd, causal, window, q_offset
+    (1, 100, 100, 4, 4, 64, True, None, 0),     # GQA group 1, ragged
+    (2, 300, 300, 8, 2, 64, True, None, 0),     # group 4
+    (1, 257, 257, 8, 1, 64, True, None, 0),     # group 8 (MQA)
+    (1, 200, 200, 4, 4, 128, True, None, 0),
+    (1, 300, 300, 8, 2, 128, True, None, 0),
+    (1, 256, 256, 8, 1, 128, True, None, 0),
+    (1, 256, 256, 4, 2, 64, True, 8, 0),        # window
+    (1, 300, 300, 4, 2, 128, True, 100, 0),
+    (1, 32, 128, 4, 4, 64, True, None, 96),     # chunked prefill
+    (1, 64, 200, 4, 2, 128, True, None, 136),
+    (2, 256, 256, 8, 2, 64, False, None, 0),    # non-causal, L a block
+    (1, 128, 512, 4, 1, 128, False, None, 0),   # multiple
+]
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=str)
+def test_flash_attention_sm90_matches_plain(dev, case):
+    """The tensor-core kernel (bf16, head_dim 64 and 128) against the plain
+    version on the f32 values of the same inputs, within one bf16 rounding
+    of the output (rtol 8e-3, atol 1e-3): it keeps p in f32 as p_hi + p_lo."""
+    b, s, lk, h, kv, hd, causal, window, q_offset = case
+    q, k, v = (t.bfloat16()
+               for t in _flash_inputs(dev, b, s, lk, h, kv, hd, seed=4))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with _launched("flash_attention_sm90"):
+        out = ops.flash_attention(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), want, rtol=8e-3, atol=1e-3)
+
+
+def test_flash_attention_sm90_strided_views(dev):
+    """q, k and v sliced out of one fused (B, S, H + 2 Kv, hd) buffer reach
+    the tensor-core kernel through their strides; a view whose head stride
+    is not a multiple of 16 bytes goes to the CUDA-core kernel."""
+    buf = torch.randn((2, 300, 8 + 2 + 2, 64), device=dev).bfloat16()
+    q, k, v = buf[:, :, :8], buf[:, :, 8:10], buf[:, :, 10:]
+    with _launched("flash_attention_sm90"):
+        out = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), want, rtol=8e-3, atol=1e-3)
+    odd = torch.randn((2, 100, 4, 68), device=dev).bfloat16()[..., :64]
+    with _launched("flash_attention"):
+        out = ops.flash_attention(odd, odd[:, :, :2], odd[:, :, 2:])
+    want = ref.flash_attention_ref(odd.float(), odd[:, :, :2].float(),
+                                   odd[:, :, 2:].float())
+    torch.testing.assert_close(out.float(), want, rtol=8e-3, atol=1e-3)
+
+
+def test_flash_attention_sm90_refuses_other_inputs(dev):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(dev, 1, 8, 8, 2, 2, 64)
+    with pytest.raises(ValueError, match="flash_attention_sm90"):
+        fa.flash_attention_sm90(q, k, v)                    # float32
+    q, k, v = (t.bfloat16() for t in _flash_inputs(dev, 1, 8, 8, 2, 2, 32))
+    with pytest.raises(ValueError, match="flash_attention_sm90"):
+        fa.flash_attention_sm90(q, k, v)                    # head_dim 32
 
 
 def test_small_pipeline_card_matches_host(dev):

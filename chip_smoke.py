@@ -9,6 +9,11 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge shapes, and times both with CUDA events. Each
    flash check asserts which of the two flash kernels ``route`` sent it to.
+   ``kmeans_assign`` is checked and timed at four shapes: (a) the main
+   path's, (b) ``benchmarks/kernel_bench.py``'s 2-D one, (c) d = 4 and (d)
+   d = 1024, k = 256; each warm (the same inputs every call) and cold (calls
+   cycling through copies more than the L2 apart), beside the CUDA graph's
+   per-launch floor, which no kernel design can remove.
 3. Runs the pipeline, then the smoke Llama's prefill and decode, at a small
    size on the card and on the host with the same inputs: the card's run
    (kernels) must agree with the host's (plain versions, which the CPU tests
@@ -26,12 +31,15 @@
 
 Phases 4 and 5 set every kernel's launch count to 0 just before each run
 they drive (the main path, the bf16 serve, the f32 serve) and read the
-counts just after.
+counts just after. Before the main path and the bf16 serve they reset the
+peak-memory counter and print what is allocated then; each peak is printed
+absolute and above that allocation.
 
 Prints the card's name and power limit, a JSON line of the kernels and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
 with a non-zero exit code and no result line. Imports nothing of JAX.
 """
+import gc
 import json
 import math
 import os
@@ -96,6 +104,33 @@ def bound(bytes_moved, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_peak(torch, label):
+    """Resets the peak-memory counter before a run and prints what is
+    allocated at that moment (the base the run's peak sits on); returns
+    the base in bytes.
+
+    PyTorch keeps a cuBLAS workspace for every stream that has run a
+    matmul, allocated from the caching allocator and never freed: each
+    ``graph_ms`` call of a plain version leaves one for its side stream.
+    No tensor of the earlier phases stays alive, but those workspaces did
+    and sat under the peaks of phases 4 and 5; they are dropped here, as
+    PyTorch's own memory-leak checks do, and the run makes the one it uses
+    anew."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated()
+    log(f"  {label}: {base / 2**30:.3f} GiB allocated at the peak reset")
+    torch.cuda.reset_peak_memory_stats()
+    return base
+
+
+def peak_text(torch, base):
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak device memory {peak / 2**30:.2f} GiB, "
+            f"{(peak - base) / 2**30:.2f} GiB above the reset")
 
 
 def check_kmeans(ops, ref, x, c, label):
@@ -305,43 +340,111 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     return rows
 
 
-def kernel_phase(torch, ops, ref, km_mod, rg_mod, dev):
-    """Phase 2: every kernel against its plain version, then timed."""
-    g = torch.Generator(device=dev).manual_seed(1)
-    rows = {}
+def kmeans_bound(x, c):
+    """Each input read once, each output written once; 2d flops for ||x||^2,
+    2kd for the cross terms, 3k to combine and compare."""
+    rows, d, k = x.numel() // x.shape[-1], x.shape[-1], c.shape[-2]
+    return bound(4 * (x.numel() + c.numel()) + 8 * rows,
+                 rows * (2 * d + 2 * k * d + 3 * k))
 
-    # kmeans_assign at the main path's first Lloyd shapes: N=30 clients,
-    # cap=1998 rows, d=n_pca=32, k=3 (one launch for all clients)
-    x = torch.randn((30, 1998, 32), generator=g, device=dev)
-    c = torch.randn((30, 3, 32), generator=g, device=dev)
-    err = check_kmeans(ops, ref, x, c, "main (30,1998,32)x(30,3,32)")
-    # edge shapes: ragged n and d, k > 8, the 2-D call, planted exact ties
-    check_kmeans(ops, ref, torch.randn((5, 37, 11), generator=g, device=dev),
-                 torch.randn((5, 11, 11), generator=g, device=dev),
+
+def cold_graph_ms(fn, x, c, l2_bytes=64 * 2**20):
+    """graph_ms of fn(x, c) with the captured calls cycling through copies
+    of (x, c), more than the card's 50 MB L2 apart: each call finds its
+    inputs in device memory, not in L2."""
+    import itertools
+    import torch
+    each = 4 * (x.numel() + c.numel())
+    m = max(2, -(-l2_bytes // each))
+    copies = itertools.cycle([(x.clone(), c.clone()) for _ in range(m)])
+    ms = graph_ms(lambda: fn(*next(copies)), iters=m * -(-50 // m))
+    del copies
+    torch.cuda.empty_cache()
+    return ms
+
+
+def kmeans_phase(torch, ops, ref, km_mod, dev):
+    """Phase 2, kmeans_assign: the kernel against its plain version at the
+    main path's shape, the shapes (b)-(d) and edge shapes; then timed at
+    (a)-(d) warm (the same inputs every call, so they sit in L2) and cold.
+    Returns the kernel's row."""
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # (a) the main path's Lloyd step: N=30 clients, cap=1998 rows,
+    # d=n_pca=32, k=3 (one launch for all clients); (b) the kernel bench's
+    # 2-D shape; (c) d = n_pca = 4; (d) the Pallas docstring's budget
+    timed = {"(a) main (30,1998,32)x(30,3,32)": (randn(30, 1998, 32),
+                                                 randn(30, 3, 32)),
+             "(b) 2-D (20000,128)x(10,128)": (randn(20000, 128),
+                                              randn(10, 128)),
+             "(c) d=4 (30,1998,4)x(30,3,4)": (randn(30, 1998, 4),
+                                              randn(30, 3, 4)),
+             "(d) (2,4096,1024)x(2,256,1024)": (randn(2, 4096, 1024),
+                                                randn(2, 256, 1024))}
+    errs = {label: check_kmeans(ops, ref, x, c, label)
+            for label, (x, c) in timed.items()}
+    # edge shapes: ragged n and d, k > 8, the 2-D call, a chunk of
+    # centroids narrower than d
+    check_kmeans(ops, ref, randn(5, 37, 11), randn(5, 11, 11),
                  "k=11 d=11 n=37")
-    check_kmeans(ops, ref, torch.randn((1001, 32), generator=g, device=dev),
-                 torch.randn((3, 32), generator=g, device=dev), "2-D n=1001")
-    ct = torch.randn((4, 3, 32), generator=g, device=dev)
-    ct[:, 2] = ct[:, 0]          # duplicate centroid: exact ties, 0 wins
-    xt = torch.randn((4, 333, 32), generator=g, device=dev)
-    a, _ = ops.kmeans_assign(xt, ct)
-    if bool((a == 2).any()):
-        raise AssertionError("kmeans_assign: a tie went to the later index")
-    log("  kmeans_assign planted ties: first index wins")
-    n_, nr, d_ = x.shape
-    k_ = c.shape[1]
-    b_ms, b_by = bound(4 * (x.numel() + c.numel()) + 8 * n_ * nr,
-                       n_ * nr * (2 * d_ + 2 * k_ * d_ + 3 * k_))
-    rows["kmeans_assign"] = dict(
+    check_kmeans(ops, ref, randn(1001, 32), randn(3, 32), "2-D n=1001")
+    check_kmeans(ops, ref, randn(1, 300, 1100), randn(1, 10, 1100),
+                 "d=1100 k=10 (chunks of 8 x 1024)")
+    # planted exact ties: a duplicate centroid in the same register group,
+    # and copies of a first-chunk centroid placed in a later chunk
+    for (nb, n, d, k, first, dup) in ((4, 333, 32, 3, 0, 2),
+                                      (2, 500, 1024, 20, 2, 17),
+                                      (2, 500, 1100, 10, 1, 9)):
+        ct = randn(nb, k, d)
+        ct[:, dup] = ct[:, first]
+        xt = randn(nb, n, d)
+        check_kmeans(ops, ref, xt, ct, f"planted ties j={first}, {dup} d={d}")
+        a, _ = ops.kmeans_assign(xt, ct)
+        if bool((a == dup).any()) or not bool((a == first).any()):
+            raise AssertionError(f"kmeans_assign d={d}: a tie between "
+                                 f"{first} and {dup} went to the later index")
+        log(f"  kmeans_assign planted ties j={first}, {dup} (d={d}, k={k}): "
+            "first index wins")
+
+    shapes = []
+    for label, (x, c) in timed.items():
+        b_ms, b_by = kmeans_bound(x, c)
+        shapes.append(dict(
+            shape=label, ms=graph_ms(lambda: km_mod.kmeans_assign_cuda(x, c)),
+            cold_ms=cold_graph_ms(km_mod.kmeans_assign_cuda, x, c),
+            plain_ms=graph_ms(lambda: ref.kmeans_assign_ref(x, c)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[label]))
+        nb, n, d = (x if x.dim() == 3 else x[None]).shape
+        r = shapes[-1]
+        log(f"  kmeans_assign {label}: device {r['ms']:.5f} ms warm, "
+            f"{r['cold_ms']:.5f} ms cold, plain {r['plain_ms']:.5f} ms; "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        log(f"    {km_mod._plan(dev.index, n, d, c.shape[-2], nb, 1)}")
+    z = torch.zeros(1, device=dev)
+    floor = graph_ms(lambda: z.zero_())
+    log(f"  graph launch floor (1-element zero_, captured as above): "
+        f"{floor:.5f} ms per call")
+    x, c = timed["(a) main (30,1998,32)x(30,3,32)"]
+    main = shapes[0]
+    return dict(
         name="kmeans_assign", route="cuda",
         source="src/repro_torch/csrc/kmeans_assign.cu",
         replaces="src/repro/kernels/kmeans_assign.py:40",
-        max_abs_err=err,
-        ms=graph_ms(lambda: km_mod.kmeans_assign_cuda(x, c)),
-        plain_ms=graph_ms(lambda: ref.kmeans_assign_ref(x, c)),
+        max_abs_err=main["max_abs_err"], ms=main["ms"],
+        cold_ms=main["cold_ms"], plain_ms=main["plain_ms"],
         call_ms=cuda_ms(lambda: km_mod.kmeans_assign_cuda(x, c), iters=200),
         plain_call_ms=cuda_ms(lambda: ref.kmeans_assign_ref(x, c), iters=200),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, floor_ms=floor, shapes=shapes[1:])
+
+
+def kernel_phase(torch, ops, ref, km_mod, rg_mod, dev):
+    """Phase 2: every kernel against its plain version, then timed."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = {"kmeans_assign": kmeans_phase(torch, ops, ref, km_mod, dev)}
 
     # recon_gate at the gate's shapes: base (G=30, R=1998, P=784) and
     # candidates (G=90, R=40, P=784)
@@ -549,13 +652,13 @@ def serve_phase(torch, ops, dev):
         f"({cfg.param_dtype}), drawn in {time.perf_counter() - t0:.2f} s")
     serve(model, params, tokens, 2, generator=g, device=dev)   # warm-up
 
+    base = reset_peak(torch, "bf16 serve")
     for k in ops.KERNELS.values():
         k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     res = serve(model, params, tokens, gen, temperature=1.0, generator=g,
                 device=dev)
     launches = {name: k.launches for name, k in ops.KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_text(torch, base)
 
     # the same weights served with float32 activations, batch 1: the
     # CUDA-core flash kernel
@@ -608,7 +711,7 @@ def serve_phase(torch, ops, dev):
     log(f"  decode {steps} steps x {batch} seqs: {res.decode_s * 1e3:.2f} ms "
         f"({steps * batch / res.decode_s:.0f} tok/s, "
         f"{res.decode_s * 1e3 / steps:.3f} ms per step)")
-    log(f"  peak device memory {peak:.2f} GiB")
+    log(f"  bf16 serve: {peak}")
     log(f"  f32 last-token logits, kernel vs plain route: max err "
         f"{err32:.3e} (|logits| <= {scale:.3f})")
     log(f"  f32 serve, prefill 1x{prompt}: {res32.prefill_s * 1e3:.2f} ms")
@@ -656,9 +759,9 @@ def main_path(torch, ops, dev):
     ae_cfg = AEConfig()
     cfg = PipelineConfig()
 
+    base = reset_peak(torch, "main path")
     for k in ops.KERNELS.values():
         k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = run_pipeline(xs, ys, ae_cfg, cfg, generator=gen, device=dev)
     torch.cuda.synchronize()
@@ -704,8 +807,7 @@ def main_path(torch, ops, dev):
     for name, val in res.stage_seconds.items():
         log(f"  stage {name}: {val:.3f} s")
     log(f"  run_pipeline {t_pipe:.3f} s, fl_train (2 rounds) {t_fl:.3f} s, "
-        f"linear_evaluation {t_le:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"linear_evaluation {t_le:.3f} s, {peak_text(torch, base)}")
     log(f"  moved_counts {moved.tolist()}")
     log(f"  lambda mean before {res.lam_before.float().mean():.4f} after "
         f"{res.lam_after.float().mean():.4f}")
@@ -779,9 +881,10 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cold_ms", "floor_ms", "shapes")
     log(smi)
-    log(json.dumps({"kernels": [{k: r[k] for k in keys}
+    log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

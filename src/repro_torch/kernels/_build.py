@@ -96,6 +96,19 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def query(self, symbol: str, argtypes: Sequence, *args) -> None:
+        """Call another C function of the library (one that launches
+        nothing) and raise on a CUDA error; the launch count is untouched."""
+        self.function()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        code = fn(*args)
+        if code != 0:
+            msg = self._error_string(code).decode()
+            raise RuntimeError(f"{self.name} {symbol} failed: CUDA error "
+                               f"{code} ({msg})")
+
     def launch(self, *args) -> None:
         """Call the C launch function and raise on any CUDA error."""
         code = self.function()(*args)

@@ -1,6 +1,6 @@
-"""The port stands alone: ``src/repro_torch/``, ``chip_smoke.py`` and
-``tools/flash_sm90_ablation.py`` import no JAX and nothing of the JAX
-package, and the port's entry points run on the card unless asked for the
+"""The port stands alone: ``src/repro_torch/``, ``chip_smoke.py``,
+``tools/flash_sm90_ablation.py`` and ``tools/kmeans_assign_bench.py`` import
+no JAX and nothing of the JAX package, and the port's entry points run on the card unless asked for the
 CPU."""
 import ast
 import pathlib
@@ -20,7 +20,8 @@ from repro_torch.models.registry import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_ablation.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_ablation.py",
+     ROOT / "tools" / "kmeans_assign_bench.py"]
 
 
 def _imports(path):

@@ -32,23 +32,54 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(30, 1998, 32, 3), (5, 37, 11, 11),
-                                   (1, 1, 4, 2)])
+def _check_kmeans(x, c):
+    before = ops.KERNELS["kmeans_assign"].launches
+    a, m = ops.kmeans_assign(x, c)
+    assert ops.KERNELS["kmeans_assign"].launches == before + 1
+    assert a.shape == x.shape[:-1] and m.shape == x.shape[:-1]
+    ra, rm = ref.kmeans_assign_ref(x, c)
+    scale = (x * x).sum(-1) + (c * c).sum(-1).amax(-1, keepdim=True)
+    assert bool(((m - rm).abs() <= 1e-5 * scale + 1e-6).all())
+    d2 = torch.cdist(x, c) ** 2
+    top2 = torch.topk(d2, min(2, c.shape[-2]), dim=-1, largest=False).values
+    near = (top2[..., -1] - top2[..., 0]) < 1e-5 * scale + 1e-6
+    assert bool(((a == ra) | near).all())
+    return a
+
+
+@pytest.mark.parametrize("shape", [
+    (30, 1998, 32, 3), (5, 37, 11, 11), (1, 1, 4, 2),
+    (30, 1998, 4, 3),         # d = n_pca = 4: a row per lane
+    (2, 4096, 1024, 256),     # the Pallas docstring's budget: 32 chunks
+    (1, 300, 1100, 10)])      # a chunk narrower than d
 def test_kmeans_assign_kernel_matches_plain(dev, shape):
     n, rows, d, k = shape
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((n, rows, d), generator=g, device=dev)
     c = torch.randn((n, k, d), generator=g, device=dev)
-    before = ops.KERNELS["kmeans_assign"].launches
-    a, m = ops.kmeans_assign(x, c)
-    assert ops.KERNELS["kmeans_assign"].launches == before + 1
-    ra, rm = ref.kmeans_assign_ref(x, c)
-    scale = (x * x).sum(-1) + (c * c).sum(-1).amax(-1, keepdim=True)
-    assert bool(((m - rm).abs() <= 1e-5 * scale + 1e-6).all())
-    d2 = torch.cdist(x, c) ** 2
-    top2 = torch.topk(d2, min(2, k), dim=-1, largest=False).values
-    near = (top2[..., -1] - top2[..., 0]) < 1e-5 * scale + 1e-6
-    assert bool(((a == ra) | near).all())
+    _check_kmeans(x, c)
+
+
+def test_kmeans_assign_kernel_two_d(dev):
+    """The kernel bench's shape: x (20000, 128), c (10, 128), no batch."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((20000, 128), generator=g, device=dev)
+    c = torch.randn((10, 128), generator=g, device=dev)
+    _check_kmeans(x, c)
+
+
+@pytest.mark.parametrize("d,k,first,dup", [(1024, 20, 2, 17),
+                                           (1100, 10, 1, 9)])
+def test_kmeans_assign_kernel_ties_across_chunks(dev, d, k, first, dup):
+    """An exact copy of a centroid of the first shared-memory chunk placed
+    in a later chunk (at d = 1024 a chunk holds 8 centroids; at d = 1100 a
+    chunk is also narrower than d): the lower index wins, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, 500, d), generator=g, device=dev)
+    c = torch.randn((2, k, d), generator=g, device=dev)
+    c[:, dup] = c[:, first]
+    a = _check_kmeans(x, c)
+    assert bool((a == first).any()) and not bool((a == dup).any())
 
 
 @pytest.mark.parametrize("shape", [(30, 1998, 784), (90, 40, 784),

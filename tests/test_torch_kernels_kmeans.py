@@ -96,3 +96,80 @@ def test_plain_version_is_the_oracle_formula():
     a, m = ref.kmeans_assign_ref(torch.as_tensor(x), torch.as_tensor(c))
     d2 = ((x[:, None] - c[None]) ** 2).sum(-1)
     np.testing.assert_allclose(m.numpy(), d2.min(1), rtol=1e-4, atol=1e-4)
+
+
+# The launch geometry of the CUDA kernel (``kmeans_assign.launch_plan``), a
+# pure function of the shapes and the card: checked here without a card.
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("d,tpr", [(4, 1), (11, 4), (32, 8), (128, 32),
+                                   (1024, 32)])
+def test_launch_plan_threads_per_row(d, tpr):
+    plan = km_kernel.launch_plan(1998, d, 3, 30, H100_SMS)
+    assert plan.tpr == tpr
+    assert plan.block == km_kernel.THREADS and plan.block % tpr == 0
+
+
+def test_launch_plan_shared_memory_bounded_for_every_k_and_d():
+    """Every k <= 256 and d <= 1024 stages its centroids in at most 48 KB
+    (what a block gets without opting in; a fortiori under 227 KB), in
+    chunks that tile every (centroid, column) and keep whole register
+    groups; a chunk narrower than d holds one group."""
+    for d in range(1, 1025):
+        for k in range(1, 257):
+            p = km_kernel.launch_plan(4096, d, k, 2, H100_SMS)
+            width = 4 * p.tpr
+            assert p.shared_bytes == 4 * (p.kc * p.dc + p.kc) <= 48 * 1024
+            assert p.kc % p.kg == 0 and p.dc % width == 0 and p.dc >= width
+            if p.dc < d:
+                assert p.kc == p.kg
+    wide = km_kernel.launch_plan(100, 70_000, 300, 1, H100_SMS)
+    assert wide.shared_bytes <= km_kernel.CHUNK_BYTES + 4 * wide.kc
+    assert wide.kc == wide.kg and wide.dc < 70_000
+
+
+@pytest.mark.parametrize("n,d,k,batch", [
+    (1998, 32, 3, 30),         # the main path's Lloyd step
+    (20000, 128, 10, 1),       # the kernel bench's 2-D shape
+    (1998, 4, 3, 30),          # n_pca = 4
+    (4096, 1024, 256, 2),      # the Pallas docstring's budget
+    (3, 32, 3, 1_000_000),     # many tiny clients
+    (2**30, 4, 2, 1),          # one huge client
+])
+@pytest.mark.parametrize("blocks_per_sm", [1, 4, 8])
+def test_launch_plan_grid_within_limits(n, d, k, batch, blocks_per_sm):
+    p = km_kernel.launch_plan(n, d, k, batch, H100_SMS, blocks_per_sm)
+    tile = p.block // p.tpr * km_kernel.ROWS_PER_GROUP
+    assert 1 <= p.block <= 1024
+    assert p.grid == batch * p.parts <= km_kernel.MAX_GRID_X
+    assert p.span % tile == 0
+    assert (p.parts - 1) * p.span < n <= p.parts * p.span
+    # one wave: no more parts than the card's slots call for
+    slots = H100_SMS * blocks_per_sm
+    assert p.parts == 1 or p.parts <= -(-slots // batch)
+
+
+@pytest.mark.parametrize("d", [4, 11, 32, 128])
+@pytest.mark.parametrize("n", [1, 37, 127, 128, 129, 1001, 1998, 5000])
+def test_launch_plan_covers_every_row_once(n, d):
+    """Replays the kernel's row mapping (block part -> span -> tiles ->
+    row r of row group grp, written by lane r % tpr) over the plan: every
+    row of every client is written exactly once."""
+    for batch, blocks_per_sm in ((1, 8), (3, 4), (30, 1)):
+        p = km_kernel.launch_plan(n, d, 3, batch, H100_SMS, blocks_per_sm)
+        groups = p.block // p.tpr
+        tile = groups * km_kernel.ROWS_PER_GROUP
+        writes = np.zeros((batch, n), np.int64)
+        r = np.arange(km_kernel.ROWS_PER_GROUP)[:, None]
+        lanes = np.arange(groups * p.tpr)
+        grp, sub = lanes // p.tpr, lanes % p.tpr
+        for blk in range(p.grid):
+            b, part = divmod(blk, p.parts)
+            begin = part * p.span
+            end = min(n, begin + p.span)
+            for row0 in range(begin, end, tile):
+                rows = row0 + r * groups + grp[None, :]
+                own = (rows < end) & (r % p.tpr == sub[None, :])
+                np.add.at(writes[b], rows[own], 1)
+        assert (writes == 1).all()

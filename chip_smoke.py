@@ -28,16 +28,28 @@
    tensor-core flash kernel); then serves the same weights with float32
    activations (the CUDA-core flash kernel) and holds that prefill's kernel
    route against its plain route.
+6. Drives the online orchestrator: (a) ``run_orchestrator`` at full width
+   on phase 4's world, scenario ``burst-outage``, 5 segments of 20 FL
+   iterations with an RL burst, a re-exchange and retries every segment,
+   printing each segment's seconds, stages and metrics; then holds both
+   kernels against their plain versions at the shapes that run grew to,
+   and runs a copy of the scenario whose burst hits every link, where the
+   retry exchange must run; (b) a small run on
+   the card against the host from the same draws; (c) a small run killed
+   at segment 2 and resumed from its checkpoint on the card, bit-identical
+   to the uninterrupted run.
 
-Phases 4 and 5 set every kernel's launch count to 0 just before each run
-they drive (the main path, the bf16 serve, the f32 serve) and read the
-counts just after. Before the main path and the bf16 serve they reset the
-peak-memory counter and print what is allocated then; each peak is printed
-absolute and above that allocation.
+Phases 4, 5 and 6 (a) set every kernel's launch count to 0 just before each
+run they drive (the main path, the bf16 serve, the f32 serve, the two
+online runs) and read the counts just after. Before the main path, the bf16
+serve and each online run they reset the peak-memory counter and print what is
+allocated then; each peak is printed absolute and above that allocation.
 
-Prints the card's name and power limit, a JSON line of the kernels and, as
-the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
-with a non-zero exit code and no result line. Imports nothing of JAX.
+Prints the card's name and power limit, a JSON line of the kernels (with
+each kernel's launches on the main path and, as ``online_launches``, on the
+``burst-outage`` run, and the online shapes' ``online_max_abs_err``) and, as the last line, ``{"ok": true, "device": {...}}``. Any
+failure ends the run with a non-zero exit code and no result line. Imports
+nothing of JAX.
 """
 import gc
 import json
@@ -737,13 +749,11 @@ def serve_phase(torch, ops, dev):
     return launches, launches32
 
 
-def main_path(torch, ops, dev):
-    """Phase 4: the full-width main path; returns the launch counts."""
-    from repro_torch.core.pipeline import PipelineConfig, run_pipeline
+def full_world(torch, dev):
+    """The full-width world of phases 4 and 6: FMNIST-sized synthetic data
+    (10 classes x 6,000 train images, 30 eval per class) over N = 30
+    clients with 3 circular classes each. Returns (xs, ys, ev, generator)."""
     from repro_torch.data import fmnist_like_split, partition_by_classes
-    from repro_torch.fl import FLConfig, fl_train, linear_evaluation
-    from repro_torch.models.autoencoder import AEConfig
-
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     train, ev = fmnist_like_split(gen, n_train_per_class=6000,
@@ -756,6 +766,16 @@ def main_path(torch, ops, dev):
     log(f"  world: {sum(x.shape[0] for x in xs)} images over {len(xs)} "
         f"clients, eval {ev.images.shape[0]}; set-up "
         f"{time.perf_counter() - t0:.2f} s")
+    return xs, ys, ev, gen
+
+
+def main_path(torch, ops, dev):
+    """Phase 4: the full-width main path; returns the launch counts."""
+    from repro_torch.core.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.fl import FLConfig, fl_train, linear_evaluation
+    from repro_torch.models.autoencoder import AEConfig
+
+    xs, ys, ev, gen = full_world(torch, dev)
     ae_cfg = AEConfig()
     cfg = PipelineConfig()
 
@@ -821,6 +841,269 @@ def main_path(torch, ops, dev):
     return launches
 
 
+def _online_run(torch, ops, dev, world, cfg, scenario):
+    """One full-width ``run_orchestrator`` call with the launch counts set
+    to 0 just before it and read just after; prints its segments and
+    checks what every full-width online run must show. Returns (result,
+    launch counts)."""
+    from repro_torch.dynamics import run_orchestrator
+    from repro_torch.models.autoencoder import AEConfig
+    xs, ys, ev = world
+    name = getattr(scenario, "name", scenario)
+    base = reset_peak(torch, f"online orchestrator, {name}")
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = run_orchestrator(xs, ys, AEConfig(), cfg, scenario, ev.images,
+                           device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    peak = peak_text(torch, base)
+
+    segs = res.trace.segments
+    for seg, sec, st in zip(segs, res.segment_seconds, res.stage_seconds):
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+        log(f"  segment {seg.segment}: {sec:.3f} s ({stages}); eval loss "
+            f"{seg.eval_loss:.5f}, available {seg.n_available}, moved "
+            f"{seg.moved}, failed {seg.n_failed} of {seg.n_live} live, "
+            f"retried {seg.retried}, delivered {seg.retry_delivered}, "
+            f"link churn {seg.link_churn:.3f}, mean P_D "
+            f"{seg.mean_pfail:.4f}")
+    log(f"  run_orchestrator ({name}) {total:.3f} s; final cap "
+        f"{res.client_data.cap}, sizes {res.client_data.sizes.min().item()}-"
+        f"{res.client_data.sizes.max().item()}; {peak}")
+    log(f"  summary {res.trace.summary()}")
+    log(f"  launches {launches}")
+    retries = sum(seg.retried > 0 for seg in segs)
+    n = 30
+    checks = {
+        "kmeans_assign launched 50 + 25 x 4 = 150 times":
+            launches["kmeans_assign"] == 150,
+        f"recon_gate launched 2 x (5 + {retries} retry exchanges) times":
+            launches["recon_gate"] == 2 * (5 + retries),
+        "no flash kernel launched":
+            launches["flash_attention"] == launches["flash_attention_sm90"]
+            == 0,
+        "every eval loss finite": len(segs) == 5
+            and all(math.isfinite(seg.eval_loss) for seg in segs),
+        "every segment's in_edge has no self-link":
+            all((seg.in_edge != list(range(n))).all() for seg in segs),
+        "data finite": bool(torch.isfinite(res.client_data.data).all()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"online orchestrator ({name}) checks failed: "
+                             f"{failed}")
+    return res, launches
+
+
+def online_kernel_checks(torch, ops, ref, res, cfg, dev):
+    """Both kernels against their plain versions, at phase 2's tolerances,
+    on the client stack the online run ended with (its cap grown by every
+    re-exchange): ``kmeans_assign`` on the PCA features and centroids of a
+    re-cluster of that stack, ``recon_gate`` on its reconstructions by the
+    final global model, with the own-data mask the gate gives it (each
+    client's size) and with every group but two empty. Returns the max
+    errors."""
+    from repro_torch.core.pipeline import cluster_clients
+    from repro_torch.models import autoencoder as ae
+    from repro_torch.models.autoencoder import AEConfig
+    from repro_torch.models.common import tree_map
+    cd = res.client_data
+    n, cap = cd.n_clients, cd.cap
+    flats = cd.data.reshape(n, cap, -1)
+    pca, cents, _ = cluster_clients(
+        cd, cfg.pipeline, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    err_km = check_kmeans(ops, ref, pca.transform(flats), cents,
+                          f"online final cap ({n},{cap},"
+                          f"{cfg.pipeline.n_pca})x{tuple(cents.shape)}")
+    stacked = tree_map(lambda p: p.expand((n,) + tuple(p.shape)).contiguous(),
+                       res.global_params)
+    with torch.no_grad():
+        y = ae.reconstruct_stacked(stacked, cd.data, AEConfig()).reshape(
+            n, cap, -1)
+    own = (torch.arange(cap, device=dev)[None, :]
+           < cd.sizes[:, None]).float()
+    err_rg = check_recon(ops, ref, y, flats, own,
+                         f"online final cap ({n},{cap},{flats.shape[-1]}), "
+                         "own-data mask")
+    sparse = torch.zeros_like(own)
+    sparse[[3, 17]] = own[[3, 17]]
+    check_recon(ops, ref, y, flats, sparse,
+                f"online final cap ({n},{cap},{flats.shape[-1]}), all but "
+                "2 groups empty")
+    scores = ops.recon_gate_score(y, flats, sparse)
+    if bool((scores[sparse.sum(-1) == 0] != 0).any()):
+        raise AssertionError("recon_gate: an empty group must score 0")
+    return {"kmeans_assign": err_km, "recon_gate": err_rg}
+
+
+def orchestrator_full(torch, ops, ref, dev):
+    """Phase 6 (a): the online orchestrator at full width on phase 4's
+    world, 5 segments of 20 FL iterations, a 150-episode RL burst and a
+    re-exchange every segment, retries on; two runs.
+
+    ``burst-outage`` is the timed run whose launch counts the JSON line
+    reports; both kernels are then held against their plain versions at
+    the shapes it grew to. Its RL burst may steer clear of every failing
+    link, so the retry path is shown by a second run on a copy of the
+    scenario whose burst floors every link at P_D 0.97 in segments 1-2:
+    each of segment 1's 30 live links fails with probability >= 0.97, and
+    segment 2 must retry. Returns (launch counts, online max errors)."""
+    import dataclasses
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.dynamics import OrchestratorConfig, get_scenario
+    from repro_torch.faults import RetryPolicy
+    from repro_torch.fl import FLConfig
+    xs, ys, ev, _ = full_world(torch, dev)
+    cfg = OrchestratorConfig(
+        n_segments=5, iters_per_segment=20, mode="online", rediscover_every=1,
+        burst_episodes=150, retry=RetryPolicy(enabled=True),
+        pipeline=PipelineConfig(exchange=ExchangeConfig(
+            apply_channel_failure=True)),
+        fl=FLConfig(tau_a=10, batch_size=64, eval_every=20))
+
+    res, launches = _online_run(torch, ops, dev, (xs, ys, ev), cfg,
+                                "burst-outage")
+    errs = online_kernel_checks(torch, ops, ref, res, cfg, dev)
+    del res
+
+    scn = get_scenario("burst-outage")
+    every_link = dataclasses.replace(
+        scn, name="burst-outage, every link", faults=dataclasses.replace(
+            scn.faults, link_bursts=tuple(
+                dataclasses.replace(b, frac=1.0)
+                for b in scn.faults.link_bursts)))
+    res, _ = _online_run(torch, ops, dev, (xs, ys, ev), cfg, every_link)
+    segs = res.trace.segments
+    if not (segs[1].n_failed >= 1 and segs[2].retried >= 1
+            and res.trace.summary()["total_failed_links"] >= 1):
+        raise AssertionError("every link burst: the retry queue saw no "
+                             "failed live link, or segment 2 retried none")
+    return launches, errs
+
+
+def _small_online(n_segments=4, **kw):
+    from repro_torch.core import exchange as ex
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import qlearning as ql
+    from repro_torch.dynamics import OrchestratorConfig
+    from repro_torch.fl import FLConfig
+    return OrchestratorConfig(
+        n_segments=n_segments, iters_per_segment=20, mode="online",
+        burst_episodes=20,
+        pipeline=pl.PipelineConfig(
+            n_pca=4, kmeans_iters=5,
+            rl=ql.RLConfig(n_episodes=40, buffer_size=10, policy="ucb"),
+            exchange=ex.ExchangeConfig(reserve_per_cluster=8,
+                                       apply_channel_failure=True)),
+        fl=FLConfig(tau_a=10, batch_size=8, eval_every=10), **kw)
+
+
+def orchestrator_reference(torch, dev):
+    """Phase 6 (b): the orchestrator on the card against the host, small
+    (UCB discovery, ``regional-failure``, 4 segments), from the same seeded
+    draws (the card's source draws on a CPU generator). Graphs,
+    availability, moved counts and failed links exact; eval losses within
+    1e-3 relative (phase 3's FL tolerance)."""
+    from repro_torch.dynamics import SeededDraws, run_orchestrator
+    from repro_torch.models.autoencoder import AEConfig
+    xs, ys, ev = small_world(torch)
+    ae_cfg = AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
+    cfg = _small_online()
+    host = run_orchestrator(xs, ys, ae_cfg, cfg, "regional-failure",
+                            ev.images, draws=SeededDraws(3, "cpu"),
+                            device="cpu")
+    card = run_orchestrator(xs, ys, ae_cfg, cfg, "regional-failure",
+                            ev.images, draws=SeededDraws(3, dev, "cpu"),
+                            device=dev)
+    for h, c in zip(host.trace.segments, card.trace.segments):
+        same = ((h.in_edge == c.in_edge).all() and (h.n_available, h.moved,
+                h.n_failed) == (c.n_available, c.moved, c.n_failed))
+        if not same or not math.isclose(c.eval_loss, h.eval_loss,
+                                        rel_tol=1e-3):
+            raise AssertionError(f"small online run, segment {h.segment}: "
+                                 f"host {h} card {c}")
+    log(f"  small online run agrees over {len(host.trace.segments)} "
+        f"segments: available {[s.n_available for s in host.trace.segments]}"
+        f", moved {[s.moved for s in host.trace.segments]}, eval "
+        f"{[round(s.eval_loss, 5) for s in host.trace.segments]} (card "
+        f"{[round(s.eval_loss, 5) for s in card.trace.segments]})")
+
+
+def orchestrator_resume(torch, dev):
+    """Phase 6 (c): kill and resume on the card (``preempt-resume``, small).
+    Two uninterrupted card runs must be bit-identical; then a run preempted
+    at segment 2 and resumed from its checkpoint must end bit-identical to
+    them (trace, final global parameters, final ClientData). If two runs
+    differ, cuDNN's deterministic algorithms are switched on for this phase
+    and the runs are repeated; the setting needed is printed."""
+    import dataclasses
+    import shutil
+    from repro_torch.dynamics import (SeededDraws, get_scenario,
+                                      run_orchestrator)
+    from repro_torch.faults import Preempted
+    from repro_torch.models.autoencoder import AEConfig
+    from repro_torch.models.common import tree_leaves
+    xs, ys, ev = small_world(torch)
+    ae_cfg = AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = _small_online(checkpoint_dir=ckpt)
+    scn = get_scenario("preempt-resume")
+    whole = dataclasses.replace(scn, faults=dataclasses.replace(
+        scn.faults, preempt_at=None))
+
+    def run(scenario, **kw):
+        return run_orchestrator(xs, ys, ae_cfg, cfg, scenario, ev.images,
+                                draws=SeededDraws(4, dev), device=dev, **kw)
+
+    def fingerprint(res):
+        recs = [(s.segment, s.eval_loss, s.in_edge.tolist(), s.link_churn,
+                 s.mean_pfail, s.expected_delivery, s.realized_delivery,
+                 s.n_available, s.moved, s.eval_curve.tolist(), s.n_live,
+                 s.n_failed) for s in res.trace.segments]
+        return recs, [t.cpu() for t in tree_leaves(res.global_params)], \
+            [t.cpu() for t in res.client_data]
+
+    def equal(a, b):
+        return a[0] == b[0] and all(
+            torch.equal(x, y) for x, y in zip(a[1] + a[2], b[1] + b[2]))
+
+    setting = "none"
+    cudnn_det = torch.backends.cudnn.deterministic
+    try:
+        first = fingerprint(run(whole))
+        if not equal(first, fingerprint(run(whole))):
+            setting = "torch.backends.cudnn.deterministic = True"
+            torch.backends.cudnn.deterministic = True
+            first = fingerprint(run(whole))
+            if not equal(first, fingerprint(run(whole))):
+                raise AssertionError("two uninterrupted card runs differ, "
+                                     "with cuDNN's deterministic algorithms "
+                                     "too")
+        try:
+            run(scn)
+            raise AssertionError("preempt-resume did not preempt")
+        except Preempted as e:
+            if e.segment != 2 or not os.path.exists(e.checkpoint):
+                raise AssertionError(f"preempted at {e.segment}, "
+                                     f"checkpoint {e.checkpoint}")
+        resumed = run(scn, resume_from=cfg.checkpoint_path)
+        if not equal(first, fingerprint(resumed)):
+            raise AssertionError("the resumed card run differs from the "
+                                 "uninterrupted one")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"  kill at segment 2 and resume: bit-identical to the "
+        f"uninterrupted run (trace, global parameters, ClientData); "
+        f"determinism setting needed: {setting}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -876,13 +1159,21 @@ def main() -> int:
     served, served32 = serve_phase(torch, ops, dev)
     launches["flash_attention_sm90"] = served["flash_attention_sm90"]
     launches["flash_attention"] = served32["flash_attention"]
+
+    log("== phase 6: the online orchestrator")
+    online, online_errs = orchestrator_full(torch, ops, ref, dev)
+    orchestrator_reference(torch, dev)
+    orchestrator_resume(torch, dev)
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "cold_ms", "floor_ms", "shapes")
+        row["online_launches"] = online[name]
+        if name in online_errs:
+            row["online_max_abs_err"] = online_errs[name]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "online_launches", "max_abs_err", "online_max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cold_ms", "floor_ms", "shapes")
     log(smi)
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rows.values()]}))

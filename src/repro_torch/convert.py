@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.qlearning import RLState
+from repro_torch.dynamics import runstate as _rs
+from repro_torch.dynamics.environment import EnvState
 from repro_torch.fl.trainer import FLCarry
 from repro_torch.models.common import tree_map
 
@@ -62,3 +64,23 @@ def rl_state(state, device="cpu") -> RLState:
                    _tensor(buf_l, device).to(f32),
                    _tensor(r_net_prev, device).to(f32),
                    _tensor(t, device).to(torch.int32))
+
+
+def env_state(env, device="cpu") -> EnvState:
+    """An ``EnvState`` (positions, fading, rss, available, t)."""
+    pos, fade, rss, avail, t = env
+    f32 = torch.float32
+    return EnvState(_tensor(pos, device).to(f32), _tensor(fade, device).to(f32),
+                    _tensor(rss, device).to(f32),
+                    _tensor(avail, device).to(torch.bool),
+                    _tensor(t, device).to(torch.int32))
+
+
+def run_state(path: str, ae_cfg, n_segments: int, iters_per_segment: int,
+              device="cpu") -> _rs.RunState:
+    """A run-state checkpoint written by the JAX package's orchestrator, as
+    the port's ``RunState`` (``run_orchestrator(..., resume_from=...)``
+    takes it). The archives share one layout, so this is the port's own
+    loader, which casts each array to the port's dtype."""
+    return _rs.load_run_state(path, ae_cfg, n_segments, iters_per_segment,
+                              device=device)

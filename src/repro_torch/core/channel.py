@@ -1,4 +1,4 @@
-"""D2D channel model (paper Sec. II-C; mirrors the one-shot part of
+"""D2D channel model (paper Sec. II-C) and its temporal evolution (mirrors
 ``repro.core.channel``).
 
 P_D(i,j) = 1 - exp( -(2^r - 1) * sigma^2 / W_ij )
@@ -6,6 +6,11 @@ P_D(i,j) = 1 - exp( -(2^r - 1) * sigma^2 / W_ij )
 W is the received signal strength from device positions (log-distance path
 loss) times a per-link fading draw. Positions and fading are inputs; the
 ``make_positions``/``init_fading`` helpers draw them from a generator.
+
+The dynamics (``repro_torch.dynamics``) keep the channel state explicit and
+evolve it between FL segments: :func:`positions_step` (a Gaussian random
+walk reflected into the area) and :func:`fading_step` (a log-domain AR(1)).
+Both take their standard normals ``eps`` as inputs.
 """
 from __future__ import annotations
 
@@ -57,3 +62,49 @@ def failure_prob(w, cfg: ChannelConfig = ChannelConfig()):
     p = 1.0 - torch.exp(-snr_req / w)
     p.fill_diagonal_(1.0)   # no self links
     return p
+
+
+def rss_from_positions(generator: torch.Generator, pos,
+                       cfg: ChannelConfig = ChannelConfig()):
+    """W[i, j] from positions and a fading draw from ``generator``."""
+    return rss_from_state(pos, init_fading(generator, pos.shape[0]).to(
+        pos.device), cfg)
+
+
+def make_rss(generator: torch.Generator, n: int,
+             cfg: ChannelConfig = ChannelConfig()):
+    """One channel snapshot: positions, then fading, from ``generator``."""
+    return rss_from_positions(generator, make_positions(generator, n, cfg),
+                              cfg)
+
+
+def positions_step(pos, eps, step_std: float,
+                   cfg: ChannelConfig = ChannelConfig()):
+    """One mobility step: ``pos + eps * step_std`` reflected into
+    [0, area]^2 (``eps``: (N, 2) standard normals). Reflection, not
+    clipping, keeps the stationary distribution uniform."""
+    p = torch.abs(pos + eps * step_std)        # bounce off 0
+    return cfg.area - torch.abs(cfg.area - p)  # bounce off area
+
+
+def fading_step(fade, eps, rho: float, sigma: float):
+    """One block-fading step, AR(1) in the log domain:
+
+        log f_t = rho * log f_{t-1} + sqrt(max(1 - rho^2, 0)) * sigma * eps
+
+    ``eps``: (N, N) standard normals. The coefficient is computed as the
+    reference does: the Python float ``1 - rho^2`` enters a float32 max and
+    square root."""
+    c = torch.sqrt(torch.clamp_min(
+        torch.tensor(1.0 - rho * rho, dtype=torch.float32,
+                     device=fade.device), 0.0))
+    return torch.exp(rho * torch.log(fade) + c * sigma * eps)
+
+
+def degrade_links(p_fail, hit_mask, level):
+    """Raise the failure probability of the links in ``hit_mask`` to at
+    least ``level``. ``hit_mask`` is per-link (N, N) or per-transmitter
+    (N,), broadcast along the last axis."""
+    hit = torch.broadcast_to(torch.as_tensor(hit_mask, device=p_fail.device),
+                             p_fail.shape)
+    return torch.where(hit, torch.clamp_min(p_fail, level), p_fail)

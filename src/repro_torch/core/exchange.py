@@ -103,6 +103,18 @@ class ExchangeResult:
                 apply_channel)
         return self._decisions
 
+    def failed_links(self) -> list:
+        """Live links whose sampled channel failed, as host ``(rx, tx)``
+        pairs (the orchestrator's retry queue feeds on this). Self-links
+        are left out: ``P_D(i, i) = 1`` makes every one of them "fail".
+        Reads only the (N,) fail mask and the graph to the host."""
+        if self.fail is None or self._ctx is None:
+            return []
+        in_edge = self._ctx[2].cpu().numpy()
+        fail = self.fail.cpu().numpy()
+        live = in_edge != np.arange(in_edge.shape[0])
+        return [(int(i), int(in_edge[i])) for i in np.nonzero(fail & live)[0]]
+
 
 # ---------------------------------------------------------------------------
 # AE pretraining (paper Sec. III-B: one full-batch GD iteration per client)

@@ -50,7 +50,8 @@ class PipelineDraws:
     """Every random input of :func:`run_pipeline`; ``None`` fields are drawn
     from the generator when the stage runs."""
     cluster: Optional[km.KMeansDraws] = None        # pre-exchange k-means++
-    cluster_after: Optional[km.KMeansDraws] = None  # post-exchange k-means++
+    # post-exchange k-means++; a callable takes the post-exchange sizes
+    cluster_after: Optional[km.KMeansDraws] = None
     trust_u: Optional[torch.Tensor] = None          # (N_tx, N_rx, k)
     positions: Optional[torch.Tensor] = None        # (N, 2)
     fading: Optional[torch.Tensor] = None           # (N, N)
@@ -58,18 +59,19 @@ class PipelineDraws:
     exchange: Optional[ex.ExchangeDraws] = None
 
     def to(self, device) -> "PipelineDraws":
-        return PipelineDraws(**{f.name: _to(getattr(self, f.name), device)
+        return PipelineDraws(**{f.name: move_draws(getattr(self, f.name),
+                                                   device)
                                 for f in dataclasses.fields(self)})
 
 
-def _to(obj, device):
+def move_draws(obj, device):
     """Tensors inside (named) tuples and dicts moved to ``device``."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
     if isinstance(obj, dict):
-        return {k: _to(v, device) for k, v in obj.items()}
+        return {k: move_draws(v, device) for k, v in obj.items()}
     if isinstance(obj, tuple):
-        vals = [_to(v, device) for v in obj]
+        vals = [move_draws(v, device) for v in obj]
         return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
     return obj
 
@@ -214,6 +216,8 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
         if draws.cluster_after is None:
             draws.cluster_after = km.draw_kmeans(
                 generator, res.client_data.sizes, cfg.n_clusters)
+        elif callable(draws.cluster_after):
+            draws.cluster_after = draws.cluster_after(res.client_data.sizes)
         _, cents_after, _ = cluster_clients(res.client_data, cfg,
                                             draws.cluster_after, device=dev)
         lam_after = ds.lambda_matrix(cents_after, trust, beta)

@@ -139,23 +139,33 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
              init_carry: Optional[FLCarry] = None, start_iter: int = 0,
              stop_iter: Optional[int] = None, *, batch_idx=None,
              generator: Optional[torch.Generator] = None,
+             avail_mask=None, defer_metrics: bool = False,
              device="cuda") -> FLResult:
     """Run the FL task. datasets: per-client arrays or one ClientData;
     eval_data: (n_eval, H, W, C) held-out set for the global recon loss.
 
     ``init_carry`` plus ``start_iter``/``stop_iter`` run only the rounds in
     ``[start_iter, stop_iter)`` of the ``cfg.total_iters`` horizon.
-    ``batch_idx`` holds the minibatch indices of the whole horizon; without
-    it each round's indices come from ``generator`` (default: seeded with
-    ``cfg.seed`` on the run's device), as does ``init_params``."""
+    ``batch_idx[r]`` holds round r's (tau_a, N, B) minibatch indices (an
+    array over the whole horizon, or a mapping from round to indices);
+    without it each round's indices come from ``generator`` (default:
+    seeded with ``cfg.seed`` on the run's device), as does ``init_params``.
+
+    ``avail_mask``: an (N,) availability mask (truthy = aggregated) that
+    overrides ``stragglers`` and stays on the device. ``defer_metrics``
+    leaves ``eval_loss`` as a device tensor, so a caller looping over
+    segments can read every metric in one transfer at the end."""
     dev = resolve_device(device)
     cd = as_client_data(datasets, device=dev)
     n = cd.n_clients
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-    lost = set(stragglers)
-    agg_mask = torch.tensor([0.0 if i in lost else 1.0 for i in range(n)],
-                            device=dev)
+    if avail_mask is not None:
+        agg_mask = torch.as_tensor(avail_mask, device=dev).to(torch.float32)
+    else:
+        lost = set(stragglers)
+        agg_mask = torch.tensor([0.0 if i in lost else 1.0
+                                 for i in range(n)], device=dev)
     eval_data = torch.as_tensor(eval_data, device=dev)
 
     if init_carry is not None:
@@ -191,7 +201,9 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
             eval_iters.append(it)
             eval_vals.append(eval_global_loss(carry.global_params, eval_data,
                                               ae_cfg))
-    eval_loss = (torch.stack(eval_vals).cpu().numpy() if eval_vals
-                 else np.zeros((0,), np.float32))
+    eval_loss = (torch.stack(eval_vals) if eval_vals
+                 else torch.zeros((0,), device=dev))
+    if not defer_metrics:
+        eval_loss = eval_loss.cpu().numpy()
     return FLResult(carry.global_params, np.asarray(eval_iters), eval_loss,
                     carry.client_params, carry)

@@ -13,6 +13,7 @@ import repro_torch
 from repro_torch.core import exchange as tex
 from repro_torch.core import pipeline as tpl
 from repro_torch.configs import get_smoke_config
+from repro_torch.dynamics import OrchestratorConfig, run_orchestrator
 from repro_torch.fl import trainer as ttr
 from repro_torch.launch import serve as tsrv
 from repro_torch.models.autoencoder import AEConfig
@@ -58,7 +59,13 @@ def test_port_has_the_slice_modules():
                 "configs/llama32_3b.py", "configs/llama3_8b.py",
                 "models/rope.py", "models/attention.py",
                 "models/transformer.py", "models/registry.py",
-                "launch/serve.py"):
+                "launch/serve.py", "dynamics/__init__.py",
+                "dynamics/scenarios.py", "dynamics/environment.py",
+                "dynamics/metrics.py", "dynamics/runstate.py",
+                "dynamics/orchestrator.py", "dynamics/draws.py",
+                "faults/__init__.py", "faults/plan.py", "faults/inject.py",
+                "faults/retry.py", "checkpoint/__init__.py",
+                "checkpoint/store.py"):
         assert mod in names
     for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu",
                 "flash_attention_sm90.cu"):
@@ -89,6 +96,9 @@ def test_entry_points_raise_without_a_card():
         tex.run_exchange(xs, None, torch.zeros(3, 4, dtype=torch.long),
                          torch.ones(3, 3, 3), torch.tensor([1, 2, 0]),
                          torch.zeros(3, 3), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_orchestrator(xs, None, cfg, OrchestratorConfig(), "static",
+                         xs[0])
     model = build_model(get_smoke_config("llama3.2-1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init(torch.Generator().manual_seed(0))

@@ -277,3 +277,46 @@ def test_small_pipeline_card_matches_host(dev):
     assert torch.equal(host.in_edge, card.in_edge.cpu())
     assert torch.equal(host.lam_after, card.lam_after.cpu())
     assert (host.moved_counts == card.moved_counts).all()
+
+
+def test_small_orchestrator_card_matches_host(dev):
+    """The online orchestrator (UCB discovery, ``regional-failure``, 4
+    segments) on the card and on the host from the same seeded draws: the
+    card's source draws on a CPU generator and moves each draw to the card.
+    Graphs, availability, moved counts and failed links exact; eval losses
+    within 1e-3 relative (20 Adam steps a segment on convolution gradients
+    summed in different orders)."""
+    from repro_torch.core import exchange as ex
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import qlearning as ql
+    from repro_torch.data import make_split_dataset, partition_by_classes
+    from repro_torch.dynamics import (OrchestratorConfig, SeededDraws,
+                                      run_orchestrator)
+    from repro_torch.fl import FLConfig
+    from repro_torch.models.autoencoder import AEConfig
+    tr, ev = make_split_dataset(torch.Generator().manual_seed(0),
+                                n_train_per_class=30, n_eval_per_class=6,
+                                height=8, width=8, channels=1)
+    xs, ys, _ = partition_by_classes(0, tr.images.numpy(), tr.labels.numpy(),
+                                     n_clients=6, classes_per_client=3,
+                                     circular=True)
+    cfg = OrchestratorConfig(
+        n_segments=4, iters_per_segment=20, mode="online", burst_episodes=20,
+        pipeline=pl.PipelineConfig(
+            n_pca=4, kmeans_iters=5,
+            rl=ql.RLConfig(n_episodes=40, buffer_size=10, policy="ucb"),
+            exchange=ex.ExchangeConfig(reserve_per_cluster=8,
+                                       apply_channel_failure=True)),
+        fl=FLConfig(tau_a=10, batch_size=8, eval_every=10))
+    ae_cfg = AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
+    host = run_orchestrator(xs, ys, ae_cfg, cfg, "regional-failure",
+                            ev.images, draws=SeededDraws(3, "cpu"),
+                            device="cpu")
+    card = run_orchestrator(xs, ys, ae_cfg, cfg, "regional-failure",
+                            ev.images, draws=SeededDraws(3, dev, "cpu"),
+                            device=dev)
+    for h, c in zip(host.trace.segments, card.trace.segments):
+        np.testing.assert_array_equal(h.in_edge, c.in_edge)
+        assert (h.n_available, h.moved, h.n_failed) == \
+            (c.n_available, c.moved, c.n_failed)
+        np.testing.assert_allclose(c.eval_loss, h.eval_loss, rtol=1e-3)

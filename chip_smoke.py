@@ -38,18 +38,34 @@
    the card against the host from the same draws; (c) a small run killed
    at segment 2 and resumed from its checkpoint on the card, bit-identical
    to the uninterrupted run.
+7. Trains and runs the federated-LLM example: (a) Llama-3.2-1B (its config
+   unchanged, weights drawn from seed 0) through ``launch.train.main``:
+   AdamW at 3e-4, 2 warmup steps, block remat; 10 steps at 4 x 2,048
+   tokens (the plain attention route), then 3 at 2 x 4,096 (the chunked
+   route), printing every step (loss, grad norm, lr, seconds) and per
+   shape the median step seconds after the first, tokens/s, the model
+   FLOPs' share of 989 TFLOP/s and the peak; no hand kernel may launch,
+   as training follows the JAX package's routes; (b)
+   ``examples.federated_llm`` at the example's size, which must launch
+   ``kmeans_assign`` 25 times, then the kernel against its plain version
+   at that run's shape (6, 64, 16) x (6, 2, 16), and both timed there;
+   (c) 3 training steps of
+   the smoke Llama in float32 on the card against the host.
 
-Phases 4, 5 and 6 (a) set every kernel's launch count to 0 just before each
-run they drive (the main path, the bf16 serve, the f32 serve, the two
-online runs) and read the counts just after. Before the main path, the bf16
-serve and each online run they reset the peak-memory counter and print what is
+Phases 4, 5, 6 (a) and 7 (a, b) set every kernel's launch count to 0 just
+before each run they drive (the main path, the bf16 serve, the f32 serve,
+the two online runs, the two training runs, the federated-LLM run) and read
+the counts just after. Before the main path, the bf16 serve, each online run
+and each training run they reset the peak-memory counter and print what is
 allocated then; each peak is printed absolute and above that allocation.
 
 Prints the card's name and power limit, a JSON line of the kernels (with
 each kernel's launches on the main path and, as ``online_launches``, on the
-``burst-outage`` run, and the online shapes' ``online_max_abs_err``) and, as the last line, ``{"ok": true, "device": {...}}``. Any
-failure ends the run with a non-zero exit code and no result line. Imports
-nothing of JAX.
+``burst-outage`` run, as ``train_launches`` in phase 7 (a) and as
+``federated_llm_launches`` in phase 7 (b), the online shapes' errors, and
+the federated shape (e) among the kmeans row's ``shapes``) and, as the
+last line, ``{"ok": true, "device": {...}}``. Any failure ends the run with
+a non-zero exit code and no result line. Imports nothing of JAX.
 """
 import gc
 import json
@@ -612,12 +628,12 @@ def transformer_reference_phase(torch, ops, dev):
             f"(|logits| <= {float(hl.abs().max()):.3f})")
 
 
-def device_profile(torch, label, fn):
+def device_profile(torch, label, fn, top=6):
     """Runs ``fn`` once under ``torch.profiler`` and prints its wall time
     (ending in a device sync, profiler overhead included), the device's busy
     time (the sum of its kernel, copy and set durations: one stream, so they
-    do not overlap), the count of device events and the kernels with the
-    most device time. Returns fn's result and the busy ms (None when the
+    do not overlap), the count of device events and the ``top`` kernels
+    with the most device time. Returns fn's result and the busy ms (None when the
     profiler saw no device events)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -639,7 +655,7 @@ def device_profile(torch, label, fn):
     busy = sum(by_name.values())
     log(f"  profile {label}: wall {wall:.2f} ms (profiled), device busy "
         f"{busy:.2f} ms over {len(events)} device events")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
     return out, busy
 
@@ -1104,6 +1120,182 @@ def orchestrator_resume(torch, dev):
         f"determinism setting needed: {setting}")
 
 
+def train_flops(cfg, n_params, n_block_params, b, s):
+    """Model FLOPs of one training step at batch b x s tokens: 6 N per token
+    (forward and backward), one more forward of the blocks (block remat),
+    and attention's two products over the full S x L scores (the plain and
+    chunked routes compute every entry), forward, backward and the remat
+    forward."""
+    tokens = b * s
+    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return 6 * n_params * tokens + 2 * n_block_params * tokens + 4 * attn
+
+
+def profile_train_step(torch, model, b, s, dev, step_s):
+    """One training step (after a warm-up step) under ``device_profile``:
+    where its device time goes, and the device's idle share of the
+    unprofiled median step."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.registry import make_train_step
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g, device=dev)
+    state = optim.init_opt_state(params, "adamw")
+    step = make_train_step(model, TrainConfig(total_steps=10,
+                                              warmup_steps=2))
+    batch = synth_batch(model.cfg, g, b, s)
+    params, state, _ = step(params, state, batch)
+    _, busy = device_profile(torch, f"train step {b} x {s:,}",
+                             lambda: step(params, state, batch), top=14)
+    if busy is not None:
+        log(f"  train step device idle share {1 - busy / (step_s * 1e3):.3f}"
+            f" of the unprofiled median step's {step_s * 1e3:.2f} ms")
+
+
+def train_full(torch, ops, dev):
+    """Phase 7 (a): Llama-3.2-1B trained at full width through
+    ``launch.train.main``: 10 steps at 4 x 2,048 tokens (the plain
+    attention route), then 3 at 2 x 4,096 (the chunked route, the
+    sequence length of ``INPUT_SHAPES["train_4k"]``). Prints each step and,
+    per shape, the median step seconds after the first, tokens/s, the model
+    FLOPs' share of 989 TFLOP/s and the peak. Returns the launch counts,
+    summed over both runs (every hand kernel must stay at 0)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build_model
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    n_params = model.n_params()
+    n_block = sum(math.prod(sp.shape)
+                  for sp in tree_leaves(model.specs["scan"]))
+    total = {name: 0 for name in ops.KERNELS}
+    for steps, b, s in ((10, 4, 2048),
+                        (3, 2, INPUT_SHAPES["train_4k"].seq_len)):
+        label = f"train {b} x {s:,}"
+        base = reset_peak(torch, label)
+        for k in ops.KERNELS.values():
+            k.launches = 0
+        res = train.main(["--arch", cfg.name, "--steps", str(steps),
+                          "--batch", str(b), "--seq", str(s),
+                          "--log-every", str(steps), "--device", "cuda"])
+        launches = {name: k.launches for name, k in ops.KERNELS.items()}
+        peak = peak_text(torch, base)
+        for i in range(steps):
+            log(f"  {label} step {i}: loss {res.loss[i]:.4f}, grad norm "
+                f"{res.grad_norm[i]:.4f}, lr {res.lr[i]:.3e}, "
+                f"{res.seconds[i]:.4f} s")
+        later = sorted(res.seconds[1:])
+        med = (later[(len(later) - 1) // 2] + later[len(later) // 2]) / 2
+        flops = train_flops(cfg, n_params, n_block, b, s)
+        log(f"  {label}: median step {med:.4f} s after the first (first "
+            f"{res.seconds[0]:.4f} s), {b * s / med:.0f} tokens/s, "
+            f"{flops / 1e12:.2f} TFLOP a step = {flops / med / 1e12:.1f} "
+            f"TFLOP/s, {flops / med / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s "
+            f"(bound {flops / BF16_FLOPS_PER_S:.4f} s); {peak}")
+        log(f"  {label} launches {launches}")
+        if s == 2048:
+            profile_train_step(torch, model, b, s, dev, med)
+        checks = {
+            "every loss and grad norm finite":
+                all(map(math.isfinite, res.loss + res.grad_norm)),
+            "no hand kernel launched": all(v == 0 for v in launches.values()),
+            "lr follows the warmup": res.lr[0] < res.lr[1],
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{label} checks failed: {failed}")
+        for name, v in launches.items():
+            total[name] += v
+    return total
+
+
+def federated_llm_phase(torch, ops, ref, km_mod, dev):
+    """Phase 7 (b): ``examples.federated_llm`` at the example's own size (6
+    clients x 64 sequences of 64 tokens, PCA to 16, k = 2, 300 RL episodes,
+    2 x 30 FedAvg steps of the smoke Llama), then ``kmeans_assign`` against
+    its plain version at that run's shape, and both timed there. Returns
+    (launch counts, the shape's entry for the kernel row's ``shapes``)."""
+    from repro_torch.examples import federated_llm as fed
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fed.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    disc = res.discovery
+    n = fed.N_CLIENTS
+    log(f"  federated LLM: {secs:.3f} s; perplexity non-iid "
+        f"{res.ppl_base:.4f}, smart-D2D {res.ppl_smart:.4f}; moved "
+        f"{disc.moved.tolist()}; launches {launches}")
+    checks = {
+        "kmeans_assign launched 25 times (one per Lloyd step, all clients)":
+            launches["kmeans_assign"] == 25,
+        "no other kernel launched": all(
+            v == 0 for name, v in launches.items() if name != "kmeans_assign"),
+        "perplexities finite": math.isfinite(res.ppl_base)
+            and math.isfinite(res.ppl_smart),
+        "links without self links": bool(
+            (disc.graph.in_edge.cpu() != torch.arange(n)).all()),
+        "centroids (6, 2, 16) finite": tuple(disc.centroids.shape) ==
+            (n, fed.K, fed.N_PCA) and bool(torch.isfinite(disc.centroids).all()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"federated LLM checks failed: {failed}")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n, fed.N_SEQS, fed.N_PCA), generator=g, device=dev)
+    c = torch.randn((n, fed.K, fed.N_PCA), generator=g, device=dev)
+    label = f"(e) federated LLM ({n},{fed.N_SEQS},{fed.N_PCA})x" \
+        f"({n},{fed.K},{fed.N_PCA})"
+    err = check_kmeans(ops, ref, x, c, label)
+    b_ms, b_by = kmeans_bound(x, c)
+    row = dict(shape=label,
+               ms=graph_ms(lambda: km_mod.kmeans_assign_cuda(x, c)),
+               plain_ms=graph_ms(lambda: ref.kmeans_assign_ref(x, c)),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    log(f"  kmeans_assign {label}: device {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms; bound {b_ms:.5f} ms ({b_by})")
+    return launches, row
+
+
+def train_reference(torch, dev):
+    """Phase 7 (c): 3 training steps of the smoke Llama (float32
+    activations, AdamW, block remat) on the card and on the host from the
+    same weights and batches: losses and grad norms within 1e-5 relative,
+    the CPU tests' tolerance for the float32 step."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model, make_train_step
+    model = build_model(dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                                            dtype="float32"))
+    step = make_train_step(model, TrainConfig(total_steps=10,
+                                              warmup_steps=2))
+    host = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(dev), host)
+    hs, cs = (optim.init_opt_state(p, "adamw") for p in (host, card))
+    g = torch.Generator().manual_seed(1)
+    rows = []
+    for _ in range(3):
+        toks = torch.randint(0, model.cfg.vocab_size, (4, 128), generator=g)
+        host, hs, hm = step(host, hs, {"tokens": toks, "labels": toks})
+        tc = toks.to(dev)
+        card, cs, cm_ = step(card, cs, {"tokens": tc, "labels": tc})
+        rows.append([(float(hm[k]), float(cm_[k])) for k in ("loss",
+                                                             "grad_norm")])
+    worst = max(abs(c - h) / abs(h) for r in rows for h, c in r)
+    if worst > 1e-5:
+        raise AssertionError(f"train step card vs host: {rows}")
+    log(f"  small train step agrees over 3 steps: loss "
+        f"{[round(r[0][0], 6) for r in rows]}, grad norm "
+        f"{[round(r[1][0], 6) for r in rows]}; worst relative difference "
+        f"{worst:.3e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1164,16 +1356,27 @@ def main() -> int:
     online, online_errs = orchestrator_full(torch, ops, ref, dev)
     orchestrator_reference(torch, dev)
     orchestrator_resume(torch, dev)
+
+    log("== phase 7: training Llama-3.2-1B, and the federated-LLM example")
+    trained = train_full(torch, ops, dev)
+    fed_launches, fed_shape = federated_llm_phase(torch, ops, ref, km_mod,
+                                                  dev)
+    train_reference(torch, dev)
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["online_launches"] = online[name]
+        row["train_launches"] = trained[name]
+        row["federated_llm_launches"] = fed_launches[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
+    rows["kmeans_assign"]["shapes"].append(fed_shape)
     keys = ("name", "route", "source", "replaces", "launches",
-            "online_launches", "max_abs_err", "online_max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "cold_ms", "floor_ms", "shapes")
+            "online_launches", "train_launches", "federated_llm_launches",
+            "max_abs_err", "online_max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
+            "shapes")
     log(smi)
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rows.values()]}))

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
+                                      TrainConfig)
 
 _MODULES = {
     "llama3.2-1b": "llama32_1b",
@@ -35,7 +36,10 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 
 __all__ = [
     "ARCH_IDS",
+    "INPUT_SHAPES",
+    "InputShape",
     "ModelConfig",
+    "TrainConfig",
     "get_config",
     "get_smoke_config",
 ]

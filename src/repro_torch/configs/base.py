@@ -1,5 +1,6 @@
-"""Architecture configuration dataclass (the port's own copy of
-``repro.configs.base``; ``act_dtype`` and ``p_dtype`` give torch dtypes).
+"""Architecture, input-shape and training configuration dataclasses (the
+port's own copy of ``repro.configs.base``; ``act_dtype`` and ``p_dtype``
+give torch dtypes).
 
 Every ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 (the exact full-size config) and ``smoke_config()`` (the reduced variant used
@@ -9,8 +10,7 @@ Only the fields the dense transformer reads are here, plus the switches that
 select an unported family (``n_experts``, ``block_pattern``, ``frontend``,
 ``mrope_sections``, ``act_seq_shard``): the model raises
 ``NotImplementedError`` naming ROADMAP when one of those is set. The other
-families' knobs, ``InputShape`` and ``TrainConfig`` come with the PRs that
-read them (ROADMAP Queue 1).
+families' knobs come with their blocks (ROADMAP Queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -97,3 +97,35 @@ class ModelConfig:
         )
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / schedule / runtime knobs for the generic trainer."""
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    remat: str = "block"   # "none" | "block" -- activation checkpoint policy
+    seed: int = 0

@@ -16,6 +16,7 @@ from repro_torch.dynamics import runstate as _rs
 from repro_torch.dynamics.environment import EnvState
 from repro_torch.fl.trainer import FLCarry
 from repro_torch.models.common import tree_map
+from repro_torch.optim import OptState
 
 
 def _tensor(a, device):
@@ -38,6 +39,16 @@ def lm_cache(cache, device="cpu") -> dict:
     return {"pos": int(np.asarray(cache["pos"])),
             "scan": tree_map(lambda a: _tensor(a, device), cache["scan"]),
             "tail": tree_map(lambda a: _tensor(a, device), cache["tail"])}
+
+
+def opt_state(state, device="cpu") -> OptState:
+    """An optimizer ``OptState`` (step, mu, nu): the moments are trees in
+    the parameters' layout (``()`` where the optimizer keeps none) and the
+    step an int32 scalar."""
+    step, mu, nu = state
+    return OptState(_tensor(step, device).to(torch.int32),
+                    tree_map(lambda a: _tensor(a, device), mu),
+                    tree_map(lambda a: _tensor(a, device), nu))
 
 
 def ae_params(tree, device="cpu") -> dict:

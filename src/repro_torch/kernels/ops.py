@@ -63,10 +63,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     one for TMA-addressable bf16 with head_dim 64 or 128, the CUDA-core one
     otherwise. Non-causal attention whose KV length is not a multiple of
     the JAX wrapper's KV block raises ``NotImplementedError``, as there: that
-    wrapper pads KV and cannot mask the padding without the causal test."""
+    wrapper pads KV and cannot mask the padding without the causal test.
+    The kernels have no backward (nor has the Pallas kernel): an input that
+    needs a gradient raises on the card rather than dropping it."""
     if not _on_cuda(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the flash kernels have no backward; "
+                                  "train through the plain route")
     lk = k.shape[1]
     block_k = min(512, max(8, 1 << (lk - 1).bit_length()))
     if not causal and lk % block_k:

@@ -1,1 +1,1 @@
-"""Launchers (mirrors ``repro.launch``): ``serve``."""
+"""Launchers (mirrors ``repro.launch``): ``serve`` and ``train``."""

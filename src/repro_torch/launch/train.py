@@ -1,0 +1,96 @@
+"""Generic training launcher (mirrors ``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+        --smoke --steps 20 --batch 4 --seq 128 [--device cpu]
+
+Runs real steps of ``make_train_step`` (AdamW, cosine warmup, global-norm
+clipping, block remat) on synthetic token batches drawn from a generator on
+the run's device. --smoke selects the reduced config; the full config is for
+the card. Each step ends in a device sync, so the printed seconds are the
+device's. ``main`` returns a :class:`TrainResult`.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import optim, resolve_device
+from repro_torch.configs import (ARCH_IDS, TrainConfig, get_config,
+                                 get_smoke_config)
+from repro_torch.models.registry import build_model, make_train_step
+
+
+@dataclasses.dataclass
+class TrainResult:
+    loss: list          # per step
+    grad_norm: list     # per step, before clipping
+    lr: list            # per step
+    seconds: list       # per step, host clock ending in a device sync
+
+
+def synth_batch(cfg, generator: torch.Generator, b: int, s: int) -> dict:
+    """A (b, s) batch of uniform token ids, its own labels, drawn on the
+    generator's device."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"not ported yet: ROADMAP Queue 1, item 10 "
+                                  f"(the {cfg.frontend} frontend)")
+    t = torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
+                      device=generator.device)
+    return {"tokens": t, "labels": t}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None) -> TrainResult:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                     warmup_steps=max(2, args.steps // 10), seed=args.seed)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(tc.seed)
+    params = model.init(gen, device=dev)
+    opt_state = optim.init_opt_state(params, tc.optimizer)
+    step = make_train_step(model, tc)
+
+    print(f"arch={cfg.name} params={model.n_params():,} "
+          f"active={model.n_active_params():,} device={dev}")
+    res = TrainResult([], [], [], [])
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        ts = time.perf_counter()
+        batch = synth_batch(cfg, gen, args.batch, args.seq)
+        params, opt_state, metrics = step(params, opt_state, batch)
+        _sync(dev)
+        res.seconds.append(time.perf_counter() - ts)
+        res.loss.append(float(metrics["loss"]))
+        res.grad_norm.append(float(metrics["grad_norm"]))
+        res.lr.append(float(metrics["lr"]))
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss={res.loss[-1]:.4f} "
+                  f"gnorm={res.grad_norm[-1]:.3f} lr={res.lr[-1]:.2e} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    print("done")
+    return res
+
+
+if __name__ == "__main__":
+    main()

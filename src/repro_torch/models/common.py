@@ -127,3 +127,14 @@ def dense(x, w, out_dtype=None):
 
 def embed_lookup(tokens, table, dtype):
     return table[tokens].to(dtype)
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """Mean token-level CE in float32; labels == ignore_id are masked."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(labels, 0)[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -1,10 +1,10 @@
 """Model registry: one handle over the ported architectures (mirrors
-``repro.models.registry``; the training step waits for the training path,
-ROADMAP Queue 1).
+``repro.models.registry``).
 
 ``build_model(cfg)`` returns a :class:`Model` bundling init and spec trees
-and the prefill / decode entry points used by the launcher. The JAX
-package's ``make_prefill_step`` / ``make_decode_step`` wrappers and
+and the train / prefill / decode entry points; ``make_train_step(model,
+tc)`` is the training step the launcher and the federated-LLM example call. The
+JAX package's ``make_prefill_step`` / ``make_decode_step`` wrappers and
 ``Model.init_cache`` have no caller here: ``launch.serve`` calls
 ``Model.prefill(..., use_flash=True)`` and ``Model.decode`` directly, and the
 prefill allocates its own cache.
@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch import optim, resolve_device
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 
@@ -44,7 +44,18 @@ class Model:
     def n_params(self) -> int:
         return sum(math.prod(s.shape) for s in cm.tree_leaves(self.specs))
 
+    def n_active_params(self) -> int:
+        """Active parameters per token: all of them for the dense family."""
+        if self.cfg.is_moe:
+            raise NotImplementedError("not ported yet: ROADMAP Queue 1, item "
+                                      "10 (the MoE family)")
+        return self.n_params()
+
     # ---- forwards ----
+    def loss_fn(self, params, batch, *, remat=False, use_flash=False):
+        return tf.forward_train(params, batch, self.cfg, remat=remat,
+                                use_flash=use_flash)
+
     def prefill(self, params, batch, *, max_len=None, use_flash=False):
         return tf.forward_prefill(params, batch, self.cfg, max_len=max_len,
                                   use_flash=use_flash)
@@ -56,3 +67,34 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, specs=tf.model_specs(cfg))
 
+
+def make_train_step(model: Model, tc: TrainConfig) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: gradients of the loss, clipped to ``tc.grad_clip`` by global
+    norm, then one optimizer update at the cosine-warmup rate of the step
+    count before it. ``metrics`` holds ``loss``, ``grad_norm`` (before
+    clipping), ``lr``, ``ce`` and ``aux`` as device scalars. The inputs are
+    not written to."""
+    remat = tc.remat != "none"
+    hyper = ({"beta1": tc.beta1, "beta2": tc.beta2, "eps": tc.eps,
+              "weight_decay": tc.weight_decay}
+             if tc.optimizer == "adamw" else {})
+
+    def train_step(params, opt_state, batch):
+        parts = {}
+
+        def lf(p):
+            loss, metrics = model.loss_fn(p, batch, remat=remat)
+            parts.update((k, v.detach()) for k, v in metrics.items())
+            return loss
+        loss, grads = cm.value_and_grad(lf, params)
+        grads, gnorm = optim.clip_by_global_norm(grads, tc.grad_clip)
+        lr = optim.cosine_warmup(opt_state.step, base_lr=tc.learning_rate,
+                                 warmup_steps=tc.warmup_steps,
+                                 total_steps=tc.total_steps)
+        params, opt_state = optim.opt_update(tc.optimizer, params, grads,
+                                             opt_state, lr, **hyper)
+        return params, opt_state, dict(parts, loss=loss, grad_norm=gnorm,
+                                       lr=lr)
+
+    return train_step

@@ -7,9 +7,14 @@ and indexes the stacked tensors. ``n_layers % period`` remainder layers are
 applied unrolled.
 
 Entry points:
+  * forward_train(params, batch, cfg)          -> (loss, {"ce", "aux"})
   * forward_prefill(params, batch, cfg)        -> (last_logits, cache)
   * forward_decode(params, cache, batch, cfg)  -> (logits, cache)
-  * _run_stack(..., mode="train")              -> hidden states (forward only)
+
+``forward_train(..., remat=True)`` recomputes each unit's activations in
+the backward pass (``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` of the unit body), so only one unit's
+activations are live at a time.
 
 Cache layout: {"pos": int, "scan": (per pattern position {"k", "v"} with a
 leading n_units axis,), "tail": (per tail layer {"k", "v"},)}. Attention
@@ -27,6 +32,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -261,26 +267,60 @@ def logits_from_hidden(params, x, cfg):
 # full forwards
 # ---------------------------------------------------------------------------
 
+def _unit_views(tree, n_units: int) -> list:
+    """One tree per unit of views into the stacked leaves (``unbind``: the
+    units' gradients reach each stacked leaf through one stack)."""
+    leaves = [a.unbind(0) for a in cm.tree_leaves(tree)]
+    return [cm.tree_unflatten(tree, [a[u] for a in leaves])
+            for u in range(n_units)]
+
+
 def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
-               use_flash=False):
+               use_flash=False, remat=False):
     """Every layer in order; returns x. mode: "train" (no cache),
     "prefill" (fills ``cache``) or "decode" (reads and updates ``cache`` in
-    place)."""
+    place). ``remat`` checkpoints each unit: its parameter views and x go
+    in, only x is kept."""
     if cfg.act_seq_shard:
         raise NotImplementedError(_LATER.format("sharding (slice 3)"))
     period, n_units, tail_kinds = scan_meta(cfg)
-    for u in range(n_units):
+
+    def unit_body(x, p_unit, c_unit):
         for i, kind in enumerate(cfg.block_pattern):
-            p_i = cm.tree_map(lambda a: a[u], params["scan"][i])
-            c_i = None if cache is None else \
-                cm.tree_map(lambda a: a[u], cache["scan"][i])
-            x = apply_block(p_i, c_i, x, cfg, kind, positions, mode=mode,
-                            pos=pos, use_flash=use_flash)
+            x = apply_block(p_unit[i], None if c_unit is None else c_unit[i],
+                            x, cfg, kind, positions, mode=mode, pos=pos,
+                            use_flash=use_flash)
+        return x
+
+    units = list(zip(*(_unit_views(params["scan"][i], n_units)
+                       for i in range(period)))) if n_units else []
+    for u, p_unit in enumerate(units):
+        c_unit = None if cache is None else tuple(
+            cm.tree_map(lambda a: a[u], cache["scan"][i])
+            for i in range(period))
+        if remat:
+            x = checkpoint(unit_body, x, p_unit, c_unit, use_reentrant=False)
+        else:
+            x = unit_body(x, p_unit, c_unit)
     for i, kind in enumerate(tail_kinds):
         c_i = None if cache is None else cache["tail"][i]
         x = apply_block(params["tail"][i], c_i, x, cfg, kind, positions,
                         mode=mode, pos=pos, use_flash=use_flash)
     return x
+
+
+def forward_train(params, batch, cfg, *, remat=False, use_flash=False):
+    """Returns (loss, {"ce", "aux"}): the mean CE of the logits at positions
+    0..S-2 against ``batch["labels"]`` at 1..S-1. ``aux`` (the MoE router
+    loss in the reference) is 0 for the dense family."""
+    x, positions, labels = embed_inputs(params, batch, cfg)
+    x = _run_stack(params, None, x, cfg, positions, mode="train",
+                   use_flash=use_flash, remat=remat)
+    logits = logits_from_hidden(params, x, cfg)
+    ce = cm.cross_entropy(logits[:, :-1], labels[:, 1:])
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False):

@@ -12,6 +12,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import channel as jch
@@ -24,6 +25,19 @@ from repro_torch.core import kmeans as tkm
 from repro_torch.core import pipeline as tpl
 from repro_torch.core import qlearning as tql
 from repro_torch.dynamics.environment import EnvDraws
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Runs a module's tests on one torch intra-op thread, restoring the
+    count after. The suite's parallel workers leave fewer free cores than
+    torch starts threads, and its many small ops then wait on each other:
+    on an 8-core host beside 6 busy processes, 3 smoke-Llama train steps
+    took 88 s on 8 threads and 1.7 s on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(a, dtype=None):

@@ -51,7 +51,8 @@ def _check_kmeans(x, c):
     (30, 1998, 32, 3), (5, 37, 11, 11), (1, 1, 4, 2),
     (30, 1998, 4, 3),         # d = n_pca = 4: a row per lane
     (2, 4096, 1024, 256),     # the Pallas docstring's budget: 32 chunks
-    (1, 300, 1100, 10)])      # a chunk narrower than d
+    (1, 300, 1100, 10),       # a chunk narrower than d
+    (6, 64, 16, 2)])          # the federated-LLM example's Lloyd step
 def test_kmeans_assign_kernel_matches_plain(dev, shape):
     n, rows, d, k = shape
     g = torch.Generator(device=dev).manual_seed(0)
@@ -197,6 +198,10 @@ def test_flash_attention_refuses_bad_inputs(dev):
     q, k, v = (t.double() for t in _flash_inputs(dev, 1, 8, 8, 2, 2, 64))
     with pytest.raises(TypeError):
         fa.flash_attention_cuda(q, k, v)
+    # no backward: an input that needs a gradient is refused
+    q, k, v = _flash_inputs(dev, 1, 8, 8, 2, 2, 64)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
 
 
 SM90_CASES = [  # b, s, lk, h, kv, hd, causal, window, q_offset
@@ -320,3 +325,31 @@ def test_small_orchestrator_card_matches_host(dev):
         assert (h.n_available, h.moved, h.n_failed) == \
             (c.n_available, c.moved, c.n_failed)
         np.testing.assert_allclose(c.eval_loss, h.eval_loss, rtol=1e-3)
+
+
+def test_train_step_card_matches_host(dev):
+    """Two AdamW steps of the smoke Llama (float32 activations, block remat)
+    on the card and on the host from the same weights and batches: losses
+    and grad norms within 1e-5 relative, no hand kernel launched."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model, make_train_step
+    model = build_model(dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                                            dtype="float32"))
+    step = make_train_step(model, TrainConfig(total_steps=10, warmup_steps=2))
+    host = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(dev), host)
+    hs, cs = (optim.init_opt_state(p, "adamw") for p in (host, card))
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    g = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        toks = torch.randint(0, 512, (2, 64), generator=g)
+        host, hs, hm = step(host, hs, {"tokens": toks, "labels": toks})
+        tc = toks.to(dev)
+        card, cs, cm = step(card, cs, {"tokens": tc, "labels": tc})
+        for name in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(cm[name]), float(hm[name]),
+                                       rtol=1e-5)
+    assert before == {n: k.launches for n, k in ops.KERNELS.items()}

@@ -51,19 +51,41 @@
    at that run's shape (6, 64, 16) x (6, 2, 16), and both timed there;
    (c) 3 training steps of
    the smoke Llama in float32 on the card against the host.
+8. Drives the scan engine and the other modules of the fifth slice: (a)
+   ``run_orchestrator`` at full width on phase 4's world, ``burst-outage``,
+   5 segments of 20 FL iterations, the exchange with channel failures,
+   ``overflow="drop"`` and the device reserve selector, retries off, once
+   with ``segment_impl="eager"`` and once with ``"scan"`` from the same
+   draws (segments 1-4 are one chunk): graphs and counts exact, eval losses
+   within 5e-4, equal kernel launch counts; prints each run's seconds, the
+   chunk's, the peaks, and every synchronizing call made inside the chunk
+   under ``torch.cuda.set_sync_debug_mode("warn")``, by op; none may come
+   from the port's own code; (b) the scan at phase 6's small size with
+   retries on and ``checkpoint_every=2`` on the every-link copy of
+   ``burst-outage``: killed at segment 2 and resumed, bit-identical, with
+   a retry drained at a chunk boundary; (c) the one-shot main path on a
+   CIFAR-like world (5,000 train images per class, N = 30, the AE of
+   ``benchmarks/common.py``), then ``recon_gate`` against its plain
+   version at that run's (30, cap, 3072) shape, both timed there; (d)
+   ``cluster_clients_loop`` and ``wcss_elbow`` on phase 3's small world,
+   card against host, counting ``kmeans_assign``'s 2-D launches, then the
+   kernel against its plain version at that 2-D shape (f), both timed.
 
-Phases 4, 5, 6 (a) and 7 (a, b) set every kernel's launch count to 0 just
-before each run they drive (the main path, the bf16 serve, the f32 serve,
-the two online runs, the two training runs, the federated-LLM run) and read
-the counts just after. Before the main path, the bf16 serve, each online run
+Phases 4, 5, 6 (a), 7 (a, b) and 8 (a, c, d) set every kernel's launch
+count to 0 just before each run they drive (the main path, the bf16 serve,
+the f32 serve, the two online runs, the two training runs, the
+federated-LLM run, the eager and scan runs, the CIFAR-like main path, the
+clustering loop on the card) and read the counts just after. Before the main path, the bf16 serve, each online run
 and each training run they reset the peak-memory counter and print what is
 allocated then; each peak is printed absolute and above that allocation.
 
 Prints the card's name and power limit, a JSON line of the kernels (with
 each kernel's launches on the main path and, as ``online_launches``, on the
 ``burst-outage`` run, as ``train_launches`` in phase 7 (a) and as
-``federated_llm_launches`` in phase 7 (b), the online shapes' errors, and
-the federated shape (e) among the kmeans row's ``shapes``) and, as the
+``federated_llm_launches`` in phase 7 (b), as ``scan_launches`` and
+``cifar_launches`` in phase 8 (a, c), the online shapes' errors, the
+federated shape (e) and the clustering loop's (f) among the kmeans row's
+``shapes``, the CIFAR-like shape among the recon_gate row's) and, as the
 last line, ``{"ok": true, "device": {...}}``. Any failure ends the run with
 a non-zero exit code and no result line. Imports nothing of JAX.
 """
@@ -1296,6 +1318,389 @@ def train_reference(torch, dev):
         f"{worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the scan engine, the CIFAR-like main path, the clustering loop
+# ---------------------------------------------------------------------------
+
+# library calls whose own error check synchronises; a sync inside a chunk is
+# allowed only on a line that calls one of these
+LIBRARY_SYNCS = ("torch.linalg.eigh",)
+
+
+class SyncRecorder:
+    """Records every synchronizing CUDA call made inside a wrapped function
+    under ``torch.cuda.set_sync_debug_mode("warn")``: the innermost Python
+    line that made it and the port's line that led to it."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.syncs = torch, fn, []
+
+    def __call__(self, *args, **kw):
+        import linecache
+        import traceback
+        import warnings
+        port = os.path.join("src", "repro_torch") + os.sep
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            # the sync debug mode's own warning (PyTorch appends where it
+            # was raised); its one-time notice that the mode is
+            # experimental is not a sync
+            if not str(message).startswith(
+                    "called a synchronizing CUDA operation"):
+                return
+            frames = traceback.extract_stack()[:-1]
+            mine = [f for f in frames if port in f.filename]
+            site = mine[-1] if mine else frames[-1]
+            self.syncs.append((
+                f"{os.path.relpath(filename, ROOT)}:{lineno}",
+                linecache.getline(filename, lineno).strip(),
+                f"{os.path.relpath(site.filename, ROOT)}:{site.lineno}",
+                (site.line or "").strip()))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            self.torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return self.fn(*args, **kw)
+            finally:
+                self.torch.cuda.set_sync_debug_mode(0)
+
+    def by_op(self):
+        """{(op line, port line): count}, and the entries from the port's
+        own code (no listed library call on the port's line)."""
+        counts = {}
+        for _, op, site, site_line in self.syncs:
+            key = (op, f"{site}: {site_line}")
+            counts[key] = counts.get(key, 0) + 1
+        own = {k: v for k, v in counts.items()
+               if not any(lib in k[1] for lib in LIBRARY_SYNCS)}
+        return counts, own
+
+
+def _scan_cfg(impl, **kw):
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.dynamics import OrchestratorConfig
+    from repro_torch.fl import FLConfig
+    return OrchestratorConfig(
+        n_segments=5, iters_per_segment=20, mode="online", rediscover_every=1,
+        burst_episodes=150, segment_impl=impl,
+        pipeline=PipelineConfig(exchange=ExchangeConfig(
+            apply_channel_failure=True, overflow="drop",
+            reserve_selector="device")),
+        fl=FLConfig(tau_a=10, batch_size=64, eval_every=20), **kw)
+
+
+def scan_full(torch, ops, dev):
+    """Phase 8 (a): ``run_orchestrator`` at full width on phase 4's world
+    (N = 30, ``AEConfig()``, ``PipelineConfig()`` but for the scan's
+    exchange: channel failures, ``overflow="drop"``, the device reserve
+    selector), ``burst-outage``, 5 segments of 20 FL iterations, retries
+    off, no checkpoint: segments 1-4 are one chunk. Once eager, once scan,
+    from the same ``SeededDraws``. Per segment in_edge, moved, available,
+    live and failed links exact and eval losses within 5e-4 relative; equal,
+    non-zero kernel launch counts. The chunk runs under the sync debug
+    mode, and no synchronizing call may come from the port's own code.
+    Returns the scan run's launch counts."""
+    from repro_torch.dynamics import SeededDraws, run_orchestrator
+    from repro_torch.dynamics import orchestrator as orch
+    from repro_torch.models.autoencoder import AEConfig
+    xs, ys, ev, _ = full_world(torch, dev)
+    runs, recorder = {}, SyncRecorder(torch, orch._chunk)
+    for impl in ("eager", "scan"):
+        base = reset_peak(torch, f"orchestrator {impl}, burst-outage")
+        for k in ops.KERNELS.values():
+            k.launches = 0
+        if impl == "scan":
+            orch._chunk = recorder
+        t0 = time.perf_counter()
+        try:
+            res = run_orchestrator(xs, ys, AEConfig(), _scan_cfg(impl),
+                                   "burst-outage", ev.images,
+                                   draws=SeededDraws(0, dev), device=dev)
+            torch.cuda.synchronize()
+        finally:
+            orch._chunk = recorder.fn
+        secs = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in ops.KERNELS.items()}
+        runs[impl] = (res, launches)
+        chunks = ", ".join(f"segments {a}-{b - 1} {t:.3f} s"
+                           for a, b, t in res.chunk_seconds)
+        log(f"  {impl}: {secs:.3f} s; segment seconds "
+            f"{[round(t, 3) for t in res.segment_seconds]}"
+            + (f"; chunk: {chunks}" if chunks else "")
+            + f"; {peak_text(torch, base)}; launches {launches}")
+    (eager, le), (scan, ls) = runs["eager"], runs["scan"]
+    for e, s in zip(eager.trace.segments, scan.trace.segments):
+        log(f"  segment {e.segment}: eval loss eager {e.eval_loss:.6f} scan "
+            f"{s.eval_loss:.6f}; available {s.n_available}, moved {s.moved}, "
+            f"failed {s.n_failed} of {s.n_live} live, churn "
+            f"{s.link_churn:.3f}")
+        same = ((e.in_edge == s.in_edge).all() and
+                (e.moved, e.n_available, e.n_live, e.n_failed) ==
+                (s.moved, s.n_available, s.n_live, s.n_failed))
+        if not same or not math.isclose(s.eval_loss, e.eval_loss,
+                                        rel_tol=5e-4):
+            raise AssertionError(f"scan vs eager, segment {e.segment}: "
+                                 f"eager {e} scan {s}")
+    counts, own = recorder.by_op()
+    log(f"  synchronizing calls inside the chunk: {len(recorder.syncs)}")
+    for (op, site), k in counts.items():
+        log(f"    {k} x {op}  <- {site}")
+    checks = {
+        "one chunk, segments 1-4": [c[:2] for c in scan.chunk_seconds]
+            == [(1, 5)],
+        "equal launch counts": le == ls,
+        "kmeans_assign and recon_gate launched": ls["kmeans_assign"] > 0
+            and ls["recon_gate"] > 0,
+        "kmeans_assign 150, recon_gate 10": ls["kmeans_assign"] == 150
+            and ls["recon_gate"] == 10,
+        "no synchronizing call from the port's own code": not own,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"scan phase (a) checks failed: {failed}; "
+                             f"own syncs {own}")
+    return ls
+
+
+def _cut_world(torch):
+    """Phase 3's small world with client i cut by 3 i rows, so that the
+    fixed-cap exchange has room to move data."""
+    xs, ys, ev = small_world(torch)
+    return ([x[:len(x) - 3 * i] for i, x in enumerate(xs)],
+            [y[:len(y) - 3 * i] for i, y in enumerate(ys)], ev)
+
+
+def scan_resume(torch, dev):
+    """Phase 8 (b): the scan engine at phase 6's small size with retries on
+    and ``checkpoint_every=2``, on the every-link copy of ``burst-outage``
+    (segment 1's live links fail, and a drain at a chunk boundary retries
+    them): killed at segment 2 and resumed from its checkpoint on the card,
+    bit-identical (trace, global parameters, ClientData) to the
+    uninterrupted scan run."""
+    import dataclasses
+    import shutil
+    from repro_torch.dynamics import SeededDraws, get_scenario, \
+        run_orchestrator
+    from repro_torch.dynamics import orchestrator as orch
+    from repro_torch.faults import Preempted, RetryPolicy
+    from repro_torch.models.autoencoder import AEConfig
+    from repro_torch.models.common import tree_leaves
+    xs, ys, ev = _cut_world(torch)
+    ae_cfg = AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_scan_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = _small_online(checkpoint_dir=ckpt, checkpoint_every=2,
+                        retry=RetryPolicy(enabled=True), segment_impl="scan")
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, exchange=dataclasses.replace(
+            cfg.pipeline.exchange, overflow="drop",
+            reserve_selector="device")))
+    scn = get_scenario("burst-outage")
+    whole = dataclasses.replace(
+        scn, name="burst-outage, every link", faults=dataclasses.replace(
+            scn.faults, link_bursts=tuple(dataclasses.replace(b, frac=1.0)
+                                          for b in scn.faults.link_bursts)))
+    killed = dataclasses.replace(whole, faults=dataclasses.replace(
+        whole.faults, preempt_at=2))
+
+    def run(scenario, **kw):
+        return run_orchestrator(xs, ys, ae_cfg, cfg, scenario, ev.images,
+                                draws=SeededDraws(4, dev), device=dev, **kw)
+
+    def fingerprint(res):
+        recs = [(s.segment, s.eval_loss, s.in_edge.tolist(), s.link_churn,
+                 s.mean_pfail, s.expected_delivery, s.realized_delivery,
+                 s.n_available, s.moved, s.eval_curve.tolist(), s.n_live,
+                 s.n_failed, s.retried, s.retry_delivered)
+                for s in res.trace.segments]
+        return recs, [t.cpu() for t in tree_leaves(res.global_params)] + \
+            [t.cpu() for t in res.client_data]
+
+    try:
+        ref = run(whole)
+        first = fingerprint(ref)
+        try:
+            run(killed)
+            raise AssertionError("the scan run did not preempt")
+        except Preempted as e:
+            if e.segment != 2 or not os.path.exists(e.checkpoint):
+                raise AssertionError(f"preempted at {e.segment}, "
+                                     f"checkpoint {e.checkpoint}")
+        again = fingerprint(run(killed, resume_from=cfg.checkpoint_path))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if first[0] != again[0] or not all(
+            torch.equal(a, b) for a, b in zip(first[1], again[1])):
+        raise AssertionError("the resumed scan run differs from the "
+                             "uninterrupted one")
+    segs = ref.trace.segments
+    bounds = {b - 1 for b in
+              (c[1] for c in orch._chunk_bounds(cfg, killed.faults, 1,
+                                                cfg.checkpoint_path))}
+    drained = [s.segment for s in segs if s.retried]
+    if not drained or not set(drained) <= bounds or segs[1].n_failed < 1:
+        raise AssertionError(f"no retry drained at a chunk boundary: "
+                             f"failed {[s.n_failed for s in segs]}, retried "
+                             f"{[s.retried for s in segs]}")
+    log(f"  scan, kill at segment 2 and resume: bit-identical to the "
+        f"uninterrupted scan run; chunks {[c[:2] for c in ref.chunk_seconds]}"
+        f", failed {[s.n_failed for s in segs]}, retried "
+        f"{[s.retried for s in segs]} (drained at {drained}), moved "
+        f"{[s.moved for s in segs]}")
+
+
+def cifar_main_path(torch, ops, ref, rg_mod, dev):
+    """Phase 8 (c): the one-shot main path on a CIFAR-like world:
+    ``cifar_like_split`` at 5,000 train and 30 eval images per class, N = 30
+    with 3 circular classes each, ``AEConfig(32, 32, 3, widths=(8, 16),
+    latent_dim=32)``, ``PipelineConfig()``; then 2 FL rounds and linear
+    evaluation. ``recon_gate`` is then held against its plain version at
+    the gate's (30, cap, 3072) base shape, on the final model's
+    reconstructions of the exchanged stack, and both are timed there.
+    Returns (launch counts, the shape's entry for the kernel row)."""
+    from repro_torch.core.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.data import cifar_like_split, partition_by_classes
+    from repro_torch.fl import FLConfig, fl_train, linear_evaluation
+    from repro_torch.models import autoencoder as ae
+    from repro_torch.models.autoencoder import AEConfig
+    from repro_torch.models.common import tree_map
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    train, ev = cifar_like_split(gen, n_train_per_class=5000,
+                                 n_eval_per_class=30)
+    xs, ys, _ = partition_by_classes(0, train.images.cpu().numpy(),
+                                     train.labels.cpu().numpy(),
+                                     n_clients=30, classes_per_client=3,
+                                     circular=True)
+    del train
+    log(f"  CIFAR-like world: {sum(x.shape[0] for x in xs)} images of "
+        f"{xs[0].shape[1:]} over {len(xs)} clients; set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    ae_cfg = AEConfig(32, 32, 3, widths=(8, 16), latent_dim=32)
+    base = reset_peak(torch, "CIFAR-like main path")
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = run_pipeline(xs, ys, ae_cfg, PipelineConfig(), generator=gen,
+                       device=dev)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = fl_train(res.client_data, ae_cfg, FLConfig(
+        total_iters=20, tau_a=10, batch_size=64, eval_every=10), ev.images,
+        generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t_fl = time.perf_counter() - t0
+    half = ev.images.shape[0] // 2
+    acc, _ = linear_evaluation(fl.global_params, ae_cfg, ev.images[:half],
+                               ev.labels[:half], ev.images[half:],
+                               ev.labels[half:], device=dev)
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    log(f"  run_pipeline {t_pipe:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items())
+        + f"), fl_train (2 rounds) {t_fl:.3f} s; {peak_text(torch, base)}")
+    log(f"  moved {res.moved_counts.tolist()}; eval loss "
+        f"{fl.eval_loss.tolist()}; linear-eval accuracy {acc:.4f}; "
+        f"launches {launches}")
+
+    cd = res.client_data
+    n, cap = cd.n_clients, cd.cap
+    stacked = tree_map(lambda p: p.expand((n,) + tuple(p.shape)).contiguous(),
+                       fl.global_params)
+    with torch.no_grad():
+        y = ae.reconstruct_stacked(stacked, cd.data, ae_cfg).reshape(
+            n, cap, -1)
+    own = (torch.arange(cap, device=dev)[None, :]
+           < cd.sizes[:, None]).float()
+    xf = cd.data.reshape(n, cap, -1).contiguous()
+    label = f"CIFAR-like ({n},{cap},{y.shape[-1]}), own-data mask"
+    err = check_recon(ops, ref, y, xf, own, label)
+    b_ms, b_by = bound(8 * y.numel() + 4 * n * cap + 4 * n,
+                       3 * y.numel() + 3 * n * cap)
+    row = dict(shape=label, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               ms=graph_ms(lambda: rg_mod.recon_gate_cuda(y, xf, own),
+                           iters=20),
+               plain_ms=graph_ms(lambda: ref.recon_gate_ref(y, xf, own),
+                                 iters=20))
+    log(f"  recon_gate {label}: device {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms; bound {b_ms:.5f} ms ({b_by})")
+    checks = {
+        "kmeans_assign 50, recon_gate 2": launches["kmeans_assign"] == 50
+            and launches["recon_gate"] == 2,
+        "eval losses finite": all(math.isfinite(v) for v in fl.eval_loss),
+        "pixels 3072": y.shape[-1] == 3072,
+        "centroids (30, 3, 32) finite": tuple(res.centroids.shape)
+            == (30, 3, 32) and bool(torch.isfinite(res.centroids).all()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"CIFAR-like main path checks failed: {failed}")
+    return launches, row
+
+
+def clustering_loop_phase(torch, ops, ref, km_mod, dev):
+    """Phase 8 (d): ``cluster_clients_loop`` and ``wcss_elbow`` on phase 3's
+    small world, card against host from the same draws: assignments
+    exact, centroids within 1e-4 after aligning each PCA column's sign, the
+    same elbow k. Counts ``kmeans_assign``'s 2-D launches on the card (one
+    per client and Lloyd step, one per candidate and Lloyd step), then
+    holds the kernel against its plain version at the loop's 2-D shape and
+    times both there. Returns the shape's entry for the kernel row."""
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import pipeline as pl
+    xs, _, _ = small_world(torch)
+    cfg = pl.PipelineConfig(n_pca=4, kmeans_iters=5)
+    g = torch.Generator().manual_seed(6)
+    draws = km.draw_kmeans(g, [len(x) for x in xs], cfg.n_clusters)
+    ks = [1, 2, 3, 4, 5, 6]
+    single = {k: km.draw_kmeans(g, [len(xs[0])], k) for k in ks}
+
+    def run(device):
+        d = km.KMeansDraws(*(a.to(device) for a in draws))
+        pca, cents, assigns = pl.cluster_clients_loop(xs, cfg, d,
+                                                      device=device)
+        z = pca.transform(torch.as_tensor(xs[0], device=device).reshape(
+            len(xs[0]), -1))
+        k = km.wcss_elbow(z, ks, lambda k: km.KMeansDraws(
+            single[k].first[0].to(device), single[k].u[0].to(device)))
+        return pca, cents.cpu(), assigns.cpu(), k
+
+    hp, hc, ha, hk = run("cpu")
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    cp, cc, ca, ck = run(dev)
+    launches = ops.KERNELS["kmeans_assign"].launches
+    signs = torch.sign(torch.sum(hp.components * cp.components.cpu(), 0))
+    sizes = [len(x) for x in xs]
+    same_assign = all(torch.equal(ha[i, :s], ca[i, :s])
+                      for i, s in enumerate(sizes))
+    cent_err = float((cc * signs - hc).abs().max())
+    want = len(xs) * cfg.kmeans_iters + 25 * len(ks)
+    log(f"  cluster_clients_loop and wcss_elbow, card vs host: assignments "
+        f"equal {same_assign}, max centroid difference {cent_err:.2e}, "
+        f"elbow k host {hk} card {ck}; kmeans_assign 2-D launches "
+        f"{launches} (want {want})")
+    if not (same_assign and cent_err < 1e-4 and hk == ck
+            and launches == want and bool((signs != 0).all())):
+        raise AssertionError("clustering loop phase failed")
+    x = cp.transform(torch.as_tensor(xs[1], device=dev).reshape(
+        len(xs[1]), -1)).contiguous()
+    c = x[:cfg.n_clusters].contiguous()
+    label = f"(f) clustering loop, 2-D ({len(xs[1])},{x.shape[1]})x" \
+        f"({cfg.n_clusters},{x.shape[1]})"
+    err = check_kmeans(ops, ref, x, c, label)
+    b_ms, b_by = kmeans_bound(x, c)
+    row = dict(shape=label, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               ms=graph_ms(lambda: km_mod.kmeans_assign_cuda(x, c)),
+               plain_ms=graph_ms(lambda: ref.kmeans_assign_ref(x, c)))
+    log(f"  kmeans_assign {label}: device {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms; bound {b_ms:.3e} ms ({b_by})")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1362,6 +1767,13 @@ def main() -> int:
     fed_launches, fed_shape = federated_llm_phase(torch, ops, ref, km_mod,
                                                   dev)
     train_reference(torch, dev)
+
+    log("== phase 8: the scan engine, a CIFAR-like main path, the "
+        "clustering loop")
+    scanned = scan_full(torch, ops, dev)
+    scan_resume(torch, dev)
+    cifar, cifar_shape = cifar_main_path(torch, ops, ref, rg_mod, dev)
+    loop_shape = clustering_loop_phase(torch, ops, ref, km_mod, dev)
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -1369,12 +1781,17 @@ def main() -> int:
         row["online_launches"] = online[name]
         row["train_launches"] = trained[name]
         row["federated_llm_launches"] = fed_launches[name]
+        row["scan_launches"] = scanned[name]
+        row["cifar_launches"] = cifar[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
+    rows["kmeans_assign"]["shapes"].append(loop_shape)
+    rows["recon_gate"]["shapes"] = [cifar_shape]
     keys = ("name", "route", "source", "replaces", "launches",
             "online_launches", "train_launches", "federated_llm_launches",
-            "max_abs_err", "online_max_abs_err", "ms", "plain_ms",
+            "scan_launches", "cifar_launches", "max_abs_err",
+            "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
             "shapes")
     log(smi)

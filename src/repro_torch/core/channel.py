@@ -96,8 +96,8 @@ def fading_step(fade, eps, rho: float, sigma: float):
     reference does: the Python float ``1 - rho^2`` enters a float32 max and
     square root."""
     c = torch.sqrt(torch.clamp_min(
-        torch.tensor(1.0 - rho * rho, dtype=torch.float32,
-                     device=fade.device), 0.0))
+        torch.full((), 1.0 - rho * rho, dtype=torch.float32,
+                   device=fade.device), 0.0))
     return torch.exp(rho * torch.log(fade) + c * sigma * eps)
 
 

@@ -1,25 +1,37 @@
-"""Autoencoder-gated D2D data exchange, batched plane (paper Sec. III-B /
-IV-B; mirrors the ``method="batched"`` plane of ``repro.core.exchange``).
+"""Autoencoder-gated D2D data exchange (paper Sec. III-B / IV-B; mirrors
+``repro.core.exchange``).
 
 After graph discovery each link (transmitter j -> receiver i) moves data:
 
-  1. j offers, per cluster m that T_j[i, m] permits, a seeded random reserve
-     subset of the cluster's members (``_select_reserves``, host numpy from
-     one integer seed, so subsets equal the reference's for the same seed);
+  1. j offers, per cluster m that T_j[i, m] permits, a random reserve
+     subset of the cluster's members;
   2. i scores each subset with its own autoencoder (pretrained one GD step):
      if it reconstructs the subset worse than its own data
      (base < score), the subset carries information i lacks and moves;
   3. optionally the channel is sampled: with probability P_D(i, j) nothing
      moves.
 
-Both gate scores go through ``ops.recon_gate_score`` (one kernel launch
-each on the card). Accepted subsets are scattered into each receiver's
-``ClientData`` slot by a cumsum compaction. The reference's
-``.at[].set(mode="drop")`` has no torch twin: rows that must be dropped are
-sent to an extra sink row at index ``out_cap``, which is sliced off.
+Two data planes (``ExchangeConfig.method``):
 
-Draws (:class:`ExchangeDraws`): the AE init parameters, the reserve seed and
-the (N,) channel uniforms.
+``"batched"`` (default)  the client stack on the device. Both gate scores
+    go through ``ops.recon_gate_score`` (one kernel launch each on the
+    card); accepted subsets are scattered into each receiver's
+    ``ClientData`` slot by a cumsum compaction. The reference's
+    ``.at[].set(mode="drop")`` has no torch twin: rows that must be dropped
+    are sent to an extra sink row at index ``out_cap``, which is sliced off.
+``"loop"``  the host triple loop, one reconstruction loss per (receiver,
+    cluster) pair, with a ragged concat: the batched plane's oracle. Both
+    planes give the same gate decisions and moved counts on the same draws.
+
+Two reserve selectors (``ExchangeConfig.reserve_selector``): ``"host"``
+(``_select_reserves``, numpy from one integer seed, so subsets equal the
+reference's for the same seed) and ``"device"``
+(:func:`select_reserves_device`, a masked top-k over explicit uniforms that
+never leaves the device).
+
+Draws (:class:`ExchangeDraws`): the AE init parameters, the reserve seed,
+the (N,) channel uniforms and, for the device selector, the
+(N, k_max, cap) reserve uniforms.
 """
 from __future__ import annotations
 
@@ -31,12 +43,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.batching import ClientData, as_client_data, \
-    stack_pytrees
+    client_data_from_lists, stack_pytrees, unstack_pytree
 from repro_torch.kernels import ops
 from repro_torch.models import autoencoder as ae
 from repro_torch.models.common import tree_map, value_and_grad
 
 OVERFLOW_POLICIES = ("grow", "drop", "error")
+RESERVE_SELECTORS = ("host", "device")
+METHODS = ("batched", "loop")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,20 +64,32 @@ class ExchangeConfig:
     #   "drop"  — cap is fixed, rows past it are dropped from the tail;
     #   "error" — cap is fixed and any overflow raises (synchronises).
     overflow: str = "grow"
+    method: str = "batched"          # see METHODS
+    # "host": numpy subsets from ExchangeDraws.seed; "device": a masked
+    # top-k over ExchangeDraws.sel_u (same distribution, other subsets)
+    reserve_selector: str = "host"
 
 
 class ExchangeDraws(NamedTuple):
     init_params: Optional[dict]   # stacked AE init (None: ae_params given)
-    seed: int                     # reserve selector's numpy seed
+    seed: int                     # host selector's numpy seed
     fail_u: torch.Tensor          # (N,) channel uniforms
+    # (N, k_max, cap) device selector's uniforms; None for the host selector
+    sel_u: Optional[torch.Tensor] = None
 
 
-def draw_exchange(generator: torch.Generator, n: int, ae_cfg) -> ExchangeDraws:
+def draw_exchange(generator: torch.Generator, n: int, ae_cfg,
+                  sel_shape: Optional[tuple] = None) -> ExchangeDraws:
+    """``sel_shape`` (k_max, cap) also draws the device selector's
+    uniforms, after every other draw."""
     dev = generator.device
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                              device=dev).item())
-    return ExchangeDraws(ae.init_ae(generator, ae_cfg, n_clients=n), seed,
-                         torch.rand(n, generator=generator, device=dev))
+    init = ae.init_ae(generator, ae_cfg, n_clients=n)
+    fail_u = torch.rand(n, generator=generator, device=dev)
+    sel_u = None if sel_shape is None else \
+        torch.rand((n,) + tuple(sel_shape), generator=generator, device=dev)
+    return ExchangeDraws(init, seed, fail_u, sel_u)
 
 
 @dataclasses.dataclass
@@ -97,6 +123,13 @@ class ExchangeResult:
         reference's loop order (``cluster == -1``: the channel failed)."""
         if self._decisions is None and self._ctx is not None:
             trust_np, sel, in_edge, apply_channel = self._ctx
+            if isinstance(sel, tuple):
+                # device selector: (sel_idx, sel_mask) tensors, read back to
+                # the ragged layout on first access
+                si, sm = sel[0].cpu().numpy(), sel[1].cpu().numpy()
+                sel = [[si[j, m][sm[j, m] > 0]
+                        for m in range(trust_np[j].shape[1])]
+                       for j in range(len(trust_np))]
             self._decisions = _build_decisions(
                 trust_np, sel, in_edge.cpu().numpy(),
                 self.fail.cpu().numpy(), self.accept.cpu().numpy(),
@@ -109,6 +142,8 @@ class ExchangeResult:
         are left out: ``P_D(i, i) = 1`` makes every one of them "fail".
         Reads only the (N,) fail mask and the graph to the host."""
         if self.fail is None or self._ctx is None:
+            if self._decisions is not None:                  # loop plane
+                return [(d[0], d[1]) for d in self._decisions if d[2] == -1]
             return []
         in_edge = self._ctx[2].cpu().numpy()
         fail = self.fail.cpu().numpy()
@@ -119,6 +154,26 @@ class ExchangeResult:
 # ---------------------------------------------------------------------------
 # AE pretraining (paper Sec. III-B: one full-batch GD iteration per client)
 # ---------------------------------------------------------------------------
+
+def pretrain_autoencoders(init_params, datasets, ae_cfg, cfg: ExchangeConfig):
+    """The loop plane's pretraining: one client at a time on its unpadded
+    data. ``init_params``: a stacked tree or a per-client list. Returns the
+    per-client list."""
+    if not isinstance(init_params, (list, tuple)):
+        init_params = unstack_pytree(init_params, len(datasets))
+
+    def loss(p, x):
+        return ae.recon_loss(p, x, ae_cfg)
+
+    out = []
+    for params, x in zip(init_params, datasets):
+        for _ in range(cfg.pretrain_steps):
+            _, grads = value_and_grad(loss, params, x)
+            params = tree_map(lambda p, g: p - cfg.pretrain_lr * g, params,
+                              grads)
+        out.append(params)
+    return out
+
 
 def pretrain_autoencoders_batched(init_params, cd: ClientData, ae_cfg,
                                   cfg: ExchangeConfig):
@@ -161,6 +216,38 @@ def _select_reserves(seed: int, assignments, n_clusters_list, r: int, sizes):
             row.append(idx)
         sel.append(row)
     return sel
+
+
+def select_reserves_device(sel_u, assignments, sizes, k_max: int, r: int):
+    """Reserve subsets on the device: a uniform subset without replacement
+    of each (transmitter j, cluster m)'s members, as the top-r of the
+    uniforms ``sel_u`` (N, k_max, cap) masked to the members.
+
+    ``assignments``: stacked (N, cap) cluster ids, entries past ``sizes[j]``
+    being padding. Returns ``(sel_idx, sel_mask)``, (N, k_max, r) int64 and
+    float32, each row holding min(r, |members|) distinct indices in
+    ascending order as a valid prefix (``_sel_tensors``' layout). No host
+    read: the scan engine selects inside its chunk with it."""
+    n, cap = assignments.shape
+    dev = assignments.device
+    valid = torch.arange(cap, device=dev)[None, :] < sizes[:, None]
+    member = valid[:, None, :] & (assignments[:, None, :].long()
+                                  == torch.arange(k_max, device=dev)
+                                  [None, :, None])
+    score = torch.where(member, sel_u, torch.full_like(sel_u, -float("inf")))
+    r_eff = min(int(r), int(cap))
+    top_val, top_idx = torch.topk(score, r_eff, dim=-1)
+    # non-members surface as -inf: send them past the cap, then sort so the
+    # picks form an ascending valid prefix (the host selector's order)
+    idx = torch.where(torch.isinf(top_val), torch.full_like(top_idx, cap),
+                      top_idx)
+    idx = torch.sort(idx, dim=-1).values
+    mask = (idx < cap).to(torch.float32)
+    idx = torch.where(idx < cap, idx, torch.zeros_like(idx))
+    if r_eff < r:   # cap below the reserve budget: dead slots at the end
+        idx = torch.nn.functional.pad(idx, (0, r - r_eff))
+        mask = torch.nn.functional.pad(mask, (0, r - r_eff))
+    return idx, mask
 
 
 def _sel_tensors(sel, n: int, k_max: int, r: int):
@@ -292,25 +379,68 @@ def _trust_list(trust) -> list:
     return [t[j] for j in range(t.shape[0])]
 
 
-def _gate_batched(cd: ClientData, trust, in_edge, sel, fail_u, p_fail,
+def _gate_loop(datasets, labels, trust_np, in_edge, sel, fail_u, p_fail,
+               params, ae_cfg, cfg: ExchangeConfig) -> ExchangeResult:
+    """The reference's host loop: one mean reconstruction loss per
+    receiver and per (receiver, cluster) pair, and a ragged concat."""
+    n = len(datasets)
+    in_edge = torch.as_tensor(in_edge).cpu().numpy()
+    fail_u = torch.as_tensor(fail_u).cpu().numpy()
+    p_fail = torch.as_tensor(p_fail).cpu().numpy()
+    new_data, new_labels = list(datasets), list(labels)
+    moved = np.zeros(n, np.int64)
+    decisions = []
+    with torch.no_grad():
+        for i in range(n):
+            j = int(in_edge[i])
+            if j == i:
+                continue
+            if cfg.apply_channel_failure and \
+                    float(fail_u[i]) < float(p_fail[i, j]):
+                decisions.append((i, j, -1, False))
+                continue
+            base = float(ae.recon_loss(params[i], datasets[i], ae_cfg))
+            for m in range(trust_np[j].shape[1]):
+                idx = sel[j][m]
+                if int(trust_np[j][i, m]) == 0 or idx.size == 0:
+                    continue
+                rows = torch.as_tensor(idx, device=datasets[j].device)
+                score = float(ae.recon_loss(params[i], datasets[j][rows],
+                                            ae_cfg))
+                accepted = base < score   # i's AE is worse on the reserve
+                decisions.append((i, j, m, accepted))
+                if accepted:
+                    new_data[i] = torch.cat([new_data[i], datasets[j][rows]])
+                    new_labels[i] = torch.cat([new_labels[i],
+                                               labels[j][rows]])
+                    moved[i] += idx.size
+    cd = client_data_from_lists(new_data, new_labels,
+                                device=datasets[0].device)
+    return ExchangeResult(cd, torch.as_tensor(moved, device=cd.data.device),
+                          _decisions=decisions)
+
+
+def _gate_batched(cd: ClientData, trust_np, in_edge, sel, fail_u, p_fail,
                   params, ae_cfg, cfg: ExchangeConfig) -> ExchangeResult:
+    """``sel``: the host selector's ragged indices, or the device
+    selector's ``(sel_idx, sel_mask)`` tensors."""
     n, cap = cd.n_clients, cd.cap
     dev = cd.data.device
-    trust_np = _trust_list(trust)
     k_max = max(t.shape[1] for t in trust_np)
     trust_s = _stack_trust_padded(trust_np, n, k_max)
-    sel_idx, sel_mask = _sel_tensors(sel, n, k_max, cfg.reserve_per_cluster)
-    if cfg.overflow == "grow":
-        # static headroom: the largest reserve payload any transmitter
-        # offers this round (host-known: indices only, no data)
-        out_cap = cap + int(sel_mask.sum(axis=(1, 2)).max(initial=0))
+    if isinstance(sel, tuple):
+        sel_idx, sel_mask = sel
     else:
-        out_cap = cap
+        sel_idx, sel_mask = (torch.as_tensor(a, device=dev) for a in
+                             _sel_tensors(sel, n, k_max,
+                                          cfg.reserve_per_cluster))
+    # "grow": static headroom, the largest reserve payload any transmitter
+    # offers this round (a read of the index mask only, no data)
+    out_cap = cap + int(sel_mask.sum(dim=(1, 2)).max()) \
+        if cfg.overflow == "grow" else cap
     in_edge = torch.as_tensor(in_edge, device=dev).long()
     new_cd, moved, base, scores, fail, accept, overflowed = _exchange_device(
-        params, cd.data, cd.sizes, cd.labels,
-        torch.as_tensor(sel_idx, device=dev),
-        torch.as_tensor(sel_mask, device=dev),
+        params, cd.data, cd.sizes, cd.labels, sel_idx, sel_mask,
         torch.as_tensor(trust_s, device=dev), fail_u, p_fail, in_edge,
         ae_cfg, cfg.apply_channel_failure, out_cap)
     if cfg.overflow == "error" and bool(overflowed):
@@ -326,28 +456,78 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
                  ae_cfg, cfg: ExchangeConfig = ExchangeConfig(),
                  ae_params=None, draws: Optional[ExchangeDraws] = None,
                  generator: Optional[torch.Generator] = None,
+                 method: Optional[str] = None,
                  device="cuda") -> ExchangeResult:
     """Algorithm 2's data-plane step over the discovered graph.
 
     datasets/labels: ragged lists, or one :class:`ClientData` as
     ``datasets`` (then ``labels`` must be None). assignments: stacked
     (N, cap) cluster ids; trust: stacked (N_tx, N_rx, k) or a list of T_j;
-    in_edge: (N,) transmitter of each receiver. ``ae_params`` (stacked or a
-    list) skips pretraining; otherwise the AEs start from
-    ``draws.init_params``. Draws missing come from ``generator``."""
+    in_edge: (N,) transmitter of each receiver. ``method`` (default
+    ``cfg.method``) picks the data plane; the loop plane needs labels.
+    ``ae_params`` (stacked or a list) skips pretraining; otherwise the AEs
+    start from ``draws.init_params``. Draws missing come from
+    ``generator``."""
+    method = (method or cfg.method).lower()
     if cfg.overflow not in OVERFLOW_POLICIES:
         raise ValueError(f"unknown overflow policy {cfg.overflow!r}; "
                          f"expected one of {OVERFLOW_POLICIES}")
+    if cfg.reserve_selector not in RESERVE_SELECTORS:
+        raise ValueError(
+            f"unknown reserve selector {cfg.reserve_selector!r}; "
+            f"expected one of {RESERVE_SELECTORS}")
+    if method == "loop" and cfg.overflow != "grow":
+        raise ValueError(
+            "the loop plane only implements the 'grow' semantics (its "
+            "ragged concat has no capacity); use the batched plane for "
+            f"overflow={cfg.overflow!r}")
+    if method == "loop" and cfg.reserve_selector != "host":
+        raise ValueError(
+            "the loop plane is the host-selector reference; "
+            "reserve_selector='device' requires the batched plane")
+    if method not in METHODS:
+        raise ValueError(f"unknown exchange method: {method!r}")
     dev = resolve_device(device)
     cd = as_client_data(datasets, labels, device=dev)
     n = cd.n_clients
+    trust_np = _trust_list(trust)
+    k_max = max(t.shape[1] for t in trust_np)
+    device_sel = cfg.reserve_selector == "device"
     if draws is None:
         if generator is None:
             raise ValueError("run_exchange needs draws or a generator")
-        draws = draw_exchange(generator, n, ae_cfg)
-    n_clusters = [t.shape[1] for t in _trust_list(trust)]
-    sel = _select_reserves(draws.seed, assignments, n_clusters,
-                           cfg.reserve_per_cluster, cd.sizes)
+        draws = draw_exchange(generator, n, ae_cfg,
+                              (k_max, cd.cap) if device_sel else None)
+    assignments = torch.as_tensor(assignments, device=dev)
+    if device_sel:
+        if draws.sel_u is None:
+            raise ValueError("reserve_selector='device' needs "
+                             "ExchangeDraws.sel_u")
+        sel = select_reserves_device(draws.sel_u.to(dev), assignments,
+                                     cd.sizes, k_max,
+                                     cfg.reserve_per_cluster)
+    else:
+        sel = _select_reserves(draws.seed, assignments,
+                               [t.shape[1] for t in trust_np],
+                               cfg.reserve_per_cluster, cd.sizes)
+    fail_u = torch.as_tensor(draws.fail_u, device=dev)
+    p_fail = torch.as_tensor(p_fail, device=dev)
+
+    if method == "loop":
+        data_l, labels_l = cd.data_list(), cd.label_list()
+        if labels_l is None:
+            raise ValueError("the loop plane needs labels; pass them (the "
+                             "batched plane accepts unlabeled ClientData)")
+        if ae_params is None:
+            params = pretrain_autoencoders(
+                tree_map(lambda p: p.to(dev), draws.init_params), data_l,
+                ae_cfg, cfg)
+        elif isinstance(ae_params, (list, tuple)):
+            params = list(ae_params)
+        else:
+            params = unstack_pytree(ae_params, n)
+        return _gate_loop(data_l, labels_l, trust_np, in_edge, sel, fail_u,
+                          p_fail, params, ae_cfg, cfg)
     if ae_params is None:
         params = pretrain_autoencoders_batched(
             tree_map(lambda p: p.to(dev), draws.init_params), cd, ae_cfg, cfg)
@@ -355,7 +535,5 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
         params = stack_pytrees(list(ae_params))
     else:
         params = ae_params
-    return _gate_batched(cd, trust, in_edge, sel,
-                         torch.as_tensor(draws.fail_u, device=dev),
-                         torch.as_tensor(p_fail, device=dev), params, ae_cfg,
-                         cfg)
+    return _gate_batched(cd, trust_np, in_edge, sel, fail_u, p_fail, params,
+                         ae_cfg, cfg)

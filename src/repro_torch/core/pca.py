@@ -33,6 +33,13 @@ def _pca_from_moments(s1, s2, n, n_components: int) -> PCA:
     return PCA(mean, evecs[:, idx], evals[idx])
 
 
+def client_moments(x, mask):
+    """One client's (sum x, sum x x^T) over its valid rows; x (cap, d),
+    mask (cap,) {0,1}. Both are gemms, so padding rows add zero terms."""
+    xm = x * mask[:, None]
+    return mask @ x, xm.T @ xm
+
+
 def fit_pca_federated_stacked(x, mask, n_components: int) -> PCA:
     """Shared basis from a mask-padded client stack.
 

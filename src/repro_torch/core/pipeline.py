@@ -143,6 +143,31 @@ def cluster_clients(datasets, cfg: PipelineConfig,
                          cfg.kmeans_iters, draws)
 
 
+def cluster_clients_loop(datasets, cfg: PipelineConfig,
+                         draws: km.KMeansDraws, device="cuda"):
+    """The host loop of :func:`cluster_clients`: the same masked math one
+    client at a time (its parity reference). The PCA moments are summed per
+    client; the basis projection is one batched call in both forms, as in
+    the reference (a per-client projection would round differently and
+    smear that difference over everything downstream). Each client's fit
+    takes row i of the batched ``draws`` and launches ``kmeans_assign``
+    with 2-D inputs."""
+    cd = as_client_data(datasets, device=resolve_device(device))
+    n, cap = cd.n_clients, cd.cap
+    flats = cd.data.reshape(n, cap, -1)
+    mask = cd.mask(flats.dtype)
+    moments = [pca_lib.client_moments(flats[i], mask[i]) for i in range(n)]
+    s1 = torch.sum(torch.stack([m[0] for m in moments]), dim=0)
+    s2 = torch.sum(torch.stack([m[1] for m in moments]), dim=0)
+    pca = pca_lib._pca_from_moments(s1, s2, torch.sum(mask), cfg.n_pca)
+    z = pca.transform(flats)
+    fits = [km.kmeans_masked(z[i], cd.sizes[i], cfg.n_clusters,
+                             km.KMeansDraws(draws.first[i], draws.u[i]),
+                             cfg.kmeans_iters) for i in range(n)]
+    return (pca, torch.stack([f.centroids for f in fits]),
+            torch.stack([f.assignments for f in fits]))
+
+
 def link_rewards(cents, trust, p_fail, cfg: PipelineConfig):
     """beta + lambda matrix + Eq. 2 local rewards from stacked centroids.
     Returns ``(beta, lam, local_r)``."""
@@ -206,7 +231,10 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
 
     with _stage(times, "exchange", dev):
         if draws.exchange is None:
-            draws.exchange = ex.draw_exchange(generator, n, ae_cfg)
+            draws.exchange = ex.draw_exchange(
+                generator, n, ae_cfg,
+                (cfg.n_clusters, cd.cap)
+                if cfg.exchange.reserve_selector == "device" else None)
         res = ex.run_exchange(cd, None, assigns, trust, in_edge, p_fail,
                               ae_cfg, cfg.exchange, ae_params=ae_params,
                               draws=draws.exchange, device=dev)

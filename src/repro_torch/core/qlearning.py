@@ -97,8 +97,8 @@ def ucb_actions(q, counts, episode: int, c: float):
     """UCB1 over incoming edges: running mean reward plus an exploration
     bonus; unexplored actions score +inf."""
     mean = q / torch.clamp_min(counts, 1.0)
-    log_e = torch.log(torch.tensor(episode + 2.0, dtype=torch.float32,
-                                   device=q.device))
+    log_e = torch.log(torch.full((), episode + 2.0, dtype=torch.float32,
+                                 device=q.device))
     bonus = c * torch.sqrt(log_e / torch.clamp_min(counts, 1e-9))
     score = torch.where(counts > 0, mean + bonus,
                         torch.full_like(mean, float("inf")))

@@ -44,3 +44,10 @@ def frequent_local_reward(buf_actions, buf_rewards_local, n_actions: int):
     sums = torch.sum(buf_rewards_local * match, dim=1)
     cnt = torch.clamp_min(torch.sum(match, dim=1), 1)
     return sums / cnt
+
+
+def network_performance(buf_actions, buf_rewards_local, n_actions: int):
+    """Eq. 5: r_net = the mean over agents of :func:`frequent_local_reward`
+    (the network-wide scalar the paper lets devices exchange)."""
+    return torch.mean(frequent_local_reward(buf_actions, buf_rewards_local,
+                                            n_actions))

@@ -24,3 +24,13 @@ def make_trust(u: torch.Tensor, p_trust: float = 0.9) -> torch.Tensor:
     idx = torch.arange(n, device=t.device)
     t[idx, idx] = 1
     return t
+
+
+def full_trust(n_clients: int, n_clusters, device="cpu"):
+    """Every transmitter trusts every receiver with every cluster: the
+    stacked (N_tx, N_rx, k) ones for one ``n_clusters``, or the list of
+    (N_rx, k_j) ones matrices for per-transmitter counts."""
+    kw = dict(dtype=torch.int8, device=device)
+    if isinstance(n_clusters, int):
+        return torch.ones((n_clients, n_clients, n_clusters), **kw)
+    return [torch.ones((n_clients, k), **kw) for k in n_clusters]

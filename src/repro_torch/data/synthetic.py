@@ -62,8 +62,25 @@ def make_split_dataset(generator: torch.Generator, *, n_train_per_class,
             ImageDataset(ds.images[cut:], ds.labels[cut:]))
 
 
+def fmnist_like(generator: torch.Generator, n_per_class=200) -> ImageDataset:
+    return make_image_dataset(generator, height=28, width=28, channels=1,
+                              n_per_class=n_per_class)
+
+
 def fmnist_like_split(generator: torch.Generator, n_train_per_class=200,
                       n_eval_per_class=30):
     return make_split_dataset(generator, n_train_per_class=n_train_per_class,
                               n_eval_per_class=n_eval_per_class,
                               height=28, width=28, channels=1)
+
+
+def cifar_like(generator: torch.Generator, n_per_class=200) -> ImageDataset:
+    return make_image_dataset(generator, height=32, width=32, channels=3,
+                              n_per_class=n_per_class)
+
+
+def cifar_like_split(generator: torch.Generator, n_train_per_class=200,
+                     n_eval_per_class=30):
+    return make_split_dataset(generator, n_train_per_class=n_train_per_class,
+                              n_eval_per_class=n_eval_per_class,
+                              height=32, width=32, channels=3)

@@ -19,12 +19,28 @@ reaches it (see that module). Under the ``static`` scenario in mode
 ``"oneshot"`` the run is exactly ``run_pipeline`` + ``fl_train`` on the
 source's pipeline, FL-init and minibatch draws.
 
+Two segment engines (``OrchestratorConfig.segment_impl``):
+
+``"eager"``  one Python iteration per segment, any exchange configuration;
+    the scan engine's oracle. The host reads inside a segment are the host
+    reserve selector's cluster ids and, with retries on, the (N,) fail mask
+    of ``ExchangeResult.failed_links``; each segment ends with one device
+    sync that times it.
+``"scan"``   segment 0 runs eagerly; segments [1, n) run in chunks
+    (:func:`_chunk_bounds`: a chunk ends where host work is due, a
+    checkpoint, a retry offer and drain, a simulated preemption, or the
+    run's end). A chunk is a static-shape loop over its segments that never
+    reads the device from the host: its draws are all taken before it
+    starts, reserves are selected on the device, the exchange keeps the cap
+    (``overflow="drop"``), and the reference's ``lax.cond`` on the
+    rediscovery and eval flags, which the config fixes, are Python ``if``s.
+    One device sync ends each chunk. Its results differ from the eager
+    engine's by design in one place: a retry drains at the chunk boundary,
+    one segment later than in the eager engine.
+
 Device residency: the client data stack, channel state, FL carry, graph and
 availability stay on the run's device; each segment's metrics are device
-tensors until one host read after the last segment. The host reads inside
-the loop are the reserve selector's cluster ids and, with retries on, the
-(N,) fail mask of ``ExchangeResult.failed_links``; each segment ends with
-one device sync that times it.
+tensors until one host read after the last segment.
 
 Fault tolerance (``repro_torch.faults``): a scenario's ``FaultPlan`` is
 overlaid onto the environment from segment 1 on. With
@@ -55,7 +71,7 @@ from repro_torch.dynamics.draws import SeededDraws
 from repro_torch.dynamics.environment import EnvState, env_init, env_step
 from repro_torch.dynamics.metrics import (PendingSegment, SegmentRecord,
                                           Trace, delivery_stats_dev,
-                                          link_churn_dev,
+                                          link_churn_dev, realized_delivery,
                                           realized_delivery_dev)
 from repro_torch.dynamics.runstate import (RunState, load_run_state,
                                            save_run_state)
@@ -88,8 +104,10 @@ class OrchestratorConfig:
     retry: RetryPolicy = dataclasses.field(default_factory=RetryPolicy)
     checkpoint_dir: Optional[str] = None   # None = no checkpointing
     checkpoint_every: int = 1              # segments between checkpoints
-    # "eager" (one Python iteration per segment) is the engine ported so
-    # far; "scan" raises NotImplementedError (ROADMAP Queue 1, item 7)
+    # "eager" (one Python iteration per segment, the oracle) or "scan"
+    # (segments [1, n) in chunks that never read the device; needs, with
+    # re-exchange on, method "batched", overflow "drop" and
+    # reserve_selector "device")
     segment_impl: str = "eager"
 
     @property
@@ -121,6 +139,9 @@ class OrchestratorResult(NamedTuple):
     # CUDA events recorded at the stage boundaries, on the host the host
     # clock (they sum to the segment's seconds less the host's lead)
     stage_seconds: tuple = ()
+    # scan engine: (first segment, end segment, seconds) of each chunk, each
+    # ended by one device sync
+    chunk_seconds: tuple = ()
 
 
 class _Clock:
@@ -152,22 +173,127 @@ class _Clock:
             for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
 
 
-def _rediscover(s: int, cd: ClientData, trust, p_fail,
-                cfg: OrchestratorConfig, rl_state: Optional[ql.RLState],
-                draws, dev):
+class _SegmentDraws(NamedTuple):
+    """Every draw of one segment after the first, taken from the draw
+    source when the segment (eager) or its chunk (scan) starts. The
+    size-dependent sites are callables of the client sizes."""
+    env: object                    # EnvDraws
+    crash: list                    # (N,) uniforms per crash pulse
+    burst: list                    # (N, N) uniforms per link burst
+    cluster: object                # sizes -> KMeansDraws (rediscovery)
+    rl: Optional[ql.RLDraws]       # mixed-policy burst
+    uniform_edge: Optional[torch.Tensor]
+    exchange: Optional[ex.ExchangeDraws]
+    fl_batch: list                 # per round: sizes -> (tau_a, N, B)
+
+
+def _sel_shape(cfg: OrchestratorConfig, trust, cap: int):
+    """The device selector's uniform shape (k_max, cap), or None."""
+    if cfg.pipeline.exchange.reserve_selector != "device":
+        return None
+    return (int(trust.shape[-1]), cap)
+
+
+def _fl_batch_draws(draws, s: int, cfg: OrchestratorConfig, n: int) -> list:
+    """Segment s's per-round minibatch draws, each a callable of the
+    sizes."""
+    flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
+    rps = cfg.iters_per_segment // cfg.fl.tau_a
+    return [draws.fl_batch(r, n, flcfg)
+            for r in range(s * rps, (s + 1) * rps)]
+
+
+def _take_draws(draws, s: int, rediscover: bool, cfg: OrchestratorConfig,
+                scn, n: int, sel_shape, ae_cfg) -> _SegmentDraws:
+    plan, pcfg = scn.faults, cfg.pipeline
+    uniform = cfg.mode == "uniform"
+    re_rl = rediscover and not uniform and pcfg.rl.policy != "ucb"
+    return _SegmentDraws(
+        env=draws.env(s, n),
+        crash=[draws.crash(c.start, n) for c in plan.crashes] if plan
+        else [],
+        burst=[draws.burst(b.start, n) for b in plan.link_bursts] if plan
+        else [],
+        cluster=draws.cluster(s, n, pcfg.n_clusters) if rediscover else None,
+        rl=draws.rl(s, n, cfg.burst_episodes) if re_rl else None,
+        uniform_edge=draws.uniform_edge(s, n) if rediscover and uniform
+        else None,
+        exchange=draws.exchange(s, n, ae_cfg, sel_shape)
+        if rediscover and cfg.exchange_on_rediscover else None,
+        fl_batch=_fl_batch_draws(draws, s, cfg, n))
+
+
+def _advance_env(s: int, env, d: _SegmentDraws, scn, pcfg):
+    """The environment's step, then the scenario's faults."""
+    env = env_step(env, d.env, scn, pcfg.channel)
+    p_fail = failure_prob(env.rss, pcfg.channel)
+    plan = scn.faults
+    if plan is not None:
+        env = env._replace(available=apply_availability(
+            plan, s, env.positions, env.available, d.crash))
+        p_fail = apply_pfail(plan, s, p_fail, d.burst)
+    return env, p_fail
+
+
+def _rediscover(cd: ClientData, trust, p_fail, cfg: OrchestratorConfig,
+                rl_state: Optional[ql.RLState], d: _SegmentDraws, dev):
     """Re-cluster the *current* client stack and run a warm-started RL
     burst (or a uniform re-draw). Returns (in_edge, rl_state, assigns)."""
     pcfg = cfg.pipeline
-    _, cents, assigns = cluster_clients(
-        cd, pcfg, draws.cluster(s, cd.sizes, pcfg.n_clusters), device=dev)
+    _, cents, assigns = cluster_clients(cd, pcfg, d.cluster(cd.sizes),
+                                        device=dev)
     if cfg.mode == "uniform":
-        return draws.uniform_edge(s, cd.n_clients), rl_state, assigns
+        return d.uniform_edge, rl_state, assigns
     _beta, _lam, local_r = link_rewards(cents, trust, p_fail, pcfg)
-    rl = None if pcfg.rl.policy == "ucb" else \
-        draws.rl(s, cd.n_clients, cfg.burst_episodes)
     graph = ql.discover_graph(local_r, p_fail, pcfg.rl, init_state=rl_state,
-                              n_episodes=cfg.burst_episodes, draws=rl)
+                              n_episodes=cfg.burst_episodes, draws=d.rl)
     return graph.in_edge, graph.state, assigns
+
+
+def _fl_segment(s: int, cd: ClientData, avail, carry, fl_batch: list,
+                cfg: OrchestratorConfig, ae_cfg, eval_data, draws, dev):
+    """The segment's FL rounds, from the previous segment's carry."""
+    flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
+    first = s * cfg.iters_per_segment // flcfg.tau_a
+    batch = {first + i: f(cd.sizes) for i, f in enumerate(fl_batch)}
+    return fl_train(cd, ae_cfg, flcfg, eval_data, avail_mask=avail,
+                    init_params=draws.fl_init(ae_cfg) if carry is None
+                    else None, init_carry=carry,
+                    start_iter=s * cfg.iters_per_segment,
+                    stop_iter=(s + 1) * cfg.iters_per_segment,
+                    batch_idx=batch, defer_metrics=True, device=dev)
+
+
+def _segment_dev(s: int, fl, ae_cfg, eval_data, env, p_fail, in_edge,
+                 prev_edge, rediscovered: bool, sampled: bool, fail, moved,
+                 dev) -> dict:
+    """One segment's deferred metrics, as device tensors."""
+    n = int(in_edge.shape[0])
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    realized = torch.full((), float("nan"), device=dev)
+    n_live = n_failed = zero
+    if sampled:
+        realized = realized_delivery_dev(in_edge, fail)
+        live = in_edge != torch.arange(n, device=dev)
+        n_live = torch.sum(live)
+        n_failed = torch.sum(fail & live)
+    pf, expected = delivery_stats_dev(in_edge, p_fail)
+    seg_loss = (fl.eval_loss[-1] if fl.eval_loss.numel() else
+                eval_global_loss(fl.carry.global_params, eval_data, ae_cfg))
+    return {
+        "eval_loss": seg_loss,
+        "in_edge": in_edge,
+        "link_churn": link_churn_dev(
+            prev_edge if rediscovered and s > 0 else None, in_edge),
+        "mean_pfail": pf,
+        "expected_delivery": expected,
+        "n_available": torch.sum(env.available),
+        "moved": moved,
+        "realized": realized,
+        "eval_curve": fl.eval_loss,
+        "n_live": n_live,
+        "n_failed": n_failed,
+    }
 
 
 def run_orchestrator(datasets, labels, ae_cfg,
@@ -193,10 +319,24 @@ def run_orchestrator(datasets, labels, ae_cfg,
     if cfg.segment_impl not in SEGMENT_IMPLS:
         raise ValueError(f"unknown segment_impl {cfg.segment_impl!r}; "
                          f"expected one of {SEGMENT_IMPLS}")
-    if cfg.segment_impl == "scan":
-        raise NotImplementedError(
-            "segment_impl='scan' (the fused segment engine) is not ported "
-            "yet: ROADMAP Queue 1, item 7")
+    if (cfg.segment_impl == "scan" and cfg.mode != "oneshot"
+            and cfg.exchange_on_rediscover):
+        exc = cfg.pipeline.exchange
+        if exc.method != "batched":
+            raise ValueError(
+                "segment_impl='scan' runs the re-exchange inside its chunks; "
+                f"exchange method {exc.method!r} is host-side: use "
+                "method='batched'")
+        if exc.overflow != "drop":
+            raise ValueError(
+                "segment_impl='scan' needs static shapes across segments; "
+                f"overflow={exc.overflow!r} grows the ClientData cap per "
+                "round: use overflow='drop'")
+        if exc.reserve_selector != "device":
+            raise ValueError(
+                "segment_impl='scan' needs reserve selection on the device "
+                "(the host selector reads the cluster ids back); set "
+                "ExchangeConfig(reserve_selector='device')")
     if eval_data is None:
         raise ValueError("eval_data is required: the per-segment trace is "
                          "built around the global eval reconstruction loss")
@@ -218,9 +358,7 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                  eval_data, draws, resume_from, dev) -> OrchestratorResult:
     plan = scn.faults
     pcfg = cfg.pipeline
-    flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
     ckpt_path = cfg.checkpoint_path
-    rounds_per_seg = cfg.iters_per_segment // flcfg.tau_a
 
     retry_q = RetryQueue()
     # the first segment's clock also covers the pipeline (or the load)
@@ -245,7 +383,7 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
     else:
         cd = as_client_data(datasets, labels, device=dev)
         n = cd.n_clients
-        pipe_draws = draws.pipeline(cd.sizes, None, pcfg, ae_cfg)
+        pipe_draws = draws.pipeline(cd.sizes, None, pcfg, ae_cfg, cap=cd.cap)
         # the environment owns the channel: its initial state is the
         # pipeline's channel draw, so segment 0's RSS is the one-shot one
         env = env_init(pipe_draws.positions, pipe_draws.fading, pcfg.channel,
@@ -263,8 +401,13 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
         clock.mark("pipeline")
 
     n = int(env.available.shape[0])
+    # under the scan engine only segment 0 (the one-shot pipeline's
+    # segment) runs here; the loop is the eager engine itself, the scan's
+    # oracle
+    eager_end = cfg.n_segments if cfg.segment_impl == "eager" else \
+        max(start_segment, 1)
     seg_seconds, stage_seconds = [], []
-    for s in range(start_segment, cfg.n_segments):
+    for s in range(start_segment, eager_end):
         if (plan is not None and plan.preempt_at == s
                 and resume_from is None):
             # simulated host preemption at the segment boundary: the
@@ -274,27 +417,22 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
             clock = _Clock(dev)
         rediscovered = s == 0
         assigns = None
+        d = None
         if s > 0:
-            env = env_step(env, draws.env(s, n), scn, pcfg.channel)
-            p_fail = failure_prob(env.rss, pcfg.channel)
-            if plan is not None:
-                env = env._replace(available=apply_availability(
-                    plan, s, env.positions, env.available,
-                    [draws.crash(c.start, n) for c in plan.crashes]))
-                p_fail = apply_pfail(
-                    plan, s, p_fail,
-                    [draws.burst(b.start, n) for b in plan.link_bursts])
+            rediscover = cfg.mode != "oneshot" and s % cfg.rediscover_every == 0
+            d = _take_draws(draws, s, rediscover, cfg, scn, n,
+                            _sel_shape(cfg, trust, cd.cap), ae_cfg)
+            env, p_fail = _advance_env(s, env, d, scn, pcfg)
             clock.mark("env")
             exch = None
-            if cfg.mode != "oneshot" and s % cfg.rediscover_every == 0:
+            if rediscover:
                 new_edge, rl_state, assigns = _rediscover(
-                    s, cd, trust, p_fail, cfg, rl_state, draws, dev)
+                    cd, trust, p_fail, cfg, rl_state, d, dev)
                 clock.mark("rediscover")
                 if cfg.exchange_on_rediscover:
                     exch = ex.run_exchange(
                         cd, None, assigns, trust, new_edge, p_fail, ae_cfg,
-                        pcfg.exchange, draws=draws.exchange(s, n, ae_cfg),
-                        device=dev)
+                        pcfg.exchange, draws=d.exchange, device=dev)
                     cd = exch.client_data
                     clock.mark("exchange")
                 prev_edge, in_edge = in_edge, new_edge
@@ -311,50 +449,28 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                     draws, dev)
             clock.mark("retry")
 
-        first = s * rounds_per_seg
-        batch = {r: draws.fl_batch(r, cd.sizes, flcfg)
-                 for r in range(first, first + rounds_per_seg)}
-        fl = fl_train(cd, ae_cfg, flcfg, eval_data, avail_mask=env.available,
-                      init_params=draws.fl_init(ae_cfg) if carry is None
-                      else None, init_carry=carry,
-                      start_iter=s * cfg.iters_per_segment,
-                      stop_iter=(s + 1) * cfg.iters_per_segment,
-                      batch_idx=batch, defer_metrics=True, device=dev)
+        fl = _fl_segment(s, cd, env.available, carry,
+                         _fl_batch_draws(draws, s, cfg, n) if d is None
+                         else d.fl_batch, cfg, ae_cfg, eval_data, draws, dev)
         carry = fl.carry
         clock.mark("fl")
 
         sampled = (pcfg.exchange.apply_channel_failure and rediscovered
                    and exch is not None)
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        realized = torch.full((), float("nan"), device=dev)
-        n_live = n_failed = zero
-        if sampled:
-            realized = realized_delivery_dev(in_edge, exch.fail)
-            live = in_edge != torch.arange(n, device=dev)
-            n_live = torch.sum(live)
-            n_failed = torch.sum(exch.fail & live)
-        pf, expected = delivery_stats_dev(in_edge, p_fail)
-        seg_loss = (fl.eval_loss[-1] if fl.eval_loss.numel() else
-                    eval_global_loss(carry.global_params, eval_data, ae_cfg))
+        # the loop plane decides on the host: its realized delivery too
+        host_realized = realized_delivery(in_edge, exch.gate_decisions) \
+            if sampled and exch.fail is None else None
+        moved = (torch.sum(exch.moved_dev) if exch is not None else
+                 torch.zeros((), dtype=torch.int64, device=dev)) + retry_moved
         pending.append(PendingSegment(
             segment=s, rediscovered=rediscovered, sampled=sampled,
-            host_realized=None, eval_iters=np.asarray(fl.eval_iters),
-            retried=retried, retry_delivered=retry_delivered,
-            dev={
-                "eval_loss": seg_loss,
-                "in_edge": in_edge,
-                "link_churn": link_churn_dev(
-                    prev_edge if rediscovered and s > 0 else None, in_edge),
-                "mean_pfail": pf,
-                "expected_delivery": expected,
-                "n_available": torch.sum(env.available),
-                "moved": (torch.sum(exch.moved_dev) if exch is not None
-                          else zero) + retry_moved,
-                "realized": realized,
-                "eval_curve": fl.eval_loss,
-                "n_live": n_live,
-                "n_failed": n_failed,
-            }))
+            host_realized=host_realized,
+            eval_iters=np.asarray(fl.eval_iters), retried=retried,
+            retry_delivered=retry_delivered,
+            dev=_segment_dev(s, fl, ae_cfg, eval_data, env, p_fail, in_edge,
+                             prev_edge, rediscovered,
+                             sampled and host_realized is None,
+                             exch.fail if sampled else None, moved, dev)))
 
         clock.mark("metrics")
         if ckpt_path is not None and (
@@ -370,6 +486,14 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
         total, stages = clock.end()
         seg_seconds.append(total)
         stage_seconds.append(stages)
+
+    chunk_seconds = ()
+    if eager_end < cfg.n_segments:
+        sc, chunk_seconds = _scan_segments(
+            cfg, scn, ae_cfg, eval_data, draws, resume_from, trust, retry_q,
+            pending, _ScanCarry(env, p_fail, cd, None, in_edge, prev_edge,
+                                rl_state, carry), eager_end, ckpt_path, dev)
+        env, cd, in_edge, carry = sc.env, sc.cd, sc.in_edge, sc.fc
 
     trace = Trace()
     for p, h in zip(pending, _read_all([p.dev for p in pending])):
@@ -393,7 +517,8 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
     return OrchestratorResult(trace, carry.global_params, carry, in_edge,
                               env, cd.data_list(), cd.label_list(),
                               trace.eval_curve_iters, trace.eval_curve, cd,
-                              tuple(seg_seconds), tuple(stage_seconds))
+                              tuple(seg_seconds), tuple(stage_seconds),
+                              chunk_seconds)
 
 
 def _read_all(devs: list) -> list:
@@ -438,7 +563,8 @@ def _retry_exchange(s: int, cd: ClientData, assigns, trust, p_fail, ae_cfg,
     r_exch = ex.run_exchange(cd, None, assigns, trust,
                              torch.as_tensor(retry_edge, device=dev), p_fail,
                              ae_cfg, cfg.pipeline.exchange,
-                             draws=draws.retry(s, n, ae_cfg), device=dev)
+                             draws=draws.retry(s, n, ae_cfg, _sel_shape(
+                                 cfg, trust, cd.cap)), device=dev)
     failed = set(r_exch.failed_links())
     delivered = 0
     for e in due:
@@ -447,3 +573,185 @@ def _retry_exchange(s: int, cd: ClientData, assigns, trust, p_fail, ae_cfg,
         delivered += int(ok)
     return (r_exch.client_data, torch.sum(r_exch.moved_dev), len(due),
             delivered)
+
+
+# ---------------------------------------------------------------------------
+# the scan engine (segment_impl="scan"): segments [1, n) in chunks. Host
+# work (checkpoint writes, retry offers and drains, simulated preemption)
+# happens between chunks only; inside a chunk nothing reads the device.
+# ---------------------------------------------------------------------------
+
+
+class _ScanCarry(NamedTuple):
+    """The state threaded from segment to segment, as the eager loop keeps
+    it in locals. ``assigns`` holds the last rediscovery's cluster ids
+    (None until the first), which a boundary drain reads."""
+    env: EnvState
+    p_fail: torch.Tensor
+    cd: ClientData
+    assigns: Optional[torch.Tensor]
+    in_edge: torch.Tensor
+    prev_edge: Optional[torch.Tensor]
+    rl_state: Optional[ql.RLState]
+    fc: object                     # FLCarry
+
+
+def _eval_rounds(cfg: OrchestratorConfig, s: int) -> list:
+    """Local round indices of segment ``s`` that ``fl_train`` evaluates at:
+    a pure function of the config, as in the reference."""
+    rps = cfg.iters_per_segment // cfg.fl.tau_a
+    n_rounds = cfg.total_iters // cfg.fl.tau_a
+    out = []
+    for rl in range(rps):
+        r = s * rps + rl
+        it = (r + 1) * cfg.fl.tau_a
+        if it % cfg.fl.eval_every == 0 or r == n_rounds - 1:
+            out.append(rl)
+    return out
+
+
+def _chunk_bounds(cfg: OrchestratorConfig, plan, start: int,
+                  ckpt_path) -> list:
+    """Split segments [start, n_segments) into chunks. A chunk ends after
+    segment ``s`` iff host work is due there: a checkpoint write, a retry
+    offer and drain (retries ride the rediscovery cadence), a simulated
+    preemption at ``s + 1``, or the run's end. The bounds depend on (cfg,
+    plan) alone, not on ``start``, so a resumed run cuts where the
+    uninterrupted run did."""
+    bounds, c0 = [], start
+    for s in range(start, cfg.n_segments):
+        cut = s == cfg.n_segments - 1
+        if ckpt_path is not None and (s + 1) % cfg.checkpoint_every == 0:
+            cut = True
+        if (cfg.retry.enabled and cfg.mode != "oneshot"
+                and s % cfg.rediscover_every == 0):
+            cut = True
+        if plan is not None and plan.preempt_at == s + 1:
+            cut = True
+        if cut:
+            bounds.append((c0, s + 1))
+            c0 = s + 1
+    return bounds
+
+
+def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws, trust,
+           sc: _ScanCarry, segs: list, re_flags: list, seg_draws: list,
+           dev):
+    """Run one chunk's segments from ``sc``. Returns the carry after them
+    and, per segment, (deferred metrics, the channel-failure row, the FL
+    segment's eval iterations).
+
+    Nothing here reads the device from the host: every draw is in
+    ``seg_draws``; the size-dependent ones are mapped on the device; the
+    reserves are selected on the device; the exchange keeps the cap."""
+    pcfg = cfg.pipeline
+    excfg = pcfg.exchange
+    do_exchange = cfg.mode != "oneshot" and cfg.exchange_on_rediscover
+    sampled_possible = do_exchange and excfg.apply_channel_failure
+    env, p_fail, cd, assigns, in_edge, prev_edge, rl_state, fc = sc
+    n = in_edge.shape[0]
+    out = []
+    for s, re, d in zip(segs, re_flags, seg_draws):
+        env, p_fail = _advance_env(s, env, d, scn, pcfg)
+        moved = torch.zeros((n,), dtype=torch.int64, device=dev)
+        fail = torch.zeros((n,), dtype=torch.bool, device=dev)
+        if re:
+            new_edge, rl_state, assigns = _rediscover(
+                cd, trust, p_fail, cfg, rl_state, d, dev)
+            if do_exchange:
+                xd = d.exchange
+                params = ex.pretrain_autoencoders_batched(
+                    xd.init_params, cd, ae_cfg, excfg)
+                sel_idx, sel_mask = ex.select_reserves_device(
+                    xd.sel_u, assigns, cd.sizes, int(trust.shape[-1]),
+                    excfg.reserve_per_cluster)
+                cd, moved, _b, _sc, fail, _acc, _ovf = ex._exchange_device(
+                    params, cd.data, cd.sizes, cd.labels, sel_idx, sel_mask,
+                    trust, xd.fail_u, p_fail, new_edge, ae_cfg,
+                    excfg.apply_channel_failure, cd.cap)
+            prev_edge, in_edge = in_edge, new_edge
+        fl = _fl_segment(s, cd, env.available, fc, d.fl_batch, cfg, ae_cfg,
+                         eval_data, draws, dev)
+        fc = fl.carry
+        dev_metrics = _segment_dev(
+            s, fl, ae_cfg, eval_data, env, p_fail, in_edge, prev_edge, re,
+            sampled_possible and re, fail, torch.sum(moved), dev)
+        out.append((dev_metrics, fail, fl.eval_iters))
+    return _ScanCarry(env, p_fail, cd, assigns, in_edge, prev_edge, rl_state,
+                      fc), out
+
+
+def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
+                   resume_from, trust, retry_q: RetryQueue, pending: list,
+                   sc: _ScanCarry, start: int, ckpt_path, dev):
+    """Drive the scan engine over segments [start, n_segments): per chunk,
+    take its draws, run it, sync once, then do the host work at its
+    boundary (retry offers from its sampled failures and one drain,
+    ``PendingSegment`` assembly, the checkpoint). Appends to ``pending``;
+    returns the final carry and each chunk's (c0, c1, seconds)."""
+    plan = scn.faults
+    n = int(sc.in_edge.shape[0])
+    sampled_possible = (cfg.mode != "oneshot" and cfg.exchange_on_rediscover
+                        and cfg.pipeline.exchange.apply_channel_failure)
+    sel_shape = _sel_shape(cfg, trust, sc.cd.cap)
+    chunk_seconds = []
+    for c0, c1 in _chunk_bounds(cfg, plan, start, ckpt_path):
+        if (plan is not None and plan.preempt_at == c0
+                and resume_from is None):
+            raise Preempted(c0, ckpt_path)
+        segs = list(range(c0, c1))
+        re_flags = [cfg.mode != "oneshot" and s % cfg.rediscover_every == 0
+                    for s in segs]
+        seg_draws = [_take_draws(draws, s, re, cfg, scn, n, sel_shape, ae_cfg)
+                     for s, re in zip(segs, re_flags)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sc, out = _chunk(cfg, scn, ae_cfg, eval_data, draws, trust, sc, segs,
+                         re_flags, seg_draws, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        chunk_seconds.append((c0, c1, time.perf_counter() - t0))
+
+        # -- boundary host work: retry offers from the chunk's sampled
+        # failure rows, then one drain (reads of (N,) rows only; the
+        # metrics stay deferred)
+        b = c1 - 1
+        retried = retry_delivered = 0
+        retry_moved = None
+        if cfg.retry.enabled and sampled_possible:
+            for s, re, (dm, fail, _) in zip(segs, re_flags, out):
+                if not re:
+                    continue
+                edge = dm["in_edge"].cpu().numpy()
+                live = edge != np.arange(n)
+                retry_q.offer(s, [(int(rx), int(edge[rx])) for rx in
+                                  np.nonzero(fail.cpu().numpy() & live)[0]],
+                              cfg.retry)
+        if cfg.retry.enabled and any(re_flags) and len(retry_q):
+            # the drain rides the chunk boundary, one segment later than
+            # the eager engine's pre-FL drain (the boundary segment is the
+            # chunk's rediscovery: _chunk_bounds cuts there)
+            new_cd, retry_moved, retried, retry_delivered = _retry_exchange(
+                b, sc.cd, sc.assigns, trust, sc.p_fail, ae_cfg, cfg, retry_q,
+                draws, dev)
+            sc = sc._replace(cd=new_cd)
+
+        for s, re, (dm, _, eval_iters) in zip(segs, re_flags, out):
+            if s == b and retry_moved is not None:
+                dm = dict(dm, moved=dm["moved"] + retry_moved)
+            pending.append(PendingSegment(
+                segment=s, rediscovered=re, sampled=sampled_possible and re,
+                host_realized=None, eval_iters=np.asarray(eval_iters),
+                retried=retried if s == b else 0,
+                retry_delivered=retry_delivered if s == b else 0, dev=dm))
+
+        if ckpt_path is not None and ((b + 1) % cfg.checkpoint_every == 0
+                                      or b == cfg.n_segments - 1):
+            save_run_state(ckpt_path, RunState(
+                segment=b, key=np.asarray(draws.identity), env=sc.env,
+                cd=sc.cd, trust=trust, in_edge=sc.in_edge,
+                prev_edge=sc.prev_edge, p_fail=sc.p_fail,
+                rl_state=sc.rl_state, carry=sc.fc, retry=retry_q,
+                pending=pending), cfg.n_segments, cfg.iters_per_segment)
+    return sc, tuple(chunk_seconds)

@@ -50,8 +50,10 @@ def apply_availability(plan: FaultPlan, segment: int, positions, avail,
             down = down | (u < c.frac)
     for r in plan.regions:
         if r.active(segment):
-            center = torch.tensor(r.center, dtype=positions.dtype,
-                                  device=positions.device)
+            # filled on the device: a host tensor would be a blocking copy
+            center = torch.stack([torch.full((), c, dtype=positions.dtype,
+                                             device=positions.device)
+                                  for c in r.center])
             dist = torch.linalg.norm(positions - center[None, :], dim=-1)
             down = down | (dist <= r.radius)
     out = avail & ~down

@@ -77,14 +77,23 @@ def _masked_mean(tree, mask):
                     .to(p.dtype), tree)
 
 
-def draw_batch_indices(generator: torch.Generator, sizes, cfg: FLConfig,
-                       n_rounds: int) -> torch.Tensor:
-    """(n_rounds, tau_a, N, B) indices, uniform in [0, sizes[i])."""
-    sizes = torch.as_tensor(sizes, device=generator.device)
-    u = torch.rand((n_rounds, cfg.tau_a, sizes.shape[0], cfg.batch_size),
-                   generator=generator, device=generator.device)
+def batch_indices_from(u, sizes) -> torch.Tensor:
+    """Uniforms u (..., N, B) -> indices ``floor(u * sizes[i])``, computed
+    on the sizes' device (the sizes never leave it)."""
+    u = u.to(sizes.device)
     return torch.minimum(torch.floor(u * sizes[:, None]).long(),
                          (sizes - 1)[:, None])
+
+
+def draw_batch_indices(generator: torch.Generator, sizes, cfg: FLConfig,
+                       n_rounds: int) -> torch.Tensor:
+    """(n_rounds, tau_a, N, B) indices, uniform in [0, sizes[i]) (a sizes
+    tensor keeps its device; other sizes go to the generator's)."""
+    if not isinstance(sizes, torch.Tensor):
+        sizes = torch.as_tensor(sizes, device=generator.device)
+    u = torch.rand((n_rounds, cfg.tau_a, sizes.shape[0], cfg.batch_size),
+                   generator=generator, device=generator.device)
+    return batch_indices_from(u, sizes)
 
 
 def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
@@ -97,7 +106,15 @@ def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
     rows = torch.arange(n, device=data.device)[:, None]
     floor = (max(1, math.ceil(cfg.min_participation * n - 1e-9))
              if cfg.min_participation > 0.0 else 0)
-    ok = bool(torch.sum(agg_mask) >= floor) if floor else True
+    # below the floor a round keeps the last global model: a device select,
+    # as the reference's traced ``ok`` is, so the round never reads the
+    # device
+    ok = torch.sum(agg_mask) >= floor if floor else None
+
+    def keep_below_floor(new, old):
+        if ok is None:
+            return new
+        return tree_map(lambda a, b: torch.where(ok, a, b), new, old)
 
     def loss(p, x):
         return ae.recon_loss_stacked(p, x, ae_cfg).sum()
@@ -108,10 +125,11 @@ def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
         if cfg.scheme == "fedprox":   # prox pull toward the global model
             grads = tree_map(lambda g, p, q: g + cfg.prox_mu * (p - q[None]),
                              grads, cp, gp)
-        if cfg.scheme == "fedsgd" and ok:
+        if cfg.scheme == "fedsgd":
             # all clients step with the participants' mean gradient; below
             # the floor they keep their local gradients
-            grads = _broadcast(_masked_mean(grads, agg_mask), n)
+            grads = keep_below_floor(
+                _broadcast(_masked_mean(grads, agg_mask), n), grads)
         if cfg.local_opt == "sgd":    # Eq. 8, paper-faithful
             cp = tree_map(lambda p, g: p - cfg.lr * g, cp, grads)
         else:
@@ -122,9 +140,10 @@ def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
             c2 = 1 - torch.pow(b2, t)
             cp = tree_map(lambda p, m, v: p - cfg.adam_lr * (m / c1)
                           / (torch.sqrt(v / c2) + cfg.adam_eps), cp, mu, nu)
-    if ok:   # FedAvg/FedProx param mean; below the floor keep the old model
-        gp = _masked_mean(cp, agg_mask)
-        cp = _broadcast(gp, n)
+    # FedAvg/FedProx param mean; below the floor keep the old model and the
+    # clients' local parameters
+    gp = keep_below_floor(_masked_mean(cp, agg_mask), gp)
+    cp = keep_below_floor(_broadcast(gp, n), cp)
     return FLCarry(cp, gp, mu, nu, t)
 
 

@@ -92,25 +92,36 @@ def _jax_ae_cfg(ae_cfg) -> jae.AEConfig:
     return jae.AEConfig(**dataclasses.asdict(ae_cfg))
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2))
-def _exchange_keys(key, n: int, ae_cfg):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _exchange_keys(key, n: int, ae_cfg, sel_shape):
     k_pre, k_sel, k_ch = jax.random.split(key, 3)
     init = jax.vmap(lambda kk: jae.init_ae(kk, ae_cfg))(
         jax.random.split(k_pre, n))
+    sel_u = None if sel_shape is None else \
+        jax.random.uniform(k_sel, (n,) + sel_shape)
     return (init, jax.random.randint(k_sel, (), 0, 2**31 - 1),
-            jax.random.uniform(k_ch, (n,)))
+            jax.random.uniform(k_ch, (n,)), sel_u)
 
 
-def exchange_draws(key, n: int, ae_cfg) -> tex.ExchangeDraws:
-    init, seed, fail_u = _exchange_keys(key, n, _jax_ae_cfg(ae_cfg))
+def exchange_draws(key, n: int, ae_cfg, sel_shape=None) -> tex.ExchangeDraws:
+    """``run_exchange(key, ...)``'s draws; ``sel_shape`` (k_max, cap) adds
+    the device selector's ``uniform(k_sel, (n, k_max, cap))``."""
+    init, seed, fail_u, sel_u = _exchange_keys(
+        key, n, _jax_ae_cfg(ae_cfg),
+        None if sel_shape is None else tuple(int(v) for v in sel_shape))
     return tex.ExchangeDraws(convert.ae_params(jax.device_get(init)),
-                             int(seed), t(fail_u))
+                             int(seed), t(fail_u),
+                             None if sel_u is None else t(sel_u))
 
 
-def pipeline_draws(key, cfg, ae_cfg, sizes, sizes_after) -> tpl.PipelineDraws:
+def pipeline_draws(key, cfg, ae_cfg, sizes, sizes_after,
+                   cap=None) -> tpl.PipelineDraws:
     """Every draw of the reference's ``run_pipeline(key, ...)``."""
     k_cl, k_tr, k_ch, k_rl, k_ex = jax.random.split(key, 5)
     n = len(sizes)
+    sel_shape = None
+    if cfg.exchange.reserve_selector == "device":
+        sel_shape = (cfg.n_clusters, int(max(sizes)) if cap is None else cap)
     kp, kf = jax.random.split(k_ch)
     rl = None if cfg.rl.policy == "ucb" else \
         rl_draws(k_rl, n, cfg.rl.n_episodes)
@@ -121,7 +132,7 @@ def pipeline_draws(key, cfg, ae_cfg, sizes, sizes_after) -> tpl.PipelineDraws:
         positions=t(jax.jit(jch.make_positions, static_argnums=(1, 2))(
             kp, n, cfg.channel)),
         fading=t(jax.jit(jch.init_fading, static_argnums=1)(kf, n)), rl=rl,
-        exchange=exchange_draws(k_ex, n, ae_cfg))
+        exchange=exchange_draws(k_ex, n, ae_cfg, sel_shape))
 
 
 @functools.partial(jax.jit, static_argnums=(2, 3))
@@ -169,7 +180,8 @@ class JaxReplayDraws:
     exchange ``fold_in(k_pipe, 200 + s)``, retry ``fold_in(k_pipe,
     300 + s)``; the initial uniform graph ``fold_in(k_pipe, 7)``; FL
     ``init_ae(k_fl)`` and round keys from ``fold_in(k_fl, 1)``. Draws are
-    CPU tensors; size-dependent draws take the port's current sizes."""
+    CPU tensors; size-dependent draws take the port's current sizes (given
+    an int n instead, they return a callable of the sizes)."""
 
     def __init__(self, key):
         self.key = key
@@ -183,11 +195,12 @@ class JaxReplayDraws:
     def _redisc(self, s):
         return jax.random.split(jax.random.fold_in(self.k_pipe, 100 + s))
 
-    def pipeline(self, sizes, sizes_after, cfg, ae_cfg) -> tpl.PipelineDraws:
+    def pipeline(self, sizes, sizes_after, cfg, ae_cfg,
+                 cap=None) -> tpl.PipelineDraws:
         sizes = _host_ints(sizes)
         d = pipeline_draws(self.k_pipe, cfg, _jax_ae_cfg(ae_cfg), sizes,
                            sizes if sizes_after is None
-                           else _host_ints(sizes_after))
+                           else _host_ints(sizes_after), cap)
         if sizes_after is None:
             k_cl = jax.random.split(self.k_pipe, 5)[0]
             d.cluster_after = functools.partial(kmeans_draws, k_cl,
@@ -205,7 +218,8 @@ class JaxReplayDraws:
         return t(_event_uniforms(self.k_fault, start, 0x0FA2, (n, n)))
 
     def cluster(self, s, sizes, k):
-        return kmeans_draws(self._redisc(s)[0], sizes, k)
+        f = functools.partial(kmeans_draws, self._redisc(s)[0], k=k)
+        return f if isinstance(sizes, int) else f(sizes)
 
     def rl(self, s, n, n_ep):
         return rl_draws(self._redisc(s)[1], n, n_ep)
@@ -215,22 +229,25 @@ class JaxReplayDraws:
             else self._redisc(s)[1]
         return t(jql.uniform_graph(key, n), torch.int64)
 
-    def exchange(self, s, n, ae_cfg):
+    def exchange(self, s, n, ae_cfg, sel_shape=None):
         return exchange_draws(jax.random.fold_in(self.k_pipe, 200 + s), n,
-                              ae_cfg)
+                              ae_cfg, sel_shape)
 
-    def retry(self, s, n, ae_cfg):
+    def retry(self, s, n, ae_cfg, sel_shape=None):
         return exchange_draws(jax.random.fold_in(self.k_pipe, 300 + s), n,
-                              ae_cfg)
+                              ae_cfg, sel_shape)
 
     def fl_init(self, ae_cfg):
         return convert.ae_params(jax.device_get(jax.jit(
             jae.init_ae, static_argnums=1)(self.k_fl, _jax_ae_cfg(ae_cfg))))
 
     def fl_batch(self, r, sizes, cfg):
-        return t(_round_indices(_round_keys(self.k_fl, cfg)[r],
-                                jnp.asarray(_host_ints(sizes), jnp.int32),
-                                cfg.tau_a, cfg.batch_size), torch.int64)
+        kr = _round_keys(self.k_fl, cfg)[r]
+
+        def f(sz):
+            return t(_round_indices(kr, jnp.asarray(_host_ints(sz), jnp.int32),
+                                    cfg.tau_a, cfg.batch_size), torch.int64)
+        return f if isinstance(sizes, int) else f(sizes)
 
 
 # ---------------------------------------------------------------------------

@@ -201,9 +201,19 @@ def test_modes_and_engines_are_checked(small):
         with pytest.raises(err):
             t_run(xs, ys, TC, dataclasses.replace(cfg, **bad), "static", ev,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_run(xs, ys, TC, dataclasses.replace(cfg, segment_impl="scan"),
-              "static", ev, device="cpu")
+    # the scan engine refuses, as the reference does, every exchange
+    # configuration its chunks cannot run without reading the device
+    scan = dataclasses.replace(cfg, segment_impl="scan")
+    ok = dict(overflow="drop", reserve_selector="device")
+    for bad, match in ((dict(method="loop"), "method"),
+                       (dict(overflow="grow"), "overflow"),
+                       (dict(reserve_selector="host"), "reserve_selector")):
+        exc = dataclasses.replace(cfg.pipeline.exchange, **{**ok, **bad})
+        with pytest.raises(ValueError, match=match):
+            t_run(xs, ys, TC, dataclasses.replace(
+                scan, pipeline=dataclasses.replace(cfg.pipeline,
+                                                   exchange=exc)),
+                  "static", ev, device="cpu")
     with pytest.raises(ValueError, match="eval_data"):
         t_run(xs, ys, TC, cfg, "static", None, device="cpu")
 

@@ -70,12 +70,27 @@
    ``cluster_clients_loop`` and ``wcss_elbow`` on phase 3's small world,
    card against host, counting ``kmeans_assign``'s 2-D launches, then the
    kernel against its plain version at that 2-D shape (f), both timed.
+9. Drives the observability plane (``repro_torch.obs``): (a) phase 6's
+   full-width ``burst-outage`` run under ``obs.enable`` with a manifest at
+   ``runs/obs/chip_online.jsonl``, printing the per-phase report and
+   asserting the span counts the config implies, one transfer (inside
+   ``metrics-materialize``), no compile, phase 6's launch counts, graphs,
+   moved and retry counts, and eval losses within 5e-4 relative; (b)
+   phase 8 (a)'s scan run traced (``runs/obs/chip_scan.jsonl``): one
+   ``scan-chunk`` span at the bounds ``chunk_seconds`` reports, no named
+   span inside it, one transfer, phase 8's launch counts; (c) both runs
+   again under ``obs.maybe_profile`` (``runs/obs/profile/<tag>/``), and
+   from each Chrome trace the device's busy ms, idle share and top kernels
+   over the online run and over the scan chunk; (d) the disabled tracer's
+   cost: 10^6 disabled spans timed on the host, times (a)'s span count,
+   must be under 1% of (a)'s seconds.
 
-Phases 4, 5, 6 (a), 7 (a, b) and 8 (a, c, d) set every kernel's launch
-count to 0 just before each run they drive (the main path, the bf16 serve,
-the f32 serve, the two online runs, the two training runs, the
+Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d) and 9 (a, b) set every kernel's
+launch count to 0 just before each run they drive (the main path, the bf16
+serve, the f32 serve, the two online runs, the two training runs, the
 federated-LLM run, the eager and scan runs, the CIFAR-like main path, the
-clustering loop on the card) and read the counts just after. Before the main path, the bf16 serve, each online run
+clustering loop on the card, the traced online and scan runs) and read the
+counts just after. Before the main path, the bf16 serve, each online run
 and each training run they reset the peak-memory counter and print what is
 allocated then; each peak is printed absolute and above that allocation.
 
@@ -83,7 +98,8 @@ Prints the card's name and power limit, a JSON line of the kernels (with
 each kernel's launches on the main path and, as ``online_launches``, on the
 ``burst-outage`` run, as ``train_launches`` in phase 7 (a) and as
 ``federated_llm_launches`` in phase 7 (b), as ``scan_launches`` and
-``cifar_launches`` in phase 8 (a, c), the online shapes' errors, the
+``cifar_launches`` in phase 8 (a, c), as ``traced_online_launches`` and
+``traced_scan_launches`` in phase 9 (a, b), the online shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's) and, as the
 last line, ``{"ok": true, "device": {...}}``. Any failure ends the run with
@@ -883,7 +899,7 @@ def _online_run(torch, ops, dev, world, cfg, scenario):
     """One full-width ``run_orchestrator`` call with the launch counts set
     to 0 just before it and read just after; prints its segments and
     checks what every full-width online run must show. Returns (result,
-    launch counts)."""
+    launch counts, seconds)."""
     from repro_torch.dynamics import run_orchestrator
     from repro_torch.models.autoencoder import AEConfig
     xs, ys, ev = world
@@ -933,7 +949,7 @@ def _online_run(torch, ops, dev, world, cfg, scenario):
     if failed:
         raise AssertionError(f"online orchestrator ({name}) checks failed: "
                              f"{failed}")
-    return res, launches
+    return res, launches, total
 
 
 def online_kernel_checks(torch, ops, ref, res, cfg, dev):
@@ -989,24 +1005,17 @@ def orchestrator_full(torch, ops, ref, dev):
     link, so the retry path is shown by a second run on a copy of the
     scenario whose burst floors every link at P_D 0.97 in segments 1-2:
     each of segment 1's 30 live links fails with probability >= 0.97, and
-    segment 2 must retry. Returns (launch counts, online max errors)."""
+    segment 2 must retry. Returns (launch counts, online max errors, the
+    ``burst-outage`` run's segment records and seconds)."""
     import dataclasses
-    from repro_torch.core.exchange import ExchangeConfig
-    from repro_torch.core.pipeline import PipelineConfig
-    from repro_torch.dynamics import OrchestratorConfig, get_scenario
-    from repro_torch.faults import RetryPolicy
-    from repro_torch.fl import FLConfig
+    from repro_torch.dynamics import get_scenario
     xs, ys, ev, _ = full_world(torch, dev)
-    cfg = OrchestratorConfig(
-        n_segments=5, iters_per_segment=20, mode="online", rediscover_every=1,
-        burst_episodes=150, retry=RetryPolicy(enabled=True),
-        pipeline=PipelineConfig(exchange=ExchangeConfig(
-            apply_channel_failure=True)),
-        fl=FLConfig(tau_a=10, batch_size=64, eval_every=20))
+    cfg = _online_cfg()
 
-    res, launches = _online_run(torch, ops, dev, (xs, ys, ev), cfg,
-                                "burst-outage")
+    res, launches, secs = _online_run(torch, ops, dev, (xs, ys, ev), cfg,
+                                      "burst-outage")
     errs = online_kernel_checks(torch, ops, ref, res, cfg, dev)
+    segs = res.trace.segments
     del res
 
     scn = get_scenario("burst-outage")
@@ -1015,13 +1024,29 @@ def orchestrator_full(torch, ops, ref, dev):
             scn.faults, link_bursts=tuple(
                 dataclasses.replace(b, frac=1.0)
                 for b in scn.faults.link_bursts)))
-    res, _ = _online_run(torch, ops, dev, (xs, ys, ev), cfg, every_link)
-    segs = res.trace.segments
-    if not (segs[1].n_failed >= 1 and segs[2].retried >= 1
+    res, _, _ = _online_run(torch, ops, dev, (xs, ys, ev), cfg, every_link)
+    hit = res.trace.segments
+    if not (hit[1].n_failed >= 1 and hit[2].retried >= 1
             and res.trace.summary()["total_failed_links"] >= 1):
         raise AssertionError("every link burst: the retry queue saw no "
                              "failed live link, or segment 2 retried none")
-    return launches, errs
+    return launches, errs, segs, secs
+
+
+def _online_cfg():
+    """Phase 6's full-width online config: 5 segments of 20 FL iterations,
+    a 150-episode burst, a re-exchange and retries every segment."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.dynamics import OrchestratorConfig
+    from repro_torch.faults import RetryPolicy
+    from repro_torch.fl import FLConfig
+    return OrchestratorConfig(
+        n_segments=5, iters_per_segment=20, mode="online", rediscover_every=1,
+        burst_episodes=150, retry=RetryPolicy(enabled=True),
+        pipeline=PipelineConfig(exchange=ExchangeConfig(
+            apply_channel_failure=True)),
+        fl=FLConfig(tau_a=10, batch_size=64, eval_every=20))
 
 
 def _small_online(n_segments=4, **kw):
@@ -1701,6 +1726,247 @@ def clustering_loop_phase(torch, ops, ref, km_mod, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the observability plane
+# ---------------------------------------------------------------------------
+
+OBS_DIR = os.path.join(ROOT, "runs", "obs")
+# span counts of phase 6's config (5 segments, the burst-outage plan over
+# segments 1-4, a rediscovery and re-exchange in each)
+ONLINE_SPANS = {"orchestrator": 1, "pipeline": 1, "segment": 5,
+                "fl-segment": 5, "fl": 5, "env-step": 4, "fault-inject": 4,
+                "re-cluster": 4, "re-discover": 4, "re-exchange": 4,
+                "metrics-materialize": 1}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _traced(torch, ops, dev, cfg, manifest):
+    """One full-width ``burst-outage`` run under ``obs.enable`` (a manifest
+    at ``manifest``), the launch counts set to 0 just before it and read
+    just after. Returns (result, obs record, launches, seconds)."""
+    from repro_torch import obs
+    from repro_torch.dynamics import SeededDraws, run_orchestrator
+    from repro_torch.models.autoencoder import AEConfig
+    xs, ys, ev, _ = full_world(torch, dev)
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    obs.enable(manifest=manifest, meta={
+        "scenario": "burst-outage", "segment_impl": cfg.segment_impl,
+        "card": torch.cuda.get_device_name(0)})
+    t0 = time.perf_counter()
+    try:
+        res = run_orchestrator(xs, ys, AEConfig(), cfg, "burst-outage",
+                               ev.images, draws=SeededDraws(0, dev),
+                               device=dev)
+        torch.cuda.synchronize()
+    finally:
+        rec = obs.disable()
+    secs = time.perf_counter() - t0
+    return res, rec, {n: k.launches for n, k in ops.KERNELS.items()}, secs
+
+
+def _log_report(path):
+    from repro_torch.obs import report
+    for line in report.report(path).splitlines():
+        log(f"    {line}")
+
+
+def _one_transfer(rec):
+    """One counted transfer, inside ``metrics-materialize``."""
+    carriers = [(e.name, e.transfers) for e in rec["events"] if e.transfers]
+    return rec["totals"]["transfers"] == 1 and carriers == [
+        ("metrics-materialize", 1), ("orchestrator", 1)]
+
+
+def traced_online(torch, ops, dev, online, online_segs):
+    """Phase 9 (a): phase 6's full-width ``burst-outage`` run, traced.
+    Prints the report table; asserts the span counts the config implies,
+    one transfer inside ``metrics-materialize``, no compile (phase 1
+    loaded every library), phase 6's launch counts, and phase 6's graphs,
+    moved and retry counts, with eval losses within 5e-4 relative (two
+    card runs differ by cuDNN's sums). Returns (launches, seconds, span
+    count)."""
+    path = os.path.join(OBS_DIR, "chip_online.jsonl")
+    res, rec, launches, secs = _traced(torch, ops, dev, _online_cfg(), path)
+    log(f"  traced online run: {secs:.3f} s, {len(rec['events'])} spans, "
+        f"launches {launches}; report of {os.path.relpath(path, ROOT)}:")
+    _log_report(path)
+    counts = {}
+    for e in rec["events"]:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    retries = sum(seg.retried > 0 for seg in online_segs)
+    checks = {
+        f"span counts {ONLINE_SPANS}":
+            all(counts.get(k) == v for k, v in ONLINE_SPANS.items()),
+        f"retry-exchange spans == segments that retried ({retries})":
+            counts.get("retry-exchange", 0) == retries,
+        "one transfer, inside metrics-materialize": _one_transfer(rec),
+        "no compile": rec["totals"]["compiles"] == 0,
+        "kmeans_assign and recon_gate launches as phase 6":
+            all(launches[k] == online[k]
+                for k in ("kmeans_assign", "recon_gate")),
+    }
+    for a, b in zip(online_segs, res.trace.segments):
+        same = ((a.in_edge == b.in_edge).all() and
+                (a.moved, a.retried, a.retry_delivered, a.n_failed) ==
+                (b.moved, b.retried, b.retry_delivered, b.n_failed))
+        checks[f"segment {a.segment}: graph, moved, retries as phase 6; "
+               "eval loss within 5e-4"] = bool(same) and math.isclose(
+                   a.eval_loss, b.eval_loss, rel_tol=5e-4)
+        log(f"  segment {a.segment}: eval loss phase 6 {a.eval_loss:.6f} "
+            f"traced {b.eval_loss:.6f}; moved {b.moved}, retried "
+            f"{b.retried}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 9 (a) checks failed: {failed}; "
+                             f"span counts {counts}")
+    return launches, secs, len(rec["events"])
+
+
+def traced_scan(torch, ops, dev, scanned):
+    """Phase 9 (b): phase 8 (a)'s scan run, traced. Asserts ``scan-chunk``
+    spans at the bounds ``chunk_seconds`` reports, no named span inside a
+    chunk, one transfer, and phase 8's launch counts. Returns (launches,
+    seconds, the chunk's seconds)."""
+    from repro_torch.obs import report
+    path = os.path.join(OBS_DIR, "chip_scan.jsonl")
+    res, rec, launches, secs = _traced(torch, ops, dev, _scan_cfg("scan"),
+                                       path)
+    log(f"  traced scan run: {secs:.3f} s, {len(rec['events'])} spans, "
+        f"chunks {[c[:2] for c in res.chunk_seconds]}, launches "
+        f"{launches}; report of {os.path.relpath(path, ROOT)}:")
+    _log_report(path)
+    spans = [e.to_dict() for e in rec["events"]]
+    parents = report.assign_parents(spans)
+    chunks = [(s["attrs"]["start"], s["attrs"]["start"]
+               + s["attrs"]["n_segments"]) for s in spans
+              if s["name"] == "scan-chunk"]
+    inside = [s["name"] for s, p in zip(spans, parents)
+              if p is not None and spans[p]["name"] == "scan-chunk"]
+    checks = {
+        "scan-chunk spans at chunk_seconds' bounds":
+            chunks == [c[:2] for c in res.chunk_seconds] == [(1, 5)],
+        "no named span inside a chunk": not inside,
+        "one transfer, inside metrics-materialize": _one_transfer(rec),
+        "launches as phase 8": launches == scanned,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 9 (b) checks failed: {failed}; "
+                             f"inside {inside}")
+    return launches, secs, res.chunk_seconds[0][2]
+
+
+def _busy(intervals, lo, hi):
+    """Length of the union of ``intervals`` clipped to [lo, hi]."""
+    total, end = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            total += b - a
+            end = b
+    return total
+
+
+def trace_shares(path, windows, top=6):
+    """From a Chrome trace: for each named window (the host range a span
+    opened while profiling), the device's busy ms (the union of kernel,
+    copy and set intervals inside it, so that events the trace shows
+    overlapping count once), its idle share, the summed event ms, and the
+    ``top`` kernels by summed device time. Returns {window: (window ms,
+    busy ms, idle share)}; busy is None when the trace holds no device
+    event."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    dev_evs = [e for e in evs if e.get("ph") == "X"
+               and e.get("cat") in DEVICE_CATS]
+    log(f"  trace {os.path.relpath(path, ROOT)}: "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB, {len(evs)} events, "
+        f"{len(dev_evs)} on the device")
+    out = {}
+    for name in windows:
+        rng = [e for e in evs if e.get("ph") == "X" and e.get("name") == name
+               and e.get("cat") != "gpu_user_annotation"]
+        if len(rng) != 1:
+            raise AssertionError(f"trace: {len(rng)} ranges named {name}")
+        lo, hi = rng[0]["ts"], rng[0]["ts"] + rng[0]["dur"]
+        inside = [e for e in dev_evs if e["ts"] < hi
+                  and e["ts"] + e["dur"] > lo]
+        if not inside:
+            log(f"  {name}: window {(hi - lo) / 1e3:.3f} ms; device time "
+                "not measured (the profiler saw no device events)")
+            out[name] = ((hi - lo) / 1e3, None, None)
+            continue
+        busy = _busy([(e["ts"], e["ts"] + e["dur"]) for e in inside],
+                     lo, hi)
+        summed = sum(e["dur"] for e in inside)
+        streams = {}
+        for e in inside:
+            sid = e.get("args", {}).get("stream")
+            streams[sid] = streams.get(sid, 0.0) + e["dur"] / 1e3
+        out[name] = ((hi - lo) / 1e3, busy / 1e3, 1 - busy / (hi - lo))
+        log(f"  {name}: window {(hi - lo) / 1e3:.3f} ms (profiled), device "
+            f"busy {busy / 1e3:.3f} ms over {len(inside)} device events "
+            f"(their durations sum to {summed / 1e3:.3f} ms; ms by stream "
+            f"{ {k: round(v, 3) for k, v in streams.items()} }), idle "
+            f"share {1 - busy / (hi - lo):.4f}")
+        by_name = {}
+        for e in inside:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+            log(f"    {us / 1e3:9.3f} ms  {100 * us / summed:5.1f}%  "
+                f"{k[:90]}")
+    return out
+
+
+def profiled_runs(torch, ops, dev, online_secs, scan_secs, chunk_secs):
+    """Phase 9 (c): the runs of (a) and (b) again, traced and under
+    ``obs.maybe_profile`` (each span opens a profiler range). From each
+    written Chrome trace: device busy ms, idle share and top kernels of
+    the whole online run, the whole scan run and its chunk; each idle share
+    is also given against the unprofiled window's seconds from (a) and (b)
+    (the profiler slows the host, not the device)."""
+    from repro_torch import obs
+    prof_dir = os.path.join(OBS_DIR, "profile")
+    for tag, cfg, unprofiled in (
+            ("online", _online_cfg(), {"orchestrator": online_secs}),
+            ("scan", _scan_cfg("scan"), {"orchestrator": scan_secs,
+                                         "scan-chunk": chunk_secs})):
+        with obs.maybe_profile(tag, out_dir=prof_dir):
+            _, _, _, psecs = _traced(
+                torch, ops, dev, cfg, os.path.join(OBS_DIR,
+                                                   f"chip_{tag}_prof.jsonl"))
+        log(f"  profiled {tag} run: {psecs:.3f} s (unprofiled "
+            f"{online_secs if tag == 'online' else scan_secs:.3f} s)")
+        got = trace_shares(os.path.join(prof_dir, tag, "trace.json"),
+                           tuple(unprofiled))
+        for name, (_, busy, _) in got.items():
+            if busy is not None:
+                ms = unprofiled[name] * 1e3
+                log(f"  {tag} {name}: device busy {busy:.3f} ms of the "
+                    f"unprofiled {ms:.3f} ms: idle share {1 - busy / ms:.4f}")
+
+
+def disabled_span_cost(n_spans, online_secs, reps=10**6):
+    """Phase 9 (d): ``reps`` disabled span enters and exits on the host,
+    scaled to (a)'s span count, must stay under 1% of (a)'s seconds."""
+    from repro_torch import obs
+    if obs.enabled():
+        raise AssertionError("the tracer is still on")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with obs.span("segment", segment=0):
+            pass
+    per = (time.perf_counter() - t0) / reps
+    cost = per * n_spans
+    log(f"  disabled span: {per * 1e9:.1f} ns per enter and exit; x "
+        f"{n_spans} spans = {cost * 1e6:.2f} us, "
+        f"{100 * cost / online_secs:.5f}% of the traced run's "
+        f"{online_secs:.3f} s")
+    if cost >= 0.01 * online_secs:
+        raise AssertionError("disabled spans cost 1% of the run or more")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1758,7 +2024,8 @@ def main() -> int:
     launches["flash_attention"] = served32["flash_attention"]
 
     log("== phase 6: the online orchestrator")
-    online, online_errs = orchestrator_full(torch, ops, ref, dev)
+    online, online_errs, online_segs, _ = orchestrator_full(torch, ops, ref,
+                                                            dev)
     orchestrator_reference(torch, dev)
     orchestrator_resume(torch, dev)
 
@@ -1774,6 +2041,13 @@ def main() -> int:
     scan_resume(torch, dev)
     cifar, cifar_shape = cifar_main_path(torch, ops, ref, rg_mod, dev)
     loop_shape = clustering_loop_phase(torch, ops, ref, km_mod, dev)
+
+    log("== phase 9: the observability plane")
+    traced_on, on_secs, n_spans = traced_online(torch, ops, dev, online,
+                                                online_segs)
+    traced_sc, sc_secs, chunk_secs = traced_scan(torch, ops, dev, scanned)
+    profiled_runs(torch, ops, dev, on_secs, sc_secs, chunk_secs)
+    disabled_span_cost(n_spans, on_secs)
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -1783,6 +2057,8 @@ def main() -> int:
         row["federated_llm_launches"] = fed_launches[name]
         row["scan_launches"] = scanned[name]
         row["cifar_launches"] = cifar[name]
+        row["traced_online_launches"] = traced_on[name]
+        row["traced_scan_launches"] = traced_sc[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -1790,7 +2066,8 @@ def main() -> int:
     rows["recon_gate"]["shapes"] = [cifar_shape]
     keys = ("name", "route", "source", "replaces", "launches",
             "online_launches", "train_launches", "federated_llm_launches",
-            "scan_launches", "cifar_launches", "max_abs_err",
+            "scan_launches", "cifar_launches", "traced_online_launches",
+            "traced_scan_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
             "shapes")

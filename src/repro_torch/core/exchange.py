@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.batching import ClientData, as_client_data, \
     client_data_from_lists, stack_pytrees, unstack_pytree
 from repro_torch.kernels import ops
@@ -487,53 +487,59 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
             "reserve_selector='device' requires the batched plane")
     if method not in METHODS:
         raise ValueError(f"unknown exchange method: {method!r}")
-    dev = resolve_device(device)
-    cd = as_client_data(datasets, labels, device=dev)
-    n = cd.n_clients
-    trust_np = _trust_list(trust)
-    k_max = max(t.shape[1] for t in trust_np)
-    device_sel = cfg.reserve_selector == "device"
-    if draws is None:
-        if generator is None:
-            raise ValueError("run_exchange needs draws or a generator")
-        draws = draw_exchange(generator, n, ae_cfg,
-                              (k_max, cd.cap) if device_sel else None)
-    assignments = torch.as_tensor(assignments, device=dev)
-    if device_sel:
-        if draws.sel_u is None:
-            raise ValueError("reserve_selector='device' needs "
-                             "ExchangeDraws.sel_u")
-        sel = select_reserves_device(draws.sel_u.to(dev), assignments,
-                                     cd.sizes, k_max,
-                                     cfg.reserve_per_cluster)
-    else:
-        sel = _select_reserves(draws.seed, assignments,
-                               [t.shape[1] for t in trust_np],
-                               cfg.reserve_per_cluster, cd.sizes)
-    fail_u = torch.as_tensor(draws.fail_u, device=dev)
-    p_fail = torch.as_tensor(p_fail, device=dev)
-
-    if method == "loop":
-        data_l, labels_l = cd.data_list(), cd.label_list()
-        if labels_l is None:
-            raise ValueError("the loop plane needs labels; pass them (the "
-                             "batched plane accepts unlabeled ClientData)")
-        if ae_params is None:
-            params = pretrain_autoencoders(
-                tree_map(lambda p: p.to(dev), draws.init_params), data_l,
-                ae_cfg, cfg)
-        elif isinstance(ae_params, (list, tuple)):
-            params = list(ae_params)
+    with obs.span("exchange", method=method):
+        dev = resolve_device(device)
+        cd = as_client_data(datasets, labels, device=dev)
+        n = cd.n_clients
+        trust_np = _trust_list(trust)
+        k_max = max(t.shape[1] for t in trust_np)
+        device_sel = cfg.reserve_selector == "device"
+        if draws is None:
+            if generator is None:
+                raise ValueError("run_exchange needs draws or a generator")
+            draws = draw_exchange(generator, n, ae_cfg,
+                                  (k_max, cd.cap) if device_sel else None)
+        assignments = torch.as_tensor(assignments, device=dev)
+        if device_sel:
+            if draws.sel_u is None:
+                raise ValueError("reserve_selector='device' needs "
+                                 "ExchangeDraws.sel_u")
+            sel = select_reserves_device(draws.sel_u.to(dev), assignments,
+                                         cd.sizes, k_max,
+                                         cfg.reserve_per_cluster)
         else:
-            params = unstack_pytree(ae_params, n)
-        return _gate_loop(data_l, labels_l, trust_np, in_edge, sel, fail_u,
-                          p_fail, params, ae_cfg, cfg)
-    if ae_params is None:
-        params = pretrain_autoencoders_batched(
-            tree_map(lambda p: p.to(dev), draws.init_params), cd, ae_cfg, cfg)
-    elif isinstance(ae_params, (list, tuple)):
-        params = stack_pytrees(list(ae_params))
-    else:
-        params = ae_params
-    return _gate_batched(cd, trust_np, in_edge, sel, fail_u, p_fail, params,
-                         ae_cfg, cfg)
+            sel = _select_reserves(draws.seed, assignments,
+                                   [t.shape[1] for t in trust_np],
+                                   cfg.reserve_per_cluster, cd.sizes)
+        fail_u = torch.as_tensor(draws.fail_u, device=dev)
+        p_fail = torch.as_tensor(p_fail, device=dev)
+
+        if method == "loop":
+            data_l, labels_l = cd.data_list(), cd.label_list()
+            if labels_l is None:
+                raise ValueError("the loop plane needs labels; pass them (the "
+                                 "batched plane accepts unlabeled ClientData)")
+            if ae_params is None:
+                with obs.span("pretrain", method=method):
+                    params = pretrain_autoencoders(
+                        tree_map(lambda p: p.to(dev), draws.init_params),
+                        data_l, ae_cfg, cfg)
+            elif isinstance(ae_params, (list, tuple)):
+                params = list(ae_params)
+            else:
+                params = unstack_pytree(ae_params, n)
+            with obs.span("gate", method=method):
+                return _gate_loop(data_l, labels_l, trust_np, in_edge, sel,
+                                  fail_u, p_fail, params, ae_cfg, cfg)
+        if ae_params is None:
+            with obs.span("pretrain", method=method):
+                params = pretrain_autoencoders_batched(
+                    tree_map(lambda p: p.to(dev), draws.init_params), cd,
+                    ae_cfg, cfg)
+        elif isinstance(ae_params, (list, tuple)):
+            params = stack_pytrees(list(ae_params))
+        else:
+            params = ae_params
+        with obs.span("gate", method=method):
+            return _gate_batched(cd, trust_np, in_edge, sel, fail_u, p_fail,
+                                 params, ae_cfg, cfg)

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import channel as ch
 from repro_torch.core import dissimilarity as ds
 from repro_torch.core import exchange as ex
@@ -134,13 +134,15 @@ def cluster_clients(datasets, cfg: PipelineConfig,
     """Shared-basis federated PCA + per-client K-means++ over the stacked
     client plane. Returns ``(pca, centroids (N, k, d), assignments
     (N, cap))``; assignments at index >= sizes[i] are padding."""
-    cd = as_client_data(datasets, device=resolve_device(device))
-    if draws is None:
-        if generator is None:
-            raise ValueError("cluster_clients needs draws or a generator")
-        draws = km.draw_kmeans(generator, cd.sizes, cfg.n_clusters)
-    return _cluster_impl(cd.data, cd.sizes, cfg.n_pca, cfg.n_clusters,
-                         cfg.kmeans_iters, draws)
+    with obs.span("cluster"):
+        cd = as_client_data(datasets, device=resolve_device(device))
+        if draws is None:
+            if generator is None:
+                raise ValueError(
+                    "cluster_clients needs draws or a generator")
+            draws = km.draw_kmeans(generator, cd.sizes, cfg.n_clusters)
+        return _cluster_impl(cd.data, cd.sizes, cfg.n_pca, cfg.n_clusters,
+                             cfg.kmeans_iters, draws)
 
 
 def cluster_clients_loop(datasets, cfg: PipelineConfig,
@@ -187,68 +189,76 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
     channel snapshot; ``ae_params`` skips AE pretraining. Draws not given
     come from ``generator`` (default: seed 0 on the run's device); the
     result's ``draws`` holds every draw the run used."""
-    dev = resolve_device(device)
-    draws = draws.to(dev) if draws else PipelineDraws()
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    times = {}
-    cd = as_client_data(datasets, labels, device=dev)
-    n = cd.n_clients
+    with obs.span("pipeline"):
+        dev = resolve_device(device)
+        draws = draws.to(dev) if draws else PipelineDraws()
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        times = {}
+        cd = as_client_data(datasets, labels, device=dev)
+        n = cd.n_clients
 
-    with _stage(times, "cluster", dev):
-        if draws.cluster is None:
-            draws.cluster = km.draw_kmeans(generator, cd.sizes,
-                                           cfg.n_clusters)
-        pca, cents, assigns = cluster_clients(cd, cfg, draws.cluster,
-                                              device=dev)
-    with _stage(times, "trust_channel", dev):
-        if draws.trust_u is None:
-            draws.trust_u = tr.draw_trust_uniforms(generator, n,
-                                                   cfg.n_clusters)
-        trust = tr.make_trust(draws.trust_u, cfg.p_trust)
-        if rss is None:
-            if draws.positions is None:
-                draws.positions = ch.make_positions(generator, n, cfg.channel)
-            if draws.fading is None:
-                draws.fading = ch.init_fading(generator, n)
-            rss = ch.rss_from_state(draws.positions, draws.fading,
-                                    cfg.channel)
-        p_fail = ch.failure_prob(torch.as_tensor(rss, device=dev),
-                                 cfg.channel)
-        beta, lam_before, local_r = link_rewards(cents, trust, p_fail, cfg)
+        with _stage(times, "cluster", dev):
+            if draws.cluster is None:
+                draws.cluster = km.draw_kmeans(generator, cd.sizes,
+                                               cfg.n_clusters)
+            pca, cents, assigns = cluster_clients(cd, cfg, draws.cluster,
+                                                  device=dev)
+        with _stage(times, "trust_channel", dev), \
+                obs.span("trust-channel"):
+            if draws.trust_u is None:
+                draws.trust_u = tr.draw_trust_uniforms(generator, n,
+                                                       cfg.n_clusters)
+            trust = tr.make_trust(draws.trust_u, cfg.p_trust)
+            if rss is None:
+                if draws.positions is None:
+                    draws.positions = ch.make_positions(generator, n,
+                                                        cfg.channel)
+                if draws.fading is None:
+                    draws.fading = ch.init_fading(generator, n)
+                rss = ch.rss_from_state(draws.positions, draws.fading,
+                                        cfg.channel)
+            p_fail = ch.failure_prob(torch.as_tensor(rss, device=dev),
+                                     cfg.channel)
+            beta, lam_before, local_r = link_rewards(cents, trust, p_fail,
+                                                     cfg)
 
-    with _stage(times, "discover", dev):
-        if in_edge is None:
-            if draws.rl is None and cfg.rl.policy != "ucb":
-                draws.rl = ql.draw_rl(generator, n, cfg.rl.n_episodes)
-            graph = ql.discover_graph(local_r, p_fail, cfg.rl, draws=draws.rl)
-            in_edge = graph.in_edge
-        else:
-            in_edge = torch.as_tensor(in_edge, device=dev).long()
-            empty = torch.zeros((0,), device=dev)
-            graph = ql.GraphResult(in_edge, torch.zeros((n, n), device=dev),
-                                   empty, empty)
+        with _stage(times, "discover", dev):
+            if in_edge is None:
+                if draws.rl is None and cfg.rl.policy != "ucb":
+                    draws.rl = ql.draw_rl(generator, n, cfg.rl.n_episodes)
+                graph = ql.discover_graph(local_r, p_fail, cfg.rl,
+                                          draws=draws.rl)
+                in_edge = graph.in_edge
+            else:
+                in_edge = torch.as_tensor(in_edge, device=dev).long()
+                empty = torch.zeros((0,), device=dev)
+                graph = ql.GraphResult(in_edge,
+                                       torch.zeros((n, n), device=dev),
+                                       empty, empty)
 
-    with _stage(times, "exchange", dev):
-        if draws.exchange is None:
-            draws.exchange = ex.draw_exchange(
-                generator, n, ae_cfg,
-                (cfg.n_clusters, cd.cap)
-                if cfg.exchange.reserve_selector == "device" else None)
-        res = ex.run_exchange(cd, None, assigns, trust, in_edge, p_fail,
-                              ae_cfg, cfg.exchange, ae_params=ae_params,
-                              draws=draws.exchange, device=dev)
+        with _stage(times, "exchange", dev):
+            if draws.exchange is None:
+                draws.exchange = ex.draw_exchange(
+                    generator, n, ae_cfg,
+                    (cfg.n_clusters, cd.cap)
+                    if cfg.exchange.reserve_selector == "device" else None)
+            res = ex.run_exchange(cd, None, assigns, trust, in_edge, p_fail,
+                                  ae_cfg, cfg.exchange, ae_params=ae_params,
+                                  draws=draws.exchange, device=dev)
 
-    # dissimilarity on the post-exchange datasets (Fig. 3)
-    with _stage(times, "cluster_after", dev):
-        if draws.cluster_after is None:
-            draws.cluster_after = km.draw_kmeans(
-                generator, res.client_data.sizes, cfg.n_clusters)
-        elif callable(draws.cluster_after):
-            draws.cluster_after = draws.cluster_after(res.client_data.sizes)
-        _, cents_after, _ = cluster_clients(res.client_data, cfg,
-                                            draws.cluster_after, device=dev)
-        lam_after = ds.lambda_matrix(cents_after, trust, beta)
-    return PipelineResult(res.client_data, in_edge, lam_before, lam_after,
-                          p_fail, graph, cents, trust, res, cents_after,
-                          draws, times)
+        # dissimilarity on the post-exchange datasets (Fig. 3)
+        with _stage(times, "cluster_after", dev):
+            if draws.cluster_after is None:
+                draws.cluster_after = km.draw_kmeans(
+                    generator, res.client_data.sizes, cfg.n_clusters)
+            elif callable(draws.cluster_after):
+                draws.cluster_after = draws.cluster_after(
+                    res.client_data.sizes)
+            _, cents_after, _ = cluster_clients(res.client_data, cfg,
+                                                draws.cluster_after,
+                                                device=dev)
+            lam_after = ds.lambda_matrix(cents_after, trust, beta)
+        return PipelineResult(res.client_data, in_edge, lam_before,
+                              lam_after, p_fail, graph, cents, trust, res,
+                              cents_after, draws, times)

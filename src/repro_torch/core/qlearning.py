@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import rewards as rw
 
 
@@ -146,14 +147,26 @@ def discover_graph(local_r, p_fail, cfg: RLConfig = RLConfig(),
     ``init_state`` warm-starts from a previous :class:`RLState`. The mixed
     policy takes ``draws`` (or draws them from ``generator``)."""
     n = local_r.shape[0]
-    dev = local_r.device
     n_ep = cfg.n_episodes if n_episodes is None else n_episodes
+    with obs.span("discover", episodes=int(n_ep), agents=int(n),
+                  warm=init_state is not None, policy=cfg.policy):
+        if cfg.policy != "ucb" and draws is None:
+            if generator is None:
+                raise ValueError("the mixed policy needs draws or a "
+                                 "generator")
+            draws = draw_rl(generator, n, n_ep)
+        return _discover_impl(local_r, p_fail, cfg, init_state, n_ep, draws)
+
+
+def _discover_impl(local_r, p_fail, cfg: RLConfig,
+                   init_state: Optional[RLState], n_ep: int,
+                   draws: Optional[RLDraws]) -> GraphResult:
+    """The episode loop of :func:`discover_graph`, without its span (the
+    orchestrator's scan chunk calls it directly)."""
+    n = local_r.shape[0]
+    dev = local_r.device
     m = cfg.buffer_size
     use_ucb = cfg.policy == "ucb"
-    if not use_ucb and draws is None:
-        if generator is None:
-            raise ValueError("the mixed policy needs draws or a generator")
-        draws = draw_rl(generator, n, n_ep)
     s = init_state if init_state is not None else init_rl_state(n, cfg, dev)
     q, counts = s.q.clone(), s.counts.clone()
     buf_a, buf_r, buf_l = (s.buf_actions.clone(), s.buf_rewards.clone(),

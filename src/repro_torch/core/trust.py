@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
+
 
 def draw_trust_uniforms(generator: torch.Generator, n_clients: int,
                         n_clusters: int) -> torch.Tensor:
@@ -26,11 +28,12 @@ def make_trust(u: torch.Tensor, p_trust: float = 0.9) -> torch.Tensor:
     return t
 
 
-def full_trust(n_clients: int, n_clusters, device="cpu"):
+def full_trust(n_clients: int, n_clusters, device="cuda"):
     """Every transmitter trusts every receiver with every cluster: the
     stacked (N_tx, N_rx, k) ones for one ``n_clusters``, or the list of
-    (N_rx, k_j) ones matrices for per-transmitter counts."""
-    kw = dict(dtype=torch.int8, device=device)
+    (N_rx, k_j) ones matrices for per-transmitter counts, on the card
+    unless ``device`` says otherwise."""
+    kw = dict(dtype=torch.int8, device=resolve_device(device))
     if isinstance(n_clusters, int):
         return torch.ones((n_clients, n_clients, n_clusters), **kw)
     return [torch.ones((n_clients, k), **kw) for k in n_clusters]

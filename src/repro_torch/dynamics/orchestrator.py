@@ -42,6 +42,15 @@ Device residency: the client data stack, channel state, FL carry, graph and
 availability stay on the run's device; each segment's metrics are device
 tensors until one host read after the last segment.
 
+Observability (``repro_torch.obs``): the eager engine carries the
+reference's spans (``orchestrator``, ``segment``, ``env-step``,
+``fault-inject``, ``re-cluster``, ``re-discover``, ``re-exchange``,
+``retry-exchange``, ``fl-segment``, ``checkpoint-save``/``-load``,
+``metrics-materialize``) and ``retry-outcome`` marks; the scan engine
+records one ``scan-chunk`` span per chunk, whose helpers are the span-free
+impls, so no named span sits inside a chunk, as in the reference. The one
+counted transfer is :func:`_read_all`'s.
+
 Fault tolerance (``repro_torch.faults``): a scenario's ``FaultPlan`` is
 overlaid onto the environment from segment 1 on. With
 ``cfg.checkpoint_dir`` set, the run state is written atomically at segment
@@ -60,13 +69,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import exchange as ex
 from repro_torch.core import qlearning as ql
 from repro_torch.core.batching import ClientData, as_client_data
 from repro_torch.core.channel import failure_prob
-from repro_torch.core.pipeline import (PipelineConfig, cluster_clients,
-                                       link_rewards, run_pipeline)
+from repro_torch.core.pipeline import (PipelineConfig, _cluster_impl,
+                                       cluster_clients, link_rewards,
+                                       run_pipeline)
 from repro_torch.dynamics.draws import SeededDraws
 from repro_torch.dynamics.environment import EnvState, env_init, env_step
 from repro_torch.dynamics.metrics import (PendingSegment, SegmentRecord,
@@ -79,7 +89,9 @@ from repro_torch.dynamics.scenarios import get_scenario
 from repro_torch.faults import (Preempted, RetryPolicy, apply_availability,
                                 apply_pfail)
 from repro_torch.faults.retry import RetryQueue
-from repro_torch.fl.trainer import FLConfig, eval_global_loss, fl_train
+from repro_torch.fl.trainer import (FLConfig, _fl_rounds, eval_global_loss,
+                                    fl_train)
+from repro_torch.obs.counters import device_get
 
 MODES = ("oneshot", "online", "uniform")
 SEGMENT_IMPLS = ("eager", "scan")
@@ -223,15 +235,25 @@ def _take_draws(draws, s: int, rediscover: bool, cfg: OrchestratorConfig,
         fl_batch=_fl_batch_draws(draws, s, cfg, n))
 
 
-def _advance_env(s: int, env, d: _SegmentDraws, scn, pcfg):
-    """The environment's step, then the scenario's faults."""
+def _env_step(env, d: _SegmentDraws, scn, pcfg):
+    """The environment's step: (env, p_fail)."""
     env = env_step(env, d.env, scn, pcfg.channel)
-    p_fail = failure_prob(env.rss, pcfg.channel)
-    plan = scn.faults
-    if plan is not None:
-        env = env._replace(available=apply_availability(
-            plan, s, env.positions, env.available, d.crash))
-        p_fail = apply_pfail(plan, s, p_fail, d.burst)
+    return env, failure_prob(env.rss, pcfg.channel)
+
+
+def _inject_faults(s: int, env, p_fail, d: _SegmentDraws, plan):
+    """The scenario's fault overlay on segment ``s``: (env, p_fail)."""
+    env = env._replace(available=apply_availability(
+        plan, s, env.positions, env.available, d.crash))
+    return env, apply_pfail(plan, s, p_fail, d.burst)
+
+
+def _advance_env(s: int, env, d: _SegmentDraws, scn, pcfg):
+    """The environment's step, then the scenario's faults (no spans: the
+    eager loop times the two parts apart)."""
+    env, p_fail = _env_step(env, d, scn, pcfg)
+    if scn.faults is not None:
+        env, p_fail = _inject_faults(s, env, p_fail, d, scn.faults)
     return env, p_fail
 
 
@@ -240,28 +262,65 @@ def _rediscover(cd: ClientData, trust, p_fail, cfg: OrchestratorConfig,
     """Re-cluster the *current* client stack and run a warm-started RL
     burst (or a uniform re-draw). Returns (in_edge, rl_state, assigns)."""
     pcfg = cfg.pipeline
-    _, cents, assigns = cluster_clients(cd, pcfg, d.cluster(cd.sizes),
-                                        device=dev)
+    with obs.span("re-cluster"):
+        _, cents, assigns = cluster_clients(cd, pcfg, d.cluster(cd.sizes),
+                                            device=dev)
+    with obs.span("re-discover", mode=cfg.mode):
+        if cfg.mode == "uniform":
+            return d.uniform_edge, rl_state, assigns
+        _beta, _lam, local_r = link_rewards(cents, trust, p_fail, pcfg)
+        graph = ql.discover_graph(local_r, p_fail, pcfg.rl,
+                                  init_state=rl_state,
+                                  n_episodes=cfg.burst_episodes, draws=d.rl)
+    return graph.in_edge, graph.state, assigns
+
+
+def _rediscover_impl(cd: ClientData, trust, p_fail, cfg: OrchestratorConfig,
+                     rl_state: Optional[ql.RLState], d: _SegmentDraws):
+    """:func:`_rediscover` through the span-free impls, for the scan
+    chunk."""
+    pcfg = cfg.pipeline
+    _, cents, assigns = _cluster_impl(cd.data, cd.sizes, pcfg.n_pca,
+                                      pcfg.n_clusters, pcfg.kmeans_iters,
+                                      d.cluster(cd.sizes))
     if cfg.mode == "uniform":
         return d.uniform_edge, rl_state, assigns
     _beta, _lam, local_r = link_rewards(cents, trust, p_fail, pcfg)
-    graph = ql.discover_graph(local_r, p_fail, pcfg.rl, init_state=rl_state,
-                              n_episodes=cfg.burst_episodes, draws=d.rl)
+    graph = ql._discover_impl(local_r, p_fail, pcfg.rl, rl_state,
+                              cfg.burst_episodes, d.rl)
     return graph.in_edge, graph.state, assigns
+
+
+def _segment_batches(s: int, cd: ClientData, fl_batch: list,
+                     cfg: OrchestratorConfig) -> dict:
+    """Segment s's minibatch indices by global round, at the current
+    sizes."""
+    first = s * cfg.iters_per_segment // cfg.fl.tau_a
+    return {first + i: f(cd.sizes) for i, f in enumerate(fl_batch)}
 
 
 def _fl_segment(s: int, cd: ClientData, avail, carry, fl_batch: list,
                 cfg: OrchestratorConfig, ae_cfg, eval_data, draws, dev):
     """The segment's FL rounds, from the previous segment's carry."""
     flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
-    first = s * cfg.iters_per_segment // flcfg.tau_a
-    batch = {first + i: f(cd.sizes) for i, f in enumerate(fl_batch)}
     return fl_train(cd, ae_cfg, flcfg, eval_data, avail_mask=avail,
                     init_params=draws.fl_init(ae_cfg) if carry is None
                     else None, init_carry=carry,
                     start_iter=s * cfg.iters_per_segment,
                     stop_iter=(s + 1) * cfg.iters_per_segment,
-                    batch_idx=batch, defer_metrics=True, device=dev)
+                    batch_idx=_segment_batches(s, cd, fl_batch, cfg),
+                    defer_metrics=True, device=dev)
+
+
+def _fl_segment_impl(s: int, cd: ClientData, avail, carry, fl_batch: list,
+                     cfg: OrchestratorConfig, ae_cfg, eval_data):
+    """:func:`_fl_segment` through the span-free rounds, for the scan
+    chunk (the carry exists there: segment 0 ran eagerly)."""
+    flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
+    first = s * cfg.iters_per_segment // flcfg.tau_a
+    return _fl_rounds(cd, ae_cfg, flcfg, eval_data, carry,
+                      avail.to(torch.float32), first, first + len(fl_batch),
+                      _segment_batches(s, cd, fl_batch, cfg))
 
 
 def _segment_dev(s: int, fl, ae_cfg, eval_data, env, p_fail, in_edge,
@@ -348,10 +407,13 @@ def run_orchestrator(datasets, labels, ae_cfg,
     dev = resolve_device(device)
     if draws is None:
         draws = SeededDraws(0, dev)
-    return _orchestrate(datasets, labels, ae_cfg, cfg,
-                        get_scenario(scenario),
-                        torch.as_tensor(eval_data, device=dev), draws,
-                        resume_from, dev)
+    scn = get_scenario(scenario)
+    with obs.span("orchestrator", mode=cfg.mode, scenario=scn.name,
+                  n_segments=cfg.n_segments,
+                  resumed=resume_from is not None):
+        return _orchestrate(datasets, labels, ae_cfg, cfg, scn,
+                            torch.as_tensor(eval_data, device=dev), draws,
+                            resume_from, dev)
 
 
 def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
@@ -364,9 +426,10 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
     # the first segment's clock also covers the pipeline (or the load)
     clock = _Clock(dev)
     if resume_from is not None:
-        rs = resume_from if isinstance(resume_from, RunState) else \
-            load_run_state(resume_from, ae_cfg, cfg.n_segments,
-                           cfg.iters_per_segment, device=dev)
+        with obs.span("checkpoint-load"):
+            rs = resume_from if isinstance(resume_from, RunState) else \
+                load_run_state(resume_from, ae_cfg, cfg.n_segments,
+                               cfg.iters_per_segment, device=dev)
         if not np.array_equal(np.asarray(rs.key),
                               np.asarray(draws.identity)):
             raise ValueError(
@@ -413,79 +476,95 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
             # simulated host preemption at the segment boundary: the
             # previous segment's checkpoint (if enabled) is already on disk
             raise Preempted(s, ckpt_path)
-        if s > start_segment:
-            clock = _Clock(dev)
-        rediscovered = s == 0
-        assigns = None
-        d = None
-        if s > 0:
-            rediscover = cfg.mode != "oneshot" and s % cfg.rediscover_every == 0
-            d = _take_draws(draws, s, rediscover, cfg, scn, n,
-                            _sel_shape(cfg, trust, cd.cap), ae_cfg)
-            env, p_fail = _advance_env(s, env, d, scn, pcfg)
-            clock.mark("env")
-            exch = None
-            if rediscover:
-                new_edge, rl_state, assigns = _rediscover(
-                    cd, trust, p_fail, cfg, rl_state, d, dev)
-                clock.mark("rediscover")
-                if cfg.exchange_on_rediscover:
-                    exch = ex.run_exchange(
-                        cd, None, assigns, trust, new_edge, p_fail, ae_cfg,
-                        pcfg.exchange, draws=d.exchange, device=dev)
-                    cd = exch.client_data
-                    clock.mark("exchange")
-                prev_edge, in_edge = in_edge, new_edge
-                rediscovered = True
+        with obs.span("segment", segment=s):
+            if s > start_segment:
+                clock = _Clock(dev)
+            rediscovered = s == 0
+            assigns = None
+            d = None
+            if s > 0:
+                rediscover = (cfg.mode != "oneshot"
+                              and s % cfg.rediscover_every == 0)
+                d = _take_draws(draws, s, rediscover, cfg, scn, n,
+                                _sel_shape(cfg, trust, cd.cap), ae_cfg)
+                with obs.span("env-step", segment=s):
+                    env, p_fail = _env_step(env, d, scn, pcfg)
+                if plan is not None:
+                    with obs.span("fault-inject", segment=s,
+                                  events=",".join(plan.active(s)) or "none"):
+                        env, p_fail = _inject_faults(s, env, p_fail, d, plan)
+                clock.mark("env")
+                exch = None
+                if rediscover:
+                    new_edge, rl_state, assigns = _rediscover(
+                        cd, trust, p_fail, cfg, rl_state, d, dev)
+                    clock.mark("rediscover")
+                    if cfg.exchange_on_rediscover:
+                        with obs.span("re-exchange", segment=s):
+                            exch = ex.run_exchange(
+                                cd, None, assigns, trust, new_edge, p_fail,
+                                ae_cfg, pcfg.exchange, draws=d.exchange,
+                                device=dev)
+                            cd = exch.client_data
+                        clock.mark("exchange")
+                    prev_edge, in_edge = in_edge, new_edge
+                    rediscovered = True
 
-        retried = retry_delivered = 0
-        retry_moved = torch.zeros((), dtype=torch.int64, device=dev)
-        if cfg.retry.enabled:
-            if exch is not None:
-                retry_q.offer(s, exch.failed_links(), cfg.retry)
-            if assigns is not None and len(retry_q):
-                cd, retry_moved, retried, retry_delivered = _retry_exchange(
-                    s, cd, assigns, trust, p_fail, ae_cfg, cfg, retry_q,
-                    draws, dev)
-            clock.mark("retry")
+            retried = retry_delivered = 0
+            retry_moved = torch.zeros((), dtype=torch.int64, device=dev)
+            if cfg.retry.enabled:
+                if exch is not None:
+                    retry_q.offer(s, exch.failed_links(), cfg.retry)
+                if assigns is not None and len(retry_q):
+                    cd, retry_moved, retried, retry_delivered = \
+                        _retry_exchange(s, cd, assigns, trust, p_fail,
+                                        ae_cfg, cfg, retry_q, draws, dev)
+                clock.mark("retry")
 
-        fl = _fl_segment(s, cd, env.available, carry,
-                         _fl_batch_draws(draws, s, cfg, n) if d is None
-                         else d.fl_batch, cfg, ae_cfg, eval_data, draws, dev)
-        carry = fl.carry
-        clock.mark("fl")
+            with obs.span("fl-segment", segment=s):
+                fl = _fl_segment(s, cd, env.available, carry,
+                                 _fl_batch_draws(draws, s, cfg, n)
+                                 if d is None else d.fl_batch, cfg, ae_cfg,
+                                 eval_data, draws, dev)
+                carry = fl.carry
+            clock.mark("fl")
 
-        sampled = (pcfg.exchange.apply_channel_failure and rediscovered
-                   and exch is not None)
-        # the loop plane decides on the host: its realized delivery too
-        host_realized = realized_delivery(in_edge, exch.gate_decisions) \
-            if sampled and exch.fail is None else None
-        moved = (torch.sum(exch.moved_dev) if exch is not None else
-                 torch.zeros((), dtype=torch.int64, device=dev)) + retry_moved
-        pending.append(PendingSegment(
-            segment=s, rediscovered=rediscovered, sampled=sampled,
-            host_realized=host_realized,
-            eval_iters=np.asarray(fl.eval_iters), retried=retried,
-            retry_delivered=retry_delivered,
-            dev=_segment_dev(s, fl, ae_cfg, eval_data, env, p_fail, in_edge,
-                             prev_edge, rediscovered,
-                             sampled and host_realized is None,
-                             exch.fail if sampled else None, moved, dev)))
+            sampled = (pcfg.exchange.apply_channel_failure and rediscovered
+                       and exch is not None)
+            # the loop plane decides on the host: its realized delivery too
+            host_realized = \
+                realized_delivery(in_edge, exch.gate_decisions) \
+                if sampled and exch.fail is None else None
+            moved = (torch.sum(exch.moved_dev) if exch is not None else
+                     torch.zeros((), dtype=torch.int64, device=dev)) \
+                + retry_moved
+            pending.append(PendingSegment(
+                segment=s, rediscovered=rediscovered, sampled=sampled,
+                host_realized=host_realized,
+                eval_iters=np.asarray(fl.eval_iters), retried=retried,
+                retry_delivered=retry_delivered,
+                dev=_segment_dev(s, fl, ae_cfg, eval_data, env, p_fail,
+                                 in_edge, prev_edge, rediscovered,
+                                 sampled and host_realized is None,
+                                 exch.fail if sampled else None, moved,
+                                 dev)))
 
-        clock.mark("metrics")
-        if ckpt_path is not None and (
-                (s + 1) % cfg.checkpoint_every == 0
-                or s == cfg.n_segments - 1):
-            save_run_state(ckpt_path, RunState(
-                segment=s, key=np.asarray(draws.identity), env=env, cd=cd,
-                trust=trust, in_edge=in_edge, prev_edge=prev_edge,
-                p_fail=p_fail, rl_state=rl_state, carry=carry,
-                retry=retry_q, pending=pending),
-                cfg.n_segments, cfg.iters_per_segment)
-            clock.mark("checkpoint")
-        total, stages = clock.end()
-        seg_seconds.append(total)
-        stage_seconds.append(stages)
+            clock.mark("metrics")
+            if ckpt_path is not None and (
+                    (s + 1) % cfg.checkpoint_every == 0
+                    or s == cfg.n_segments - 1):
+                with obs.span("checkpoint-save", segment=s):
+                    save_run_state(ckpt_path, RunState(
+                        segment=s, key=np.asarray(draws.identity), env=env,
+                        cd=cd, trust=trust, in_edge=in_edge,
+                        prev_edge=prev_edge, p_fail=p_fail,
+                        rl_state=rl_state, carry=carry, retry=retry_q,
+                        pending=pending),
+                        cfg.n_segments, cfg.iters_per_segment)
+                clock.mark("checkpoint")
+            total, stages = clock.end()
+            seg_seconds.append(total)
+            stage_seconds.append(stages)
 
     chunk_seconds = ()
     if eager_end < cfg.n_segments:
@@ -495,8 +574,10 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                                 rl_state, carry), eager_end, ckpt_path, dev)
         env, cd, in_edge, carry = sc.env, sc.cd, sc.in_edge, sc.fc
 
+    with obs.span("metrics-materialize"):
+        host = _read_all([p.dev for p in pending])
     trace = Trace()
-    for p, h in zip(pending, _read_all([p.dev for p in pending])):
+    for p, h in zip(pending, host):
         realized = p.host_realized
         if realized is None and p.sampled and np.isfinite(h["realized"]):
             realized = float(h["realized"])
@@ -524,12 +605,15 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
 def _read_all(devs: list) -> list:
     """Every segment's metrics to the host in one transfer: the tensors are
     packed into one float64 vector (exact for their f32 and integer
-    values), copied once and unpacked into their own dtypes. Host values
-    (restored segments') pass through."""
+    values), copied once through the counted ``counters.device_get`` (one
+    call per run, an empty one when every segment was restored) and
+    unpacked into their own dtypes. Host values (restored segments') pass
+    through."""
     tensors = [v for d in devs for v in d.values()
                if isinstance(v, torch.Tensor)]
-    flat = (torch.cat([v.reshape(-1).to(torch.float64) for v in tensors])
-            .cpu().numpy() if tensors else None)
+    flat = device_get(
+        torch.cat([v.reshape(-1).to(torch.float64) for v in tensors])
+        if tensors else torch.zeros((0,), dtype=torch.float64))
     out, off = [], 0
     for d in devs:
         h = {}
@@ -556,23 +640,26 @@ def _retry_exchange(s: int, cd: ClientData, assigns, trust, p_fail, ae_cfg,
     due = retry_q.take_due(s)
     if not due:
         return cd, torch.zeros((), dtype=torch.int64, device=dev), 0, 0
-    n = cd.n_clients
-    retry_edge = np.arange(n)
-    for e in due:
-        retry_edge[e.rx] = e.tx
-    r_exch = ex.run_exchange(cd, None, assigns, trust,
-                             torch.as_tensor(retry_edge, device=dev), p_fail,
-                             ae_cfg, cfg.pipeline.exchange,
-                             draws=draws.retry(s, n, ae_cfg, _sel_shape(
-                                 cfg, trust, cd.cap)), device=dev)
-    failed = set(r_exch.failed_links())
-    delivered = 0
-    for e in due:
-        ok = (e.rx, e.tx) not in failed
-        retry_q.resolve(s, e, ok, cfg.retry)
-        delivered += int(ok)
-    return (r_exch.client_data, torch.sum(r_exch.moved_dev), len(due),
-            delivered)
+    with obs.span("retry-exchange", segment=s, n_links=len(due)):
+        n = cd.n_clients
+        retry_edge = np.arange(n)
+        for e in due:
+            retry_edge[e.rx] = e.tx
+        r_exch = ex.run_exchange(cd, None, assigns, trust,
+                                 torch.as_tensor(retry_edge, device=dev),
+                                 p_fail, ae_cfg, cfg.pipeline.exchange,
+                                 draws=draws.retry(s, n, ae_cfg, _sel_shape(
+                                     cfg, trust, cd.cap)), device=dev)
+        failed = set(r_exch.failed_links())
+        delivered = 0
+        for e in due:
+            ok = (e.rx, e.tx) not in failed
+            retry_q.resolve(s, e, ok, cfg.retry)
+            delivered += int(ok)
+        obs.mark("retry-outcome", segment=s, offered=len(due),
+                 delivered=delivered, still_queued=len(retry_q))
+        return (r_exch.client_data, torch.sum(r_exch.moved_dev), len(due),
+                delivered)
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +721,7 @@ def _chunk_bounds(cfg: OrchestratorConfig, plan, start: int,
     return bounds
 
 
-def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws, trust,
+def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, trust,
            sc: _ScanCarry, segs: list, re_flags: list, seg_draws: list,
            dev):
     """Run one chunk's segments from ``sc``. Returns the carry after them
@@ -643,7 +730,9 @@ def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws, trust,
 
     Nothing here reads the device from the host: every draw is in
     ``seg_draws``; the size-dependent ones are mapped on the device; the
-    reserves are selected on the device; the exchange keeps the cap."""
+    reserves are selected on the device; the exchange keeps the cap. The
+    stages go through their span-free impls, so the chunk records no
+    named span inside its ``scan-chunk``."""
     pcfg = cfg.pipeline
     excfg = pcfg.exchange
     do_exchange = cfg.mode != "oneshot" and cfg.exchange_on_rediscover
@@ -656,8 +745,8 @@ def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws, trust,
         moved = torch.zeros((n,), dtype=torch.int64, device=dev)
         fail = torch.zeros((n,), dtype=torch.bool, device=dev)
         if re:
-            new_edge, rl_state, assigns = _rediscover(
-                cd, trust, p_fail, cfg, rl_state, d, dev)
+            new_edge, rl_state, assigns = _rediscover_impl(
+                cd, trust, p_fail, cfg, rl_state, d)
             if do_exchange:
                 xd = d.exchange
                 params = ex.pretrain_autoencoders_batched(
@@ -670,8 +759,8 @@ def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws, trust,
                     trust, xd.fail_u, p_fail, new_edge, ae_cfg,
                     excfg.apply_channel_failure, cd.cap)
             prev_edge, in_edge = in_edge, new_edge
-        fl = _fl_segment(s, cd, env.available, fc, d.fl_batch, cfg, ae_cfg,
-                         eval_data, draws, dev)
+        fl = _fl_segment_impl(s, cd, env.available, fc, d.fl_batch, cfg,
+                              ae_cfg, eval_data)
         fc = fl.carry
         dev_metrics = _segment_dev(
             s, fl, ae_cfg, eval_data, env, p_fail, in_edge, prev_edge, re,
@@ -707,10 +796,11 @@ def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        sc, out = _chunk(cfg, scn, ae_cfg, eval_data, draws, trust, sc, segs,
-                         re_flags, seg_draws, dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with obs.span("scan-chunk", start=c0, n_segments=len(segs)):
+            sc, out = _chunk(cfg, scn, ae_cfg, eval_data, trust, sc, segs,
+                             re_flags, seg_draws, dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         chunk_seconds.append((c0, c1, time.perf_counter() - t0))
 
         # -- boundary host work: retry offers from the chunk's sampled
@@ -748,10 +838,11 @@ def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
 
         if ckpt_path is not None and ((b + 1) % cfg.checkpoint_every == 0
                                       or b == cfg.n_segments - 1):
-            save_run_state(ckpt_path, RunState(
-                segment=b, key=np.asarray(draws.identity), env=sc.env,
-                cd=sc.cd, trust=trust, in_edge=sc.in_edge,
-                prev_edge=sc.prev_edge, p_fail=sc.p_fail,
-                rl_state=sc.rl_state, carry=sc.fc, retry=retry_q,
-                pending=pending), cfg.n_segments, cfg.iters_per_segment)
+            with obs.span("checkpoint-save", segment=b):
+                save_run_state(ckpt_path, RunState(
+                    segment=b, key=np.asarray(draws.identity), env=sc.env,
+                    cd=sc.cd, trust=trust, in_edge=sc.in_edge,
+                    prev_edge=sc.prev_edge, p_fail=sc.p_fail,
+                    rl_state=sc.rl_state, carry=sc.fc, retry=retry_q,
+                    pending=pending), cfg.n_segments, cfg.iters_per_segment)
     return sc, tuple(chunk_seconds)

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.batching import as_client_data
 from repro_torch.models import autoencoder as ae
 from repro_torch.models.common import tree_map, value_and_grad
@@ -209,10 +209,31 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
     start_round = start_iter // cfg.tau_a
     stop_round = n_rounds if stop_iter is None else \
         min(stop_iter // cfg.tau_a, n_rounds)
+    with obs.span("fl", rounds=stop_round - start_round,
+                  start_iter=start_iter):
+        res = _fl_rounds(cd, ae_cfg, cfg, eval_data, carry, agg_mask,
+                         start_round, stop_round,
+                         batch_idx if batch_idx is not None else
+                         (lambda r: draw_batch_indices(generator, cd.sizes,
+                                                       cfg, 1)[0]))
+        if not defer_metrics:
+            res = res._replace(eval_loss=res.eval_loss.cpu().numpy())
+    return res
+
+
+def _fl_rounds(cd, ae_cfg, cfg: FLConfig, eval_data, carry: FLCarry,
+               agg_mask, start_round: int, stop_round: int,
+               batch_idx) -> FLResult:
+    """Rounds ``[start_round, stop_round)`` of :func:`fl_train` from
+    ``carry``, without its span (the orchestrator's scan chunk calls it
+    directly). ``batch_idx[r]`` (an array or a mapping) or ``batch_idx(r)``
+    gives round r's (tau_a, N, B) minibatch indices; the eval losses stay
+    a device tensor."""
+    dev = cd.data.device
+    n_rounds = cfg.total_iters // cfg.tau_a
     eval_iters, eval_vals = [], []
     for r in range(start_round, stop_round):
-        idx = (batch_idx[r] if batch_idx is not None else
-               draw_batch_indices(generator, cd.sizes, cfg, 1)[0])
+        idx = batch_idx(r) if callable(batch_idx) else batch_idx[r]
         carry = _round_body(cfg, ae_cfg, carry, cd.data, agg_mask,
                             torch.as_tensor(idx, device=dev).long())
         it = (r + 1) * cfg.tau_a
@@ -222,7 +243,5 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
                                               ae_cfg))
     eval_loss = (torch.stack(eval_vals) if eval_vals
                  else torch.zeros((0,), device=dev))
-    if not defer_metrics:
-        eval_loss = eval_loss.cpu().numpy()
     return FLResult(carry.global_params, np.asarray(eval_iters), eval_loss,
                     carry.client_params, carry)

@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Sequence
 
+from repro_torch.obs.counters import count_compile
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,7 +84,8 @@ class CudaKernel:
         self.ptxas_log = log_path.read_text() if log_path.exists() else ""
 
     def function(self):
-        """The C launch function, building the library on first use."""
+        """The C launch function, building the library on first use; the
+        first load counts as one compile (``obs.counters``)."""
         if self._fn is None:
             self.finish_build(self.start_build())
             self._lib = ctypes.CDLL(str(self.library))
@@ -94,6 +97,7 @@ class CudaKernel:
             err.restype = ctypes.c_char_p
             self._error_string = err
             self._fn = fn
+            count_compile()
         return self._fn
 
     def query(self, symbol: str, argtypes: Sequence, *args) -> None:

@@ -13,6 +13,7 @@ import repro_torch
 from repro_torch.core import exchange as tex
 from repro_torch.core import pipeline as tpl
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.trust import full_trust
 from repro_torch.dynamics import OrchestratorConfig, run_orchestrator
 from repro_torch.fl import trainer as ttr
 from repro_torch.launch import serve as tsrv
@@ -65,7 +66,9 @@ def test_port_has_the_slice_modules():
                 "dynamics/orchestrator.py", "dynamics/draws.py",
                 "faults/__init__.py", "faults/plan.py", "faults/inject.py",
                 "faults/retry.py", "checkpoint/__init__.py",
-                "checkpoint/store.py"):
+                "checkpoint/store.py", "obs/__init__.py", "obs/tracer.py",
+                "obs/counters.py", "obs/manifest.py", "obs/profile.py",
+                "obs/report.py"):
         assert mod in names
     for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu",
                 "flash_attention_sm90.cu"):
@@ -99,6 +102,8 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         run_orchestrator(xs, None, cfg, OrchestratorConfig(), "static",
                          xs[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        full_trust(3, 2)
     model = build_model(get_smoke_config("llama3.2-1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init(torch.Generator().manual_seed(0))

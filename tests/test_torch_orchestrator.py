@@ -14,6 +14,11 @@
   ``mean_pfail`` and ``expected_delivery`` within 1e-6 absolute; eval losses
   and final parameters within 2e-4 relative + 2e-5 absolute
   (``test_torch_fl``'s tolerance); the final client data exact.
+* The same two runs traced on both sides (``repro.obs`` around the JAX
+  run, ``repro_torch.obs`` around the port's): equal span lists in close
+  order in (name, depth, attrs, transfers), equal ``retry-outcome`` marks,
+  one transfer per run inside ``metrics-materialize``; and the traced port
+  run equals an untraced one bit for bit.
 """
 import dataclasses
 
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as jax_obs
 from repro.core import exchange as jex
 from repro.core import pipeline as jpl
 from repro.core import qlearning as jql
@@ -32,6 +38,7 @@ from repro.dynamics import run_orchestrator as j_run
 from repro.faults import RetryPolicy as JRP
 from repro.fl import FLConfig as JFL
 from repro.models import autoencoder as jae
+from repro_torch import obs as port_obs
 from repro_torch.core import exchange as tex
 from repro_torch.core import pipeline as tpl
 from repro_torch.core import qlearning as tql
@@ -44,7 +51,9 @@ from repro_torch.fl import fl_train as t_fl_train
 from repro_torch.models.autoencoder import AEConfig as TAE
 from repro_torch.models.common import tree_leaves
 
-from test_torch_draws import JaxReplayDraws
+from test_torch_draws import JaxReplayDraws, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JC = jae.AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
 TC = TAE(8, 8, 1, widths=(4, 8), latent_dim=8)
@@ -150,6 +159,57 @@ def compare_runs(got, want, margins):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+def traced(obs_mod, path, fn):
+    """``fn()`` under ``obs_mod``'s tracer with a manifest at ``path``;
+    returns (fn's result, the manifest). The tracer's module-level event
+    list is drained after, so later tests in the process start empty."""
+    obs_mod.enable(manifest=str(path))
+    try:
+        out = fn()
+    finally:
+        obs_mod.disable()
+        obs_mod.drain()
+    return out, obs_mod.read_manifest(str(path))
+
+
+def span_list(man) -> list:
+    return [(s["name"], s["depth"], s.get("attrs", {}), s["transfers"])
+            for s in man["spans"]]
+
+
+def compare_traces(port_man, jax_man):
+    """The port's span tree and marks against the JAX package's."""
+    got, want = span_list(port_man), span_list(jax_man)
+    assert len(got) == len(want), (len(got), len(want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"span {i}: port {g} JAX {w}"
+    assert port_man["marks"] == jax_man["marks"]
+    for man in (port_man, jax_man):
+        assert man["end"]["transfers"] == 1
+        assert [(s["name"], s["transfers"]) for s in man["spans"]
+                if s["transfers"]] == [("metrics-materialize", 1),
+                                       ("orchestrator", 1)]
+
+
+def assert_runs_identical(a, b):
+    """Two port runs' results, bit for bit."""
+    assert len(a.trace.segments) == len(b.trace.segments)
+    for x, y in zip(a.trace.segments, b.trace.segments):
+        for f in dataclasses.fields(x):
+            vx, vy = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(vx, np.ndarray):
+                np.testing.assert_array_equal(vx, vy)
+            else:
+                assert vx == vy or (vx != vx and vy != vy), \
+                    (x.segment, f.name)
+    for u, v in zip(tree_leaves(a.global_params),
+                    tree_leaves(b.global_params)):
+        assert torch.equal(u, v)
+    for u, v in zip(a.client_data, b.client_data):
+        assert torch.equal(u, v)
+    assert torch.equal(a.in_edge, b.in_edge)
+
+
 @pytest.fixture(scope="module")
 def small():
     return world()
@@ -232,33 +292,38 @@ def test_uniform_mode_redraws_graphs_without_self_links(small):
 # against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def burst_outage(small):
+def traced_pair(small, tmp_path_factory, key, scenario, **kw):
+    """The JAX run and the port's, each traced: (port result, JAX
+    result, margins, port manifest, JAX manifest, untraced port run)."""
     xs, ys, ev = small
-    key = jax.random.PRNGKey(7)
-    jcfg, tcfg = configs()
+    jcfg, tcfg = configs(**kw)
+    d = tmp_path_factory.mktemp(scenario)
     with pytest.MonkeyPatch.context() as mp:
-        want, margins = jax_run(mp, key, xs, ys, ev, jcfg, "burst-outage")
-    got = t_run(xs, ys, TC, tcfg, "burst-outage", ev,
-                draws=JaxReplayDraws(key), device="cpu")
-    return got, want, margins
+        (want, margins), jax_man = traced(
+            jax_obs, d / "jax.jsonl",
+            lambda: jax_run(mp, key, xs, ys, ev, jcfg, scenario))
+
+    def port():
+        return t_run(xs, ys, TC, tcfg, scenario, ev,
+                     draws=JaxReplayDraws(key), device="cpu")
+    got, port_man = traced(port_obs, d / "port.jsonl", port)
+    return got, want, margins, port_man, jax_man, port()
 
 
 @pytest.fixture(scope="module")
-def regional_failure(small):
-    xs, ys, ev = small
-    key = jax.random.PRNGKey(8)
-    jcfg, tcfg = configs(retry=False)
-    with pytest.MonkeyPatch.context() as mp:
-        want, margins = jax_run(mp, key, xs, ys, ev, jcfg,
-                                "regional-failure")
-    got = t_run(xs, ys, TC, tcfg, "regional-failure", ev,
-                draws=JaxReplayDraws(key), device="cpu")
-    return got, want, margins
+def burst_outage(small, tmp_path_factory):
+    return traced_pair(small, tmp_path_factory, jax.random.PRNGKey(7),
+                       "burst-outage")
+
+
+@pytest.fixture(scope="module")
+def regional_failure(small, tmp_path_factory):
+    return traced_pair(small, tmp_path_factory, jax.random.PRNGKey(8),
+                       "regional-failure", retry=False)
 
 
 def test_burst_outage_online_with_retry_matches_jax(burst_outage):
-    got, want, margins = burst_outage
+    got, want, margins = burst_outage[:3]
     compare_runs(got, want, margins)
     summary = want.trace.summary()
     # the burst fails live links and the queue retries them
@@ -267,14 +332,32 @@ def test_burst_outage_online_with_retry_matches_jax(burst_outage):
 
 
 def test_regional_failure_online_matches_jax(regional_failure):
-    got, want, margins = regional_failure
+    got, want, margins = regional_failure[:3]
     compare_runs(got, want, margins)
     # the blackout and the crash pulse take clients offline
     assert min(s.n_available for s in want.trace.segments[1:]) < 6
 
 
 def test_retry_edges_never_land_self_links(burst_outage):
-    got, _, _ = burst_outage
+    got = burst_outage[0]
     for seg in got.trace.segments:
         assert (seg.in_edge != np.arange(6)).all()
         assert seg.n_failed <= seg.n_live
+
+
+@pytest.mark.parametrize("run", ["burst_outage", "regional_failure"])
+def test_span_tree_matches_jax_and_tracing_changes_nothing(run, request):
+    got, _, _, port_man, jax_man, untraced = request.getfixturevalue(run)
+    compare_traces(port_man, jax_man)
+    names = [s["name"] for s in port_man["spans"]]
+    for name in ("pipeline", "cluster", "trust-channel", "discover",
+                 "exchange", "pretrain", "gate", "segment", "env-step",
+                 "fault-inject", "re-cluster", "re-discover", "re-exchange",
+                 "fl-segment", "fl", "metrics-materialize", "orchestrator"):
+        assert name in names, name
+    if run == "burst_outage":
+        # the burst fails links and the queue retries them
+        assert "retry-exchange" in names
+        assert [m["name"] for m in port_man["marks"]] == \
+            ["retry-outcome"] * names.count("retry-exchange")
+    assert_runs_identical(got, untraced)

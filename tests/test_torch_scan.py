@@ -12,6 +12,10 @@
   ``test_torch_orchestrator``'s tolerances. The gate margins are read from
   the port's own scores (JAX's chunk is one traced program), which agree
   with JAX's to ~1e-5; every one must exceed 1e-4 relative.
+* The same ``burst-outage`` scan runs traced on both sides: equal span
+  lists in close order in (name, depth, attrs, transfers), no named span
+  inside a ``scan-chunk``, equal ``retry-outcome`` marks, one transfer per
+  run; the traced port run equals an untraced one bit for bit.
 * Kill and resume: a scan run preempted at segment 2 and resumed from its
   checkpoint ends bit-identical to the uninterrupted scan run.
 * The validation errors.
@@ -27,10 +31,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as jax_obs
 from repro.core import exchange as jex
 from repro.dynamics import orchestrator as jorch
 from repro.dynamics import run_orchestrator as j_run
 from repro.dynamics.scenarios import get_scenario as j_scenario
+from repro_torch import obs as port_obs
 from repro_torch.core import exchange as tex
 from repro_torch.dynamics import SeededDraws, get_scenario
 from repro_torch.dynamics import orchestrator as torch_orch
@@ -39,7 +45,9 @@ from repro_torch.faults import Preempted
 from repro_torch.models.common import tree_leaves
 
 from test_torch_draws import JaxReplayDraws, one_torch_thread  # noqa: F401
-from test_torch_orchestrator import JC, TC, compare_runs, configs, world
+from test_torch_orchestrator import (JC, TC, assert_runs_identical,
+                                     compare_runs, compare_traces, configs,
+                                     traced, world)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -184,21 +192,28 @@ class PortGateMargins:
 
 
 @pytest.fixture(scope="module")
-def burst_outage_scan(small):
+def burst_outage_scan(small, tmp_path_factory):
+    """Both scans traced: (port result, JAX result, margins, port
+    manifest, JAX manifest, untraced port run)."""
     xs, ys, ev = small
     key = jax.random.PRNGKey(7)
     jcfg, tcfg = scan_configs()
-    want = j_run(key, xs, ys, JC, jcfg, "burst-outage", ev)
+    d = tmp_path_factory.mktemp("burst_outage_scan")
+    want, jax_man = traced(jax_obs, d / "jax.jsonl", lambda: j_run(
+        key, xs, ys, JC, jcfg, "burst-outage", ev))
+
+    def port():
+        return t_run(xs, ys, TC, tcfg, "burst-outage", ev,
+                     draws=JaxReplayDraws(key), device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         gm = PortGateMargins()
         mp.setattr(tex, "_exchange_device", gm)
-        got = t_run(xs, ys, TC, tcfg, "burst-outage", ev,
-                    draws=JaxReplayDraws(key), device="cpu")
-    return got, want, gm.margins
+        got, port_man = traced(port_obs, d / "port.jsonl", port)
+    return got, want, gm.margins, port_man, jax_man, port()
 
 
 def test_burst_outage_scan_with_retry_matches_jax(burst_outage_scan):
-    got, want, margins = burst_outage_scan
+    got, want, margins = burst_outage_scan[:3]
     compare_runs(got, want, margins)
     summary = want.trace.summary()
     assert summary["total_failed_links"] > 0 and summary["total_retried"] > 0
@@ -206,6 +221,23 @@ def test_burst_outage_scan_with_retry_matches_jax(burst_outage_scan):
     assert got.trace.summary() == pytest.approx(summary, rel=2e-4, abs=1e-6)
     # retries on: every rediscovery ends a chunk
     assert [c[:2] for c in got.chunk_seconds] == [(1, 2), (2, 3), (3, 4)]
+
+
+def test_burst_outage_scan_span_tree_matches_jax(burst_outage_scan):
+    got, _, _, port_man, jax_man, untraced = burst_outage_scan
+    compare_traces(port_man, jax_man)
+    spans = port_man["spans"]
+    chunks = [s for s in spans if s["name"] == "scan-chunk"]
+    assert [(s["attrs"]["start"], s["attrs"]["start"]
+             + s["attrs"]["n_segments"]) for s in chunks] == \
+        [c[:2] for c in got.chunk_seconds]
+    # no named span inside a chunk: each scan-chunk's predecessor in close
+    # order is no deeper than it
+    for i, s in enumerate(spans):
+        if s["name"] == "scan-chunk" and i:
+            assert spans[i - 1]["depth"] <= s["depth"]
+    assert "retry-exchange" in [s["name"] for s in spans]
+    assert_runs_identical(got, untraced)
 
 
 # ---------------------------------------------------------------------------
@@ -231,19 +263,8 @@ def test_scan_kill_and_resume_is_bit_identical(small, tmp_path):
     assert info.value.segment == 2
     resumed = run(scn, resume_from=cfg.checkpoint_path)
     assert [s.segment for s in resumed.trace.segments] == [0, 1, 2, 3]
-    for a, b in zip(ref.trace.segments, resumed.trace.segments):
-        for f in dataclasses.fields(a):
-            va, vb = getattr(a, f.name), getattr(b, f.name)
-            if isinstance(va, np.ndarray):
-                np.testing.assert_array_equal(va, vb)
-            else:
-                assert va == vb, (a.segment, f.name)
+    assert_runs_identical(ref, resumed)
     assert sum(s.retried for s in ref.trace.segments) > 0
-    for a, b in zip(tree_leaves(ref.global_params),
-                    tree_leaves(resumed.global_params)):
-        assert torch.equal(a, b)
-    for a, b in zip(ref.client_data, resumed.client_data):
-        assert torch.equal(a, b)
 
 
 def test_scan_validates_config(small):

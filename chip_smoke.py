@@ -13,11 +13,16 @@
    path's, (b) ``benchmarks/kernel_bench.py``'s 2-D one, (c) d = 4 and (d)
    d = 1024, k = 256; each warm (the same inputs every call) and cold (calls
    cycling through copies more than the L2 apart), beside the CUDA graph's
-   per-launch floor, which no kernel design can remove.
-3. Runs the pipeline, then the smoke Llama's prefill and decode, at a small
-   size on the card and on the host with the same inputs: the card's run
-   (kernels) must agree with the host's (plain versions, which the CPU tests
-   hold against the JAX reference).
+   per-launch floor, which no kernel design can remove. The CUDA-core flash
+   kernel is also checked and timed at recurrentgemma-2b's local attention
+   (q (4, 4096, 10, 256), k/v (4, 4096, 1, 256) bf16, window 2,048), beside
+   its bound and one SDPA call with the window as a boolean mask.
+3. Runs the pipeline, then the smoke Llama's prefill and decode, then
+   recurrentgemma-2b reduced to 4 layers (a prompt longer than its window)
+   and xlstm-125m's smoke config, at a small size on the card and on the
+   host with the same inputs: the card's run (kernels) must agree with the
+   host's (plain versions, which the CPU tests hold against the JAX
+   reference).
 4. Drives the smart-exchange main path at full width: the paper's AE on an
    FMNIST-sized synthetic world (10 classes x 6,000 train images), N = 30
    clients, ``PipelineConfig()`` defaults, then ``fl_train`` and
@@ -84,25 +89,38 @@
    over the online run and over the scan chunk; (d) the disabled tracer's
    cost: 10^6 disabled spans timed on the host, times (a)'s span count,
    must be under 1% of (a)'s seconds.
+10. Serves the recurrent families at full width through
+   ``launch.serve.serve``: recurrentgemma-2b (26 layers, d_model 2,560) at
+   batch 4 with 4,096-token prompts, whose 8 local-attention layers must
+   launch the CUDA-core flash kernel once each per prefill, and xlstm-125m
+   (12 layers, d_model 768) at batch 4 with 2,048-token prompts, which
+   launches no kernel; 32 sampled tokens each, weights drawn from seed 0.
+   Prints prefill ms, decode ms per step, the peak, the prefill's last
+   logits against the plain route's on the card (recurrentgemma also with
+   float32 activations, where the routes must agree within 1e-3) and one
+   profiled decode step's device idle share.
 
-Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d) and 9 (a, b) set every kernel's
-launch count to 0 just before each run they drive (the main path, the bf16
-serve, the f32 serve, the two online runs, the two training runs, the
-federated-LLM run, the eager and scan runs, the CIFAR-like main path, the
-clustering loop on the card, the traced online and scan runs) and read the
-counts just after. Before the main path, the bf16 serve, each online run
-and each training run they reset the peak-memory counter and print what is
-allocated then; each peak is printed absolute and above that allocation.
+Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b) and 10 set every
+kernel's launch count to 0 just before each run they drive (the main path,
+the bf16 serve, the f32 serve, the two online runs, the two training runs,
+the federated-LLM run, the eager and scan runs, the CIFAR-like main path,
+the clustering loop on the card, the traced online and scan runs, the two
+recurrent serves) and read the counts just after. Before the main path,
+each serve, each online run and each training run they reset the
+peak-memory counter and print what is allocated then; each peak is printed
+absolute and above that allocation.
 
 Prints the card's name and power limit, a JSON line of the kernels (with
 each kernel's launches on the main path and, as ``online_launches``, on the
 ``burst-outage`` run, as ``train_launches`` in phase 7 (a) and as
 ``federated_llm_launches`` in phase 7 (b), as ``scan_launches`` and
 ``cifar_launches`` in phase 8 (a, c), as ``traced_online_launches`` and
-``traced_scan_launches`` in phase 9 (a, b), the online shapes' errors, the
-federated shape (e) and the clustering loop's (f) among the kmeans row's
-``shapes``, the CIFAR-like shape among the recon_gate row's) and, as the
-last line, ``{"ok": true, "device": {...}}``. Any failure ends the run with
+``traced_scan_launches`` in phase 9 (a, b), as
+``recurrentgemma_serve_launches`` and ``xlstm_serve_launches`` in phase 10,
+the online shapes' errors, the federated shape (e) and the clustering
+loop's (f) among the kmeans row's ``shapes``, the CIFAR-like shape among
+the recon_gate row's, recurrentgemma's among the CUDA-core flash row's)
+and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run with
 a non-zero exit code and no result line. Imports nothing of JAX.
 """
 import gc
@@ -403,7 +421,58 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
                          iters=5, replays=3)
     log(f"  flash_attention (CUDA cores) {tuple(q.shape)} bf16: device "
         f"{simt_bf16:.5f} ms")
+    del q, k, v, q32, k32, v32
+    rows[simt]["shapes"] = [recurrentgemma_flash(torch, F, ops, ref, fa_mod,
+                                                 qkv)]
     return rows
+
+
+def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
+    """recurrentgemma-2b's local attention at phase 10's prefill: q (4,
+    4096, 10, 256), k/v (4, 4096, 1, 256) bf16, causal, window 2,048, which
+    ``route`` sends to the CUDA-core kernel (head_dim 256). Checked as the
+    other shapes, then timed as the table times them; the library call is
+    one SDPA with the window as a boolean mask and ``enable_gqa``. The
+    bound counts the keys each query sees, min(i + 1, 2,048), at the bf16
+    tensor-core rate. Returns the shape's entry of the kernel's row."""
+    b, s, h, kv, hd, window = 4, 4096, 10, 1, 256, 2048
+    q, k, v = qkv(b, s, s, h, kv, hd)
+    if fa_mod.route(q, k, v) != "simt":
+        raise AssertionError("route did not send recurrentgemma's shape to "
+                             "the CUDA-core kernel")
+    label = f"recurrentgemma ({b},{s},{h},{hd}) Kv {kv} window {window} bf16"
+    err = check_flash(ops, ref, q, k, v, label, "flash_attention",
+                      window=window)
+    visible = sum(min(i + 1, window) for i in range(s))
+    flops = 4 * hd * b * h * visible
+    moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                             < window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        return fa_mod.flash_attention_cuda(q, k, v, window=window)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, window=window)
+    r = dict(shape=f"q ({b}, {s}, {h}, {hd}), k/v ({b}, {s}, {kv}, {hd}) "
+             f"bf16, causal, window {window}", max_abs_err=err,
+             ms=graph_ms(kernel, iters=3, replays=2),
+             plain_ms=graph_ms(plain, iters=2, replays=2),
+             call_ms=cuda_ms(kernel, iters=3, warmup=1),
+             plain_call_ms=cuda_ms(plain, iters=2, warmup=1),
+             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                 iters=3, replays=2),
+             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved)
+    log(f"  flash_attention {label}: {flops / 1e9:.1f} GFLOP of visible "
+        f"keys, {moved / 1e6:.1f} MB; kernel {flops / r['ms'] / 1e9:.1f} "
+        f"TFLOP/s; device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms; "
+        f"per call {r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms;"
+        f" bound {b_ms:.5f} ms ({b_by}); SDPA {r['library_ms']:.5f} ms")
+    return r
 
 
 def kmeans_bound(x, c):
@@ -664,6 +733,65 @@ def transformer_reference_phase(torch, ops, dev):
         log(f"  small transformer {dtype} agrees: prefill max err "
             f"{errs[0]:.3e}, decode max err {max(errs[1:]):.3e} "
             f"(|logits| <= {float(hl.abs().max()):.3f})")
+
+
+def recurrent_reference_phase(torch, ops, dev):
+    """Phase 3, the recurrent families: recurrentgemma-2b reduced to 4
+    layers (one (rglru, rglru, local_attn) unit and an rglru tail, d_model
+    256, window 64) with a 72-token prompt, so the prefill fills its ring
+    past the window, and xlstm-125m's smoke config (mlstm, slstm) with a
+    300-token prompt (a full mLSTM chunk and a ragged one); the same
+    parameters and tokens on the card (kernels) and on the host (plain
+    versions), prefill then 8 teacher-forced decode steps. Tolerances as
+    the dense family's: float32 1e-4, bfloat16 3e-2, absolute on logits of
+    size ~1. recurrentgemma's f32 prefill launches the CUDA-core flash
+    kernel once (its one local_attn layer), the bf16 one the tensor-core
+    kernel (head_dim 64 here)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    for arch, over, prompt in (("recurrentgemma-2b", {"n_layers": 4}, 72),
+                               ("xlstm-125m", {}, 300)):
+        for dtype, tol, kernel in (("float32", 1e-4, "flash_attention"),
+                                   ("bfloat16", 3e-2, "flash_attention_sm90")):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                                      **over)
+            n_attn = cfg.layer_kinds.count("local_attn")
+            model = build_model(cfg)
+            host_p = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+            card_p = tree_map(lambda a: a.to(dev), host_p)
+            toks = torch.randint(0, cfg.vocab_size, (2, prompt + 8),
+                                 generator=torch.Generator().manual_seed(1))
+            hl, hc = model.prefill(host_p, {"tokens": toks[:, :prompt]},
+                                   max_len=prompt + 8, use_flash=True)
+            before = {n: k.launches for n, k in ops.KERNELS.items()}
+            cl, cc = model.prefill(card_p, {"tokens": toks[:, :prompt].to(dev)},
+                                   max_len=prompt + 8, use_flash=True)
+            moved = {n: k.launches - before[n]
+                     for n, k in ops.KERNELS.items()}
+            want = {n: (n_attn if n == kernel else 0) for n in moved}
+            if moved != want:
+                raise AssertionError(f"small {arch} {dtype} prefill launched "
+                                     f"{moved}, expected {want}")
+            errs = [float((cl.cpu() - hl).abs().max())]
+            for t in range(prompt, prompt + 8):
+                hl, hc = model.decode(host_p, hc, {"token": toks[:, t:t + 1]})
+                cl, cc = model.decode(card_p, cc,
+                                      {"token": toks[:, t:t + 1].to(dev)})
+                errs.append(float((cl.cpu() - hl).abs().max()))
+            state = max(float((a.cpu().float() - b.float()).abs().max())
+                        for a, b in zip(tree_leaves((cc["scan"], cc["tail"])),
+                                        tree_leaves((hc["scan"], hc["tail"]))))
+            if max(errs) > tol:
+                raise AssertionError(f"small {arch} {dtype}: logits differ "
+                                     f"by {errs} (tol {tol})")
+            log(f"  small {arch} {dtype} ({cfg.n_layers} layers) agrees: "
+                f"prefill max err {errs[0]:.3e}, decode max err "
+                f"{max(errs[1:]):.3e} (|logits| <= "
+                f"{float(hl.abs().max()):.3f}); cache leaves max diff "
+                f"{state:.3e}; flash launches {moved}")
 
 
 def device_profile(torch, label, fn, top=6):
@@ -1967,6 +2095,130 @@ def disabled_span_cost(n_spans, online_secs, reps=10**6):
         raise AssertionError("disabled spans cost 1% of the run or more")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the recurrent families served at full width
+# ---------------------------------------------------------------------------
+
+# arch, batch, prompt, generated tokens, flash_attention launches per prefill
+RECURRENT_SERVES = (("recurrentgemma-2b", 4, 4096, 32, 8),
+                    ("xlstm-125m", 4, 2048, 32, 0))
+
+
+def _routes_against_f32(torch, ops, model, params, tokens, lk, lp, n_flash):
+    """The served prefill's kernel route held to its plain route at full
+    width. In bf16 the two differ by more than the kernel does: its output
+    agrees with the plain (chunked, f32) route's to a bf16 rounding (phase
+    2), but 26 bf16 layers amplify one-ulp differences (0.119 on logits up
+    to 5 on an H100). So the same weights and tokens run once
+    more with float32 activations through both routes, which must agree
+    within 1e-3 (phase 5's f32 bound: the routes differ only in the order
+    of f32 sums), and against those f32 plain logits the bf16 kernel route
+    may be at most 3e-2 farther than the bf16 plain route. Returns the
+    checks; prints the errors."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    before = ops.KERNELS["flash_attention"].launches
+    lk32, _ = m32.prefill(params, {"tokens": tokens}, use_flash=True)
+    launched = ops.KERNELS["flash_attention"].launches - before
+    lp32, _ = m32.prefill(params, {"tokens": tokens}, use_flash=False)
+    err32 = float((lk32 - lp32).abs().max())
+    err_k = float((lk - lp32).abs().max())
+    err_p = float((lp - lp32).abs().max())
+    log(f"  {model.cfg.name} f32 prefill, kernel vs plain route: max err "
+        f"{err32:.3e} ({launched} flash_attention launches); bf16 routes "
+        f"against the f32 plain logits: kernel {err_k:.3e}, plain "
+        f"{err_p:.3e}")
+    return {
+        f"f32 prefill launched flash_attention {n_flash} times":
+            launched == n_flash,
+        "f32 prefill: kernel route vs plain route within 1e-3": err32 <= 1e-3,
+        "bf16 prefill: kernel route at most 3e-2 farther from the f32 plain "
+        "logits than the bf16 plain route": err_k <= err_p + 3e-2,
+    }
+
+
+def recurrent_serve_phase(torch, ops, dev):
+    """Phase 10: recurrentgemma-2b and xlstm-125m (their configs unchanged,
+    weights drawn from seed 0) served through ``launch.serve.serve`` at
+    batch 4 (a 4,096- and a 2,048-token prompt, 32 sampled tokens each);
+    recurrentgemma's 8 local-attention layers launch the CUDA-core flash
+    kernel once each in the prefill and nothing in decode, xLSTM launches
+    no kernel. Then the same prefill with ``use_flash=False`` on the card,
+    held to the kernel route as ``_routes_against_f32`` says, and one
+    profiled decode step from its cache.
+    Returns {arch: launch counts of the serve}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    out = {}
+    for arch, batch, prompt, gen, n_flash in RECURRENT_SERVES:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(g, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                               generator=g, device=dev)
+        torch.cuda.synchronize()
+        log(f"  {arch}: {model.n_params():,} parameters ({cfg.param_dtype}, "
+            f"{cfg.dtype} activations), drawn in "
+            f"{time.perf_counter() - t0:.2f} s")
+        serve(model, params, tokens[:, :256], 2, generator=g,
+              device=dev)   # warm-up
+        base = reset_peak(torch, f"{arch} serve")
+        for k in ops.KERNELS.values():
+            k.launches = 0
+        res = serve(model, params, tokens, gen, temperature=1.0,
+                    generator=g, device=dev)
+        launches = {name: k.launches for name, k in ops.KERNELS.items()}
+        peak = peak_text(torch, base)
+        lp, cache = model.prefill(params, {"tokens": tokens},
+                                  max_len=prompt + gen, use_flash=False)
+        err = float((res.logits - lp).abs().max())
+        scale = float(lp.abs().max())
+        toks = res.tokens
+        checks = {
+            f"flash_attention launched {n_flash} times (once per local_attn "
+            "layer of the prefill, none in decode), no other kernel":
+                launches == {n: (n_flash if n == "flash_attention" else 0)
+                             for n in launches},
+            f"tokens ({batch}, {gen}) in [0, vocab)":
+                tuple(toks.shape) == (batch, gen)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            "prefill logits finite":
+                bool(torch.isfinite(res.logits).all())
+                and tuple(res.logits.shape) == (batch, 1, cfg.vocab_size),
+        }
+        if n_flash:
+            checks.update(_routes_against_f32(torch, ops, model, params,
+                                              tokens, res.logits, lp, n_flash))
+        steps = gen - 1
+        step_ms = res.decode_s * 1e3 / steps
+        log(f"  {arch} prefill {batch}x{prompt}: {res.prefill_s * 1e3:.2f} "
+            f"ms ({batch * prompt / res.prefill_s:.0f} tok/s)")
+        log(f"  {arch} decode {steps} steps x {batch} seqs: "
+            f"{res.decode_s * 1e3:.2f} ms ({steps * batch / res.decode_s:.0f}"
+            f" tok/s, {step_ms:.3f} ms per step)")
+        log(f"  {arch} serve: {peak}")
+        log(f"  {arch} last-token logits, kernel route vs plain route: max "
+            f"err {err:.3e} (|logits| <= {scale:.3f})")
+        log(f"  {arch} sampled tokens[0][:8] {toks[0, :8].tolist()}; "
+            f"launches {launches}")
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{arch} serving checks failed: {failed}")
+        _, busy = device_profile(torch, f"{arch} one decode step",
+                                 lambda: model.decode(
+                                     params, cache, {"token": toks[:, :1]}))
+        if busy is not None:
+            log(f"  {arch} decode device idle share {1 - busy / step_ms:.3f}"
+                f" of the unprofiled serve loop's {step_ms:.3f} ms per step")
+        out[arch] = launches
+        del params, cache, res, lp
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2014,6 +2266,7 @@ def main() -> int:
     log("== phase 3: small runs, card against host")
     reference_phase(torch, dev)
     transformer_reference_phase(torch, ops, dev)
+    recurrent_reference_phase(torch, ops, dev)
 
     log("== phase 4: smart-exchange main path at full width")
     launches = main_path(torch, ops, dev)
@@ -2048,6 +2301,9 @@ def main() -> int:
     traced_sc, sc_secs, chunk_secs = traced_scan(torch, ops, dev, scanned)
     profiled_runs(torch, ops, dev, on_secs, sc_secs, chunk_secs)
     disabled_span_cost(n_spans, on_secs)
+
+    log("== phase 10: serving recurrentgemma-2b and xlstm-125m at full width")
+    recurrent = recurrent_serve_phase(torch, ops, dev)
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -2059,6 +2315,9 @@ def main() -> int:
         row["cifar_launches"] = cifar[name]
         row["traced_online_launches"] = traced_on[name]
         row["traced_scan_launches"] = traced_sc[name]
+        row["recurrentgemma_serve_launches"] = \
+            recurrent["recurrentgemma-2b"][name]
+        row["xlstm_serve_launches"] = recurrent["xlstm-125m"][name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -2067,7 +2326,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "online_launches", "train_launches", "federated_llm_launches",
             "scan_launches", "cifar_launches", "traced_online_launches",
-            "traced_scan_launches", "max_abs_err",
+            "traced_scan_launches", "recurrentgemma_serve_launches",
+            "xlstm_serve_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
             "shapes")

@@ -1,8 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
-Holds the architectures whose blocks the port runs: the dense GQA family.
-The JAX package's MoE, recurrent, vision and audio configs come with their
-families (ROADMAP Queue 1)."""
+Holds the architectures whose blocks the port runs: the dense GQA family,
+xLSTM and the RG-LRU hybrid. The JAX package's MoE, vision and audio configs
+come with their families (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +14,8 @@ _MODULES = {
     "llama3.2-1b": "llama32_1b",
     "llama3.2-3b": "llama32_3b",
     "llama3-8b": "llama3_8b",
+    "xlstm-125m": "xlstm_125m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

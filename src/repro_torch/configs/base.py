@@ -6,11 +6,12 @@ Every ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 (the exact full-size config) and ``smoke_config()`` (the reduced variant used
 by CPU tests: <= 2 layers, d_model <= 512).
 
-Only the fields the dense transformer reads are here, plus the switches that
-select an unported family (``n_experts``, ``block_pattern``, ``frontend``,
-``mrope_sections``, ``act_seq_shard``): the model raises
-``NotImplementedError`` naming ROADMAP when one of those is set. The other
-families' knobs come with their blocks (ROADMAP Queue 1, item 10).
+Only the fields the ported families read are here (the dense transformer,
+xLSTM and the RG-LRU hybrid), plus the switches that select an unported
+family (``n_experts``, ``frontend``, ``mrope_sections``, ``act_seq_shard``):
+the model raises ``NotImplementedError`` naming ROADMAP when one of those is
+set. The other families' knobs come with their blocks (ROADMAP Queue 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -40,11 +41,16 @@ class ModelConfig:
     window: int = 4096             # sliding-window width
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # Qwen2-VL M-RoPE (unported)
+    long_context_mode: str = "sliding_window"  # how long_500k is served
 
-    # --- layer pattern ---
-    # cycled over layers; ported: "attn", "local_attn"
+    # --- layer pattern (ssm / hybrid) ---
+    # cycled over layers; entries: "attn", "local_attn", "mlstm", "slstm", "rglru"
     block_pattern: Tuple[str, ...] = ("attn",)
+    rglru_conv_width: int = 4
+    rglru_d_rnn: int = 0           # 0 -> d_model
     local_window: int = 2048       # hybrid local-attention window
+    xlstm_proj_factor: float = 2.0  # mLSTM up-projection
+    xlstm_conv_width: int = 4
 
     # --- modality frontend (unported: anything but "none" raises) ---
     frontend: str = "none"
@@ -63,6 +69,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.rglru_d_rnn == 0:
+            object.__setattr__(self, "rglru_d_rnn", self.d_model)
 
     @property
     def act_dtype(self) -> torch.dtype:
@@ -95,6 +103,8 @@ class ModelConfig:
             window=128,
             local_window=64,
         )
+        if self.family == "hybrid":
+            base.update(rglru_d_rnn=min(self.rglru_d_rnn, 256))
         base.update(overrides)
         return dataclasses.replace(self, **base)
 

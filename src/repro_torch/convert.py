@@ -29,13 +29,15 @@ def _tensor(a, device):
 
 def lm_params(tree, device="cpu") -> dict:
     """A transformer's parameter tree ({"embed", "scan": (...), "tail":
-    (...), "final_norm", "head"}); the layouts match, so this is a copy."""
+    (...), "final_norm", "head"}), attention and recurrent blocks alike;
+    the layouts match, so this is a copy."""
     return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def lm_cache(cache, device="cpu") -> dict:
-    """A prefill/decode cache {"pos", "scan", "tail"} with its K/V ring
-    buffers; ``pos`` becomes a Python int."""
+    """A prefill/decode cache {"pos", "scan", "tail"}: K/V ring buffers and
+    recurrent states (rglru h, conv; mlstm C, n, m, conv; slstm c, n, m, h)
+    in their own dtypes; ``pos`` becomes a Python int."""
     return {"pos": int(np.asarray(cache["pos"])),
             "scan": tree_map(lambda a: _tensor(a, device), cache["scan"]),
             "tail": tree_map(lambda a: _tensor(a, device), cache["tail"])}

@@ -4,8 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-The prefill runs attention through the flash kernel (``use_flash=True``): on
-the card the hand-written kernel, on the host its plain version.
+``--arch`` takes every ported config: the Llama family, ``xlstm-125m`` and
+``recurrentgemma-2b``. The prefill runs attention through the flash kernel
+(``use_flash=True``): on the card the hand-written kernel, on the host its
+plain version. xLSTM has no attention; recurrentgemma's local attention
+(bf16, head_dim 256) takes the CUDA-core flash kernel.
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ import torch
 class Spec(NamedTuple):
     shape: tuple
     logical: tuple          # logical axis name (or None) per dim
-    init: str = "normal"    # normal | zeros | he | scaled
+    init: str = "normal"    # normal | zeros | ones | he | scaled | lambda_init
 
 
 def tree_map(fn, tree, *rest):
@@ -78,6 +78,14 @@ def _init_leaf(generator, spec: Spec, lead: tuple, dtype, n_layers: int):
     shape = lead + tuple(spec.shape)
     if spec.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=generator.device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=generator.device)
+    if spec.init == "lambda_init":  # RG-LRU Λ: a uniform in [0.9, 0.999]
+        u = torch.rand(shape, generator=generator, dtype=dtype,
+                       device=generator.device) * (0.999 - 0.9) + 0.9
+        # Λ such that sigmoid(Λ)^8 = a  =>  Λ = logit(a^{1/8})
+        a8 = u ** (1.0 / 8.0)
+        return torch.log(a8 / (1 - a8))
     if spec.init == "he":   # fan-in scaled (convs/denses trained by raw SGD)
         scale = math.sqrt(2.0 / (math.prod(spec.shape[:-1]) or 1))
     elif spec.init == "normal":
@@ -111,6 +119,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     y = x.float()
     y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def group_norm_heads(x, scale, n_heads: int, eps: float = 1e-6):
+    """Per-head group norm used by the xLSTM cells. x: (..., H, dh); the
+    population variance, and a plain ``scale`` gain (not 1 + scale)."""
+    y = x.float()
+    mean = torch.mean(y, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(y - mean), dim=-1, keepdim=True)
+    y = (y - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 def dense(x, w, out_dtype=None):

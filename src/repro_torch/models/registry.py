@@ -45,7 +45,8 @@ class Model:
         return sum(math.prod(s.shape) for s in cm.tree_leaves(self.specs))
 
     def n_active_params(self) -> int:
-        """Active parameters per token: all of them for the dense family."""
+        """Active parameters per token: all of them for the dense, xLSTM and
+        RG-LRU hybrid families."""
         if self.cfg.is_moe:
             raise NotImplementedError("not ported yet: ROADMAP Queue 1, item "
                                       "10 (the MoE family)")

@@ -1,4 +1,5 @@
-"""Decoder backbone, dense-attention path (mirrors ``repro.models.transformer``).
+"""Decoder backbone: the dense-attention, xLSTM and RG-LRU hybrid families
+(mirrors ``repro.models.transformer``).
 
 Layer stacking: layers are grouped into *units* of ``len(block_pattern)``
 layers, and each unit's parameters are stacked along a leading n_units axis,
@@ -16,15 +17,17 @@ the backward pass (``torch.utils.checkpoint``, the counterpart of the
 reference's ``jax.checkpoint`` of the unit body), so only one unit's
 activations are live at a time.
 
-Cache layout: {"pos": int, "scan": (per pattern position {"k", "v"} with a
-leading n_units axis,), "tail": (per tail layer {"k", "v"},)}. Attention
-caches are ring buffers of length min(capacity, window). Prefill fills
-buffers allocated once by :func:`init_cache`; decode writes each new token's
-K/V into them in place.
+Cache layout: {"pos": int, "scan": (per pattern position a block cache with
+a leading n_units axis,), "tail": (per tail layer a block cache,)}. An
+attention block's cache is {"k", "v"}: ring buffers of length
+min(capacity, window). A recurrent block carries O(1) state: rglru {"h",
+"conv"}, mlstm {"C", "n", "m", "conv"}, slstm {"c", "n", "m", "h"}, the
+states in float32 and the conv histories in the activation dtype.
+:func:`init_cache` allocates every buffer once; prefill writes the prompt's
+K/V and final states into them, and each decode step updates them in place.
 
-MoE, the recurrent blocks (rglru, mlstm, slstm), the vision and audio
-frontends and ``act_seq_shard`` are not ported yet and raise
-``NotImplementedError`` (ROADMAP Queue 1).
+MoE, the vision and audio frontends and ``act_seq_shard`` are not ported
+yet and raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -36,9 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.rope import apply_rope
 
-_LATER = "not ported yet: ROADMAP Queue 1, {}"
+_LATER = "not ported yet: ROADMAP Queue 1, item {}"
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +61,7 @@ def mlp_specs(cfg):
 
 def attn_specs(cfg):
     if cfg.is_moe:
-        raise NotImplementedError(_LATER.format("the MoE family (moe.py)"))
+        raise NotImplementedError(_LATER.format("10: the MoE family (moe.py)"))
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
         "ln1": cm.Spec((d,), ("d_model",), "zeros"),
@@ -69,26 +74,26 @@ def attn_specs(cfg):
     }
 
 
-def _unported_kind(kind: str):
-    if kind in ("mlstm", "slstm"):
-        return NotImplementedError(_LATER.format("the xLSTM family (xlstm.py)"))
-    if kind == "rglru":
-        return NotImplementedError(
-            _LATER.format("the recurrentgemma family (rglru.py)"))
-    return ValueError(kind)
-
-
 def block_specs(cfg, kind: str):
     if kind in ("attn", "local_attn"):
         return attn_specs(cfg)
-    raise _unported_kind(kind)
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_specs(cfg)
+    if kind == "slstm":
+        return xlstm_lib.slstm_specs(cfg)
+    if kind == "rglru":
+        p = rglru_lib.rglru_specs(cfg)
+        p["ln2"] = cm.Spec((cfg.d_model,), ("d_model",), "zeros")
+        p["mlp"] = mlp_specs(cfg)
+        return p
+    raise ValueError(kind)
 
 
 def model_specs(cfg):
     """Full parameter Spec tree. Stacked units + unrolled tail."""
     if cfg.frontend != "none":
         raise NotImplementedError(_LATER.format(
-            f"the {cfg.frontend} frontend (qwen2-vl, musicgen)"))
+            f"10: the {cfg.frontend} frontend (qwen2-vl, musicgen)"))
     period = len(cfg.block_pattern)
     n_units, n_tail = divmod(cfg.n_layers, period)
     specs: dict[str, Any] = {
@@ -128,13 +133,33 @@ def attn_cache_len(cfg, kind: str, seq_len: int) -> int:
 
 def init_block_cache(cfg, kind: str, batch: int, seq_len: int, dtype,
                      lead: tuple = (), device=None):
-    """Zero K/V ring buffers (*lead, B, W, Kv, hd) for one attention block."""
-    if kind not in ("attn", "local_attn"):
-        raise _unported_kind(kind)
-    shape = lead + (batch, attn_cache_len(cfg, kind, seq_len), cfg.n_kv_heads,
-                    cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """One block's empty cache, every leaf with the leading dims ``lead``:
+    zero K/V ring buffers (B, W, Kv, hd) in ``dtype`` for attention; for a
+    recurrent block its initial state in float32 (m at -1e9) and a zero conv
+    history in ``dtype``."""
+    d = cfg.d_model
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+    if kind in ("attn", "local_attn"):
+        shape = (batch, attn_cache_len(cfg, kind, seq_len), cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+    if kind == "rglru":
+        dr = cfg.rglru_d_rnn
+        return {"h": zeros(batch, dr, dt=torch.float32),
+                "conv": zeros(batch, cfg.rglru_conv_width - 1, dr)}
+    if kind == "mlstm":
+        di = xlstm_lib._round64(cfg.xlstm_proj_factor * d)
+        dh = di // cfg.n_heads
+        st = xlstm_lib.mlstm_init_state(batch, cfg.n_heads, dh, dh,
+                                        device=device, lead=lead)
+        return {"C": st.C, "n": st.n, "m": st.m,
+                "conv": zeros(batch, cfg.xlstm_conv_width - 1, di)}
+    if kind == "slstm":
+        st = xlstm_lib.slstm_init_state(batch, d, device=device, lead=lead)
+        return st._asdict()
+    raise ValueError(kind)
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
@@ -166,7 +191,7 @@ def _project_qkv(p, x, cfg):
 
 def _apply_rope(q, k, positions, cfg):
     if cfg.mrope_sections:
-        raise NotImplementedError(_LATER.format("M-RoPE (the vision family)"))
+        raise NotImplementedError(_LATER.format("10: M-RoPE (the vision family)"))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -180,7 +205,7 @@ def _mlp(p, x):
 def _ffn(p, x, cfg):
     """Second residual branch (the MLP) of an attention block."""
     if "moe" in p:
-        raise NotImplementedError(_LATER.format("the MoE family (moe.py)"))
+        raise NotImplementedError(_LATER.format("10: the MoE family (moe.py)"))
     return x + _mlp(p["mlp"], cm.rms_norm(x, p["ln2"]))
 
 
@@ -226,15 +251,48 @@ def attn_block_step(p, cache, x, cfg, pos: int):
     return _ffn(p, x, cfg)
 
 
+def _store(cache, new: dict):
+    """Writes a recurrent block's new state into its cache buffers."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
 def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos,
                 use_flash=False):
-    """Dispatch one block; returns x (a cache is filled in place)."""
-    if kind not in ("attn", "local_attn"):
-        raise _unported_kind(kind)
-    if mode == "decode":
-        return attn_block_step(p, cache, x, cfg, pos)
-    return attn_block_seq(p, x, cfg, kind, positions, cache=cache,
-                          use_flash=use_flash)
+    """Dispatch one block; returns x. A block given a cache (prefill,
+    decode) reads its state there and writes the new one in place."""
+    if kind in ("attn", "local_attn"):
+        if mode == "decode":
+            return attn_block_step(p, cache, x, cfg, pos)
+        return attn_block_seq(p, x, cfg, kind, positions, cache=cache,
+                              use_flash=use_flash)
+    if kind == "rglru":
+        st = None if cache is None else rglru_lib.RGLRUState(cache["h"],
+                                                             cache["conv"])
+        x, st = rglru_lib.rglru_block(
+            {k: v for k, v in p.items() if k not in ("ln2", "mlp")}, x, cfg,
+            st)
+        x = x + _mlp(p["mlp"], cm.rms_norm(x, p["ln2"]))
+        if cache is not None:
+            _store(cache, st._asdict())
+        return x
+    if kind == "mlstm":
+        st = conv = None
+        if cache is not None:
+            st = xlstm_lib.MLSTMState(cache["C"], cache["n"], cache["m"])
+            conv = cache["conv"]
+        x, (st, conv) = xlstm_lib.mlstm_block(p, x, cfg, st, conv)
+        if cache is not None:
+            _store(cache, dict(st._asdict(), conv=conv))
+        return x
+    if kind == "slstm":
+        st = None if cache is None else xlstm_lib.SLSTMState(
+            cache["c"], cache["n"], cache["m"], cache["h"])
+        x, st = xlstm_lib.slstm_block(p, x, cfg, st)
+        if cache is not None:
+            _store(cache, st._asdict())
+        return x
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +302,7 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos,
 def embed_inputs(params, batch, cfg):
     """Returns (x: (B,S,D), positions, labels or None)."""
     if cfg.frontend != "none":
-        raise NotImplementedError(_LATER.format(f"the {cfg.frontend} frontend"))
+        raise NotImplementedError(_LATER.format(f"10: the {cfg.frontend} frontend"))
     tokens = batch["tokens"]
     x = cm.embed_lookup(tokens, params["embed"]["tok"], cfg.act_dtype)
     b, s = tokens.shape
@@ -282,7 +340,7 @@ def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
     place). ``remat`` checkpoints each unit: its parameter views and x go
     in, only x is kept."""
     if cfg.act_seq_shard:
-        raise NotImplementedError(_LATER.format("sharding (slice 3)"))
+        raise NotImplementedError(_LATER.format("11: sharding"))
     period, n_units, tail_kinds = scan_meta(cfg)
 
     def unit_body(x, p_unit, c_unit):

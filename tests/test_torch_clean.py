@@ -60,6 +60,8 @@ def test_port_has_the_slice_modules():
                 "configs/llama32_3b.py", "configs/llama3_8b.py",
                 "models/rope.py", "models/attention.py",
                 "models/transformer.py", "models/registry.py",
+                "models/xlstm.py", "models/rglru.py",
+                "configs/xlstm_125m.py", "configs/recurrentgemma_2b.py",
                 "launch/serve.py", "dynamics/__init__.py",
                 "dynamics/scenarios.py", "dynamics/environment.py",
                 "dynamics/metrics.py", "dynamics/runstate.py",

@@ -2,7 +2,9 @@
 smoke Llama's size (2 layers, d_model 256, vocab 512), with JAX's own
 initial parameters carried across by ``convert.lm_params``.
 
-Checked: spec trees and parameter counts for all three ported configs; the
+Checked: spec trees and parameter counts for every ported config (the
+recurrent families' too; their parity is in ``test_torch_xlstm.py``,
+``test_torch_rglru.py`` and ``test_torch_recurrent_serve.py``); the
 prefill's last logits and KV cache with the flash route on and off; 8
 teacher-forced decode steps from JAX's own prefill cache (linear and ring
 caches); and the port's prefill + decode against its own full forward.
@@ -76,8 +78,10 @@ def test_specs_and_param_counts_match_jax(arch):
     assert m.n_params() == jm.n_params()
     assert [tuple(t.shape) for t in cm.tree_leaves(m.param_shapes())] == \
         [s.shape for s in jleaves]
-    if arch == "llama3.2-1b":
-        assert m.n_params() == 1_498_482_688
+    want = {"llama3.2-1b": 1_498_482_688, "xlstm-125m": 168_266_544,
+            "recurrentgemma-2b": 3_549_934_080}
+    if arch in want:
+        assert m.n_params() == want[arch]
 
 
 def test_init_draws_every_leaf_at_its_scale():
@@ -157,18 +161,23 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 
 def test_unported_families_raise_naming_the_roadmap():
+    """MoE, the frontends and M-RoPE raise, naming their ROADMAP item; the
+    recurrent kinds (rglru, mlstm, slstm) build."""
     moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
         build_model(moe)
     for kind in ("rglru", "mlstm", "slstm"):
         cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                                   block_pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg)
+        assert build_model(cfg).n_params() > 0
     vlm = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                               frontend="vision_stub")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
         build_model(vlm)
+    mrope = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                                mrope_sections=(16, 8, 8))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tf._apply_rope(None, None, None, mrope)
     with pytest.raises(KeyError, match="unported"):
         get_config("qwen2-moe-a2.7b")
 

@@ -13,10 +13,11 @@
    path's, (b) ``benchmarks/kernel_bench.py``'s 2-D one, (c) d = 4 and (d)
    d = 1024, k = 256; each warm (the same inputs every call) and cold (calls
    cycling through copies more than the L2 apart), beside the CUDA graph's
-   per-launch floor, which no kernel design can remove. The CUDA-core flash
-   kernel is also checked and timed at recurrentgemma-2b's local attention
-   (q (4, 4096, 10, 256), k/v (4, 4096, 1, 256) bf16, window 2,048), beside
-   its bound and one SDPA call with the window as a boolean mask.
+   per-launch floor, which no kernel design can remove. The tensor-core
+   flash kernel is also checked and timed at recurrentgemma-2b's local
+   attention (q (4, 4096, 10, 256), k/v (4, 4096, 1, 256) bf16, window
+   2,048), beside its bound and one SDPA call with the window as a boolean
+   mask, and the CUDA-core kernel is timed there too.
 3. Runs the pipeline, then the smoke Llama's prefill and decode, then
    recurrentgemma-2b reduced to 4 layers (a prompt longer than its window)
    and xlstm-125m's smoke config, at a small size on the card and on the
@@ -92,7 +93,8 @@
 10. Serves the recurrent families at full width through
    ``launch.serve.serve``: recurrentgemma-2b (26 layers, d_model 2,560) at
    batch 4 with 4,096-token prompts, whose 8 local-attention layers must
-   launch the CUDA-core flash kernel once each per prefill, and xlstm-125m
+   launch the tensor-core flash kernel once each per prefill (the CUDA-core
+   one with float32 activations), and xlstm-125m
    (12 layers, d_model 768) at batch 4 with 2,048-token prompts, which
    launches no kernel; 32 sampled tokens each, weights drawn from seed 0.
    Prints prefill ms, decode ms per step, the peak, the prefill's last
@@ -119,9 +121,9 @@ each kernel's launches on the main path and, as ``online_launches``, on the
 ``recurrentgemma_serve_launches`` and ``xlstm_serve_launches`` in phase 10,
 the online shapes' errors, the federated shape (e) and the clustering
 loop's (f) among the kmeans row's ``shapes``, the CIFAR-like shape among
-the recon_gate row's, recurrentgemma's among the CUDA-core flash row's)
-and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run with
-a non-zero exit code and no result line. Imports nothing of JAX.
+the recon_gate row's, recurrentgemma's among both flash rows') and, as
+the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
+with a non-zero exit code and no result line. Imports nothing of JAX.
 """
 import gc
 import json
@@ -354,6 +356,24 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     check_flash(ops, ref, fused[:, :, :8], fused[:, :, 8:10],
                 fused[:, :, 10:], "strided fused-qkv view (H 8, Kv 2) bf16",
                 sm90)
+    # head_dim 256 (recurrentgemma's local attention): 64-key tiles, no
+    # producer warp
+    check_flash(ops, ref, *qkv(1, 300, 300, 4, 2, 256),
+                "ragged S = L = 300 hd 256 bf16", sm90)
+    check_flash(ops, ref, *qkv(2, 200, 200, 10, 1, 256),
+                "MQA Kv=1 H 10 hd 256 bf16", sm90)
+    for window in (8, 100):
+        check_flash(ops, ref, *qkv(1, 256, 256, 4, 1, 256),
+                    f"window {window} hd 256 bf16", sm90, window=window)
+    check_flash(ops, ref, *qkv(1, 32, 128, 4, 4, 256),
+                "q_offset 96, S 32, L 128 hd 256 bf16", sm90, q_offset=96)
+    check_flash(ops, ref, *qkv(2, 256, 256, 4, 1, 256),
+                "non-causal L 256 hd 256 bf16", sm90, causal=False)
+    fused = torch.randn((2, 300, 10 + 1 + 1, 256), generator=g,
+                        device=dev).bfloat16()
+    check_flash(ops, ref, fused[:, :, :10], fused[:, :, 10:11],
+                fused[:, :, 11:],
+                "strided fused-qkv view (H 10, Kv 1) hd 256 bf16", sm90)
 
     # the CUDA-core kernel: float32, and bf16 that TMA or wgmma cannot take
     check_flash(ops, ref, *qkv(1, 100, 100, 4, 2, 64, torch.float32),
@@ -368,9 +388,9 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     for hd in (32, 128, 256):
         check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd, torch.float32),
                     f"hd {hd} f32", simt)
-    for hd in (32, 256):
-        check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd),
-                    f"hd {hd} bf16", simt)
+    check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, 32), "hd 32 bf16", simt)
+    off = tuple(misaligned(t) for t in qkv(1, 200, 200, 4, 1, 256))
+    check_flash(ops, ref, *off, "misaligned views hd 256 bf16", simt)
     odd = torch.randn((2, 100, 4, 68), generator=g, device=dev).bfloat16()
     check_flash(ops, ref, odd[..., :64], odd[:, :, :2, :64],
                 odd[:, :, 2:, :64], "strides of 68 elements bf16", simt)
@@ -422,27 +442,41 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     log(f"  flash_attention (CUDA cores) {tuple(q.shape)} bf16: device "
         f"{simt_bf16:.5f} ms")
     del q, k, v, q32, k32, v32
-    rows[simt]["shapes"] = [recurrentgemma_flash(torch, F, ops, ref, fa_mod,
-                                                 qkv)]
+    fast, slow = recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv)
+    rows[sm90]["shapes"] = [fast]
+    rows[simt]["shapes"] = [slow]
     return rows
 
 
 def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
     """recurrentgemma-2b's local attention at phase 10's prefill: q (4,
     4096, 10, 256), k/v (4, 4096, 1, 256) bf16, causal, window 2,048, which
-    ``route`` sends to the CUDA-core kernel (head_dim 256). Checked as the
-    other shapes, then timed as the table times them; the library call is
-    one SDPA with the window as a boolean mask and ``enable_gqa``. The
-    bound counts the keys each query sees, min(i + 1, 2,048), at the bf16
-    tensor-core rate. Returns the shape's entry of the kernel's row."""
+    ``route`` sends to the tensor-core kernel. Checked as the other shapes,
+    then timed as the table times them; the CUDA-core kernel, this shape's
+    route before head_dim 256 reached the tensor cores, is held to the same
+    plain version and timed beside it through ``flash_attention_cuda``. The
+    library call is one SDPA with the window as a boolean mask and
+    ``enable_gqa``. The bound counts the keys each query sees, min(i + 1,
+    2,048), at the bf16 tensor-core rate. Returns the shape's entries of
+    the tensor-core and the CUDA-core kernel's rows."""
     b, s, h, kv, hd, window = 4, 4096, 10, 1, 256, 2048
     q, k, v = qkv(b, s, s, h, kv, hd)
-    if fa_mod.route(q, k, v) != "simt":
+    if fa_mod.route(q, k, v) != "sm90":
         raise AssertionError("route did not send recurrentgemma's shape to "
-                             "the CUDA-core kernel")
+                             "the tensor-core kernel")
     label = f"recurrentgemma ({b},{s},{h},{hd}) Kv {kv} window {window} bf16"
-    err = check_flash(ops, ref, q, k, v, label, "flash_attention",
+    err = check_flash(ops, ref, q, k, v, label, "flash_attention_sm90",
                       window=window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   window=window)
+    got = fa_mod.flash_attention_cuda(q, k, v, window=window).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err_slow = float(diff.max())
+    if not bool((diff <= 1e-3 + 8e-3 * want.abs()).all()):
+        raise AssertionError(f"flash_attention {label}: max err {err_slow}")
+    log(f"  flash_attention (CUDA cores) {label}: max err {err_slow:.3e}")
+    del want, got, diff
     visible = sum(min(i + 1, window) for i in range(s))
     flops = 4 * hd * b * h * visible
     moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
@@ -452,27 +486,34 @@ def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
                                              < window)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-    def kernel():
-        return fa_mod.flash_attention_cuda(q, k, v, window=window)
-
     def plain():
         return ref.flash_attention_ref(q, k, v, window=window)
-    r = dict(shape=f"q ({b}, {s}, {h}, {hd}), k/v ({b}, {s}, {kv}, {hd}) "
-             f"bf16, causal, window {window}", max_abs_err=err,
-             ms=graph_ms(kernel, iters=3, replays=2),
-             plain_ms=graph_ms(plain, iters=2, replays=2),
-             call_ms=cuda_ms(kernel, iters=3, warmup=1),
-             plain_call_ms=cuda_ms(plain, iters=2, warmup=1),
-             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, attn_mask=mask, enable_gqa=True),
-                 iters=3, replays=2),
-             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved)
-    log(f"  flash_attention {label}: {flops / 1e9:.1f} GFLOP of visible "
-        f"keys, {moved / 1e6:.1f} MB; kernel {flops / r['ms'] / 1e9:.1f} "
-        f"TFLOP/s; device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms; "
-        f"per call {r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms;"
-        f" bound {b_ms:.5f} ms ({b_by}); SDPA {r['library_ms']:.5f} ms")
-    return r
+    common = dict(
+        shape=f"q ({b}, {s}, {h}, {hd}), k/v ({b}, {s}, {kv}, {hd}) bf16, "
+        f"causal, window {window}",
+        plain_ms=graph_ms(plain, iters=2, replays=2),
+        plain_call_ms=cuda_ms(plain, iters=2, warmup=1),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=3, replays=2),
+        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved)
+    out = []
+    for name, fn, e, iters in (
+            ("flash_attention_sm90", fa_mod.flash_attention_sm90, err, 10),
+            ("flash_attention (CUDA cores)", fa_mod.flash_attention_cuda,
+             err_slow, 3)):
+        def kernel():
+            return fn(q, k, v, window=window)
+        r = dict(common, max_abs_err=e,
+                 ms=graph_ms(kernel, iters=iters, replays=2),
+                 call_ms=cuda_ms(kernel, iters=iters, warmup=1))
+        log(f"  {name} {label}: {flops / 1e9:.1f} GFLOP of visible keys, "
+            f"{moved / 1e6:.1f} MB; kernel {flops / r['ms'] / 1e9:.1f} "
+            f"TFLOP/s; device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
+            f"ms; per call {r['call_ms']:.5f} ms, plain "
+            f"{r['plain_call_ms']:.5f} ms; bound {b_ms:.5f} ms ({b_by}); "
+            f"SDPA {r['library_ms']:.5f} ms")
+        out.append(r)
+    return tuple(out)
 
 
 def kmeans_bound(x, c):
@@ -2099,9 +2140,11 @@ def disabled_span_cost(n_spans, online_secs, reps=10**6):
 # phase 10: the recurrent families served at full width
 # ---------------------------------------------------------------------------
 
-# arch, batch, prompt, generated tokens, flash_attention launches per prefill
-RECURRENT_SERVES = (("recurrentgemma-2b", 4, 4096, 32, 8),
-                    ("xlstm-125m", 4, 2048, 32, 0))
+# arch, batch, prompt, generated tokens, the flash kernel its bf16 prefill
+# launches and how often (head_dim 256: the tensor-core kernel)
+RECURRENT_SERVES = (
+    ("recurrentgemma-2b", 4, 4096, 32, "flash_attention_sm90", 8),
+    ("xlstm-125m", 4, 2048, 32, None, 0))
 
 
 def _routes_against_f32(torch, ops, model, params, tokens, lk, lp, n_flash):
@@ -2142,7 +2185,7 @@ def recurrent_serve_phase(torch, ops, dev):
     """Phase 10: recurrentgemma-2b and xlstm-125m (their configs unchanged,
     weights drawn from seed 0) served through ``launch.serve.serve`` at
     batch 4 (a 4,096- and a 2,048-token prompt, 32 sampled tokens each);
-    recurrentgemma's 8 local-attention layers launch the CUDA-core flash
+    recurrentgemma's 8 local-attention layers launch the tensor-core flash
     kernel once each in the prefill and nothing in decode, xLSTM launches
     no kernel. Then the same prefill with ``use_flash=False`` on the card,
     held to the kernel route as ``_routes_against_f32`` says, and one
@@ -2152,7 +2195,7 @@ def recurrent_serve_phase(torch, ops, dev):
     from repro_torch.launch.serve import serve
     from repro_torch.models.registry import build_model
     out = {}
-    for arch, batch, prompt, gen, n_flash in RECURRENT_SERVES:
+    for arch, batch, prompt, gen, kernel, n_flash in RECURRENT_SERVES:
         cfg = get_config(arch)
         model = build_model(cfg)
         t0 = time.perf_counter()
@@ -2179,9 +2222,9 @@ def recurrent_serve_phase(torch, ops, dev):
         scale = float(lp.abs().max())
         toks = res.tokens
         checks = {
-            f"flash_attention launched {n_flash} times (once per local_attn "
-            "layer of the prefill, none in decode), no other kernel":
-                launches == {n: (n_flash if n == "flash_attention" else 0)
+            f"{kernel} launched {n_flash} times (once per local_attn layer "
+            "of the prefill, none in decode), no other kernel":
+                launches == {n: (n_flash if n == kernel else 0)
                              for n in launches},
             f"tokens ({batch}, {gen}) in [0, vocab)":
                 tuple(toks.shape) == (batch, gen)
@@ -2250,7 +2293,8 @@ def main() -> int:
     log(f"  built {list(ops.KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for k in ops.KERNELS.values():
         for line in k.ptxas_log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if ("Compiling entry" in line or "Used" in line
+                    or "spill" in line or "C75" in line):
                 log(f"  [{k.name}] {line.strip()}")
 
     log("== phase 2: kernels against their plain versions")

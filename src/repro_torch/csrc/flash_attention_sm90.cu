@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention.py, body `_make_kernel`) for bf16 q, k,
-// v with head_dim 64 or 128; csrc/flash_attention.cu stays the route for
-// float32, other head dims and views TMA cannot address. For q (B, S, H, hd)
+// v with head_dim 64, 128 or 256; csrc/flash_attention.cu stays the route
+// for float32, head_dim 32 and views TMA cannot address. For q (B, S, H, hd)
 // and k, v (B, L, Kv, hd), with query head h reading KV head h / (H / Kv):
 //
 //   out[b, i, h] = sum_j p_ij v[b, j, kvh] / max(sum_j p_ij, 1e-30)
@@ -26,25 +26,33 @@
 // S = L 2,048, H 32, Kv 8, hd 64) needs 4*B*H*hd*S*(S+1)/2 = 68.7 GFLOP on
 // 84 MB of q, k, v and out: 0.0695 ms at the tensor cores' 989 TFLOP/s,
 // 0.025 ms at 3.35 TB/s. The hi/lo split makes the tensor-core work 1.5x
-// that (103 GFLOP), plus one exp2 per visible score on the SFUs.
+// that (103 GFLOP), plus one exp2 per visible score on the SFUs. The same
+// holds at recurrentgemma-2b's local attention (B 4, S = L 4,096, H 10,
+// Kv 1, hd 256, window 2,048): 258 GFLOP of visible keys on 185 MB.
 //
-// Design: one block of 2 consumer warpgroups and a producer warp per
-// 128-row query tile of one (head, batch row). One thread of the producer
-// warp loads the Q tile once and then K and V tiles of BK keys (128 at
-// hd 64, 64 at hd 128) with cp.async.bulk.tensor into a ring of kStages
-// stages, under full/empty mbarriers. Each consumer warpgroup owns 64 query
-// rows; its S, P and O registers fit the 168 a thread of this kernel gets
-// (ptxas: no spills), which is why hd 128 takes 64-key tiles. Per KV tile a
-// consumer runs S = Q.K^T as wgmma m64nBKk16 with both operands in shared
-// memory (K in the model's (key, hd) layout is K-major for B), the online
-// softmax on the accumulator registers, then O += P.V as wgmma with A = P
-// from registers (the S accumulator's layout, packed to bf16 pairs, is the
+// Design: one block of 2 consumer warpgroups (and at hd 64 and 128 a
+// producer warp) per 128-row query tile of one (head, batch row). One
+// thread loads the Q tile once and then K and V tiles of BK keys (128 at
+// hd 64, 64 at hd 128 and 256) with cp.async.bulk.tensor into a ring of
+// kStages stages under full mbarriers; the producer warp refills a stage
+// when its empty mbarrier completes, and at hd 256 the last consumer warp
+// to release it does (Tile). Each consumer warpgroup owns 64 query rows;
+// its S, P and O registers fit the 168 a thread of the 288-thread block
+// gets at hd 64 and 128 (ptxas: no spills), which is why hd 128 takes
+// 64-key tiles; at hd 256 they take 213 of the 255 a thread of the
+// 256-thread block may use. At hd 256 the Q tile (64 KB) and two stages
+// of K and V (128 KB) take 192 KB of shared memory, so one block runs on
+// an SM. Per KV tile a consumer runs
+// S = Q.K^T as wgmma m64nBKk16 with both operands in shared memory (K in
+// the model's (key, hd) layout is K-major for B), the online softmax on the
+// accumulator registers, then O += P.V as wgmma m64nHDk16 with A = P from
+// registers (the S accumulator's layout, packed to bf16 pairs, is the
 // A-operand layout) and B = V through the instruction's transpose-B. Each
 // warpgroup does these in order; the two warpgroups overlap only as the
-// warp schedulers interleave them. The tensor maps
-// are 4-D over the tensors' own (hd, H, S, B) strides with 128-byte
-// swizzle, which the wgmma descriptors match; a row of hd 128 is two
-// 64-column panels. TMA zero-fills the ragged S and L edges per (batch
+// warp schedulers interleave them. The tensor maps are 4-D over the
+// tensors' own (hd, H, S, B) strides with 128-byte swizzle, which the
+// wgmma descriptors match; a row of hd 128 or 256 is two or four 64-column
+// panels. TMA zero-fills the ragged S and L edges per (batch
 // row, head); keys at or past L are still masked. KV tiles that the causal
 // or window mask hides from all of a warpgroup's rows are not computed
 // (they leave m, l and acc unchanged in the Pallas body); only tiles that
@@ -60,24 +68,39 @@
 namespace {
 
 constexpr int kBQ = 128;          // query rows per block, 64 per consumer
-constexpr int kThreads = 288;     // 2 consumer warpgroups, 1 producer warp
+constexpr int kConsumers = 256;   // 2 consumer warpgroups (8 warps)
 constexpr int kStages = 2;        // K/V ring depth
 constexpr int kRowBytes = 128;    // one 128-byte swizzle row: 64 bf16
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kEncodeError = 2000;   // + CUresult of cuTensorMapEncodeTiled
 
+// Who refills the K/V ring, and so how many registers a consumer thread
+// gets. At hd 64 and 128 a producer warp waits on each stage's empty
+// barrier and reloads it; the consumers' S, P and O fit the 168 registers
+// ptxas gives every thread of that 288-thread block. At hd 256 O alone is
+// 128 f32 a thread, and ptxas holds a block of more than 256 threads to 168
+// registers a thread whether or not setmaxnreg moves registers between its
+// warpgroups: it spills and serializes the wgmmas (the producer_warp and
+// setmaxnreg variants of tools/flash_sm90_ablation.py). So at hd 256
+// there is no producer: the last of the 8 consumer warps to release a
+// stage reloads it (a counter per stage), and the 256 threads get up to
+// 255 registers.
 template <int HD>
 struct Tile {
   static constexpr int kBK = HD == 64 ? 128 : 64;     // keys per KV tile
   static constexpr int kPanels = HD / 64;             // 64-column panels
+  static constexpr bool kProducerWarp = HD != 256;
+  static constexpr int kThreads = kConsumers + (kProducerWarp ? 32 : 0);
   static constexpr int kQBytes = kBQ * HD * 2;
   static constexpr int kKVBytes = kBK * HD * 2;       // one K or V tile
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKVBytes;
   static constexpr int kBarOff = kVOff + kStages * kKVBytes;
-  // barriers (q, full[kStages], empty[kStages]) and slack to align to 1024
-  static constexpr int kSmem = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+  // barriers (q, full[kStages], empty[kStages]), then a release counter per
+  // stage, and slack to align to 1024
+  static constexpr int kCountOff = kBarOff + 8 * (1 + 2 * kStages);
+  static constexpr int kSmem = kCountOff + 4 * kStages + 1024;
 };
 
 struct Params {
@@ -135,6 +158,47 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Adds 1 to a counter in shared memory and returns its old value; orders
+// this thread's earlier accesses before the add, and the add before its
+// later ones (acq_rel), so the thread that sees a stage's last release
+// also sees every earlier release's reads done.
+__device__ __forceinline__ uint32_t smem_count(uint32_t addr) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "r"(addr), "r"(1u) : "memory");
+  return old;
+}
+
+// Loads the block's Q tile (128 rows of head h from row q0) and arms the
+// Q barrier.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t base, const CUtensorMap* tm_q,
+                                       int h, int q0, int b) {
+  const uint32_t bar_q = base + Tile<HD>::kBarOff;
+  mbar_expect_tx(bar_q, Tile<HD>::kQBytes);
+  for (int pn = 0; pn < Tile<HD>::kPanels; ++pn)
+    tma_load(base + pn * kBQ * kRowBytes, tm_q, bar_q, 64 * pn, h, q0, b);
+}
+
+// Loads KV tile t of KV head kvh into ring stage `stage` and arms its full
+// barrier.
+template <int HD>
+__device__ __forceinline__ void load_kv(uint32_t base, const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, int stage,
+                                        int kvh, int t, int b) {
+  using T = Tile<HD>;
+  const uint32_t full = base + T::kBarOff + 8 * (1 + stage);
+  const uint32_t k_tile = base + T::kKOff + stage * T::kKVBytes;
+  const uint32_t v_tile = base + T::kVOff + stage * T::kKVBytes;
+  mbar_expect_tx(full, 2 * T::kKVBytes);
+  for (int pn = 0; pn < T::kPanels; ++pn) {
+    tma_load(k_tile + pn * T::kBK * kRowBytes, tm_k, full, 64 * pn, kvh,
+             t * T::kBK, b);
+    tma_load(v_tile + pn * T::kBK * kRowBytes, tm_v, full, 64 * pn, kvh,
+             t * T::kBK, b);
+  }
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle. For a K-major operand
@@ -295,6 +359,61 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d (64 x 256) += a (64 x 16, bf16 pairs in registers) . b (16 x 256,
+// MN-major in shared memory: the instruction's transpose-B).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 template <int N>
 __device__ __forceinline__ void mma_s(float (&d)[N / 2], uint64_t a,
                                       uint64_t b, int accumulate) {
@@ -305,7 +424,8 @@ __device__ __forceinline__ void mma_s(float (&d)[N / 2], uint64_t a,
 template <int N>
 __device__ __forceinline__ void mma_pv(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  if constexpr (N == 256) wgmma_rs_n256(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
   else wgmma_rs_n64(d, a, b);
 }
 
@@ -352,9 +472,13 @@ __device__ __forceinline__ void softmax_tile(
 // One consumer warpgroup: 64 query rows, rows r0 = first + lane / 4 and
 // r0 + 8 per thread. Accumulator element i of a thread sits at row
 // r0 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+// Without a producer warp (Tile::kProducerWarp false) the warp whose
+// release of a stage is its 8th reloads it with tile t + kStages.
 template <int HD>
 __device__ __forceinline__ void consume(const Params& p, uint32_t base,
-                                        int wg, int q0, int h, int b,
+                                        const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, int wg,
+                                        int q0, int h, int kvh, int b,
                                         int t_begin, int t_end) {
   using T = Tile<HD>;
   constexpr int BK = T::kBK;
@@ -449,7 +573,14 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
       fence_regs(o);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty);
+    if (lane == 0) {
+      if constexpr (T::kProducerWarp) {
+        mbar_arrive(empty);
+      } else if (smem_count(base + T::kCountOff + 4 * stage) % 8 == 7 &&
+                 t + kStages < t_end) {
+        load_kv<HD>(base, tm_k, tm_v, stage, kvh, t + kStages, b);
+      }
+    }
     if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
@@ -476,7 +607,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t base,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<HD>::kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
@@ -502,44 +633,42 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_q + 8 * (1 + s), 1);               // full: the producer
+      mbar_init(bar_q + 8 * (1 + s), 1);               // full: one arrive
       mbar_init(bar_q + 8 * (1 + kStages + s), 8);     // empty: 8 warps
+      asm volatile("st.shared::cta.u32 [%0], 0;\n"
+                   ::"r"(base + T::kCountOff + 4 * s) : "memory");
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
-    // the producer warp: one thread issues every load
-    if (threadIdx.x == 256) {
-      const int kvh = h / p.group;
-      mbar_expect_tx(bar_q, T::kQBytes);
-      for (int pn = 0; pn < T::kPanels; ++pn)
-        tma_load(base + pn * kBQ * kRowBytes, &tm_q, bar_q, 64 * pn, h, q0,
-                 b);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = t_begin; t < t_end; ++t) {
-        const uint32_t full = bar_q + 8 * (1 + stage);
-        mbar_wait(bar_q + 8 * (1 + kStages + stage), phase ^ 1);
-        mbar_expect_tx(full, 2 * T::kKVBytes);
-        const uint32_t k_tile = base + T::kKOff + stage * T::kKVBytes;
-        const uint32_t v_tile = base + T::kVOff + stage * T::kKVBytes;
-        for (int pn = 0; pn < T::kPanels; ++pn) {
-          tma_load(k_tile + pn * BK * kRowBytes, &tm_k, full, 64 * pn, kvh,
-                   t * BK, b);
-          tma_load(v_tile + pn * BK * kRowBytes, &tm_v, full, 64 * pn, kvh,
-                   t * BK, b);
-        }
-        if (++stage == kStages) {
-          stage = 0;
-          phase ^= 1;
+  const int kvh = h / p.group;
+  if constexpr (T::kProducerWarp) {
+    if (threadIdx.x >= kConsumers) {
+      // the producer warp: one thread issues every load
+      if (threadIdx.x == kConsumers) {
+        load_q<HD>(base, &tm_q, h, q0, b);
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int t = t_begin; t < t_end; ++t) {
+          mbar_wait(bar_q + 8 * (1 + kStages + stage), phase ^ 1);
+          load_kv<HD>(base, &tm_k, &tm_v, stage, kvh, t, b);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
+      return;
     }
-  } else {
-    consume<HD>(p, base, threadIdx.x / 128, q0, h, b, t_begin, t_end);
+  } else if (threadIdx.x == 0) {
+    // the ring's first fill; the consumers refill it
+    load_q<HD>(base, &tm_q, h, q0, b);
+    for (int s = 0; s < kStages && t_begin + s < t_end; ++s)
+      load_kv<HD>(base, &tm_k, &tm_v, s, kvh, t_begin + s, b);
   }
+  consume<HD>(p, base, &tm_k, &tm_v, threadIdx.x / 128, q0, h, kvh, b,
+              t_begin, t_end);
 }
 
 // cuTensorMapEncodeTiled, found through the runtime so that the build needs
@@ -619,7 +748,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.seq_q + kBQ - 1) / kBQ, p.heads, batch);
   flash_attention_sm90_kernel<HD>
-      <<<grid, kThreads, T::kSmem, stream>>>(tm_q, tm_k, tm_v, p);
+      <<<grid, T::kThreads, T::kSmem, stream>>>(tm_q, tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,9 +757,9 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 // q (B, S, H, hd), k and v (B, L, Kv, hd), bfloat16, unit stride along hd,
 // the other strides in elements: 16-byte aligned pointers and strides that
 // are multiples of 16 bytes (8 elements). out (B, S, H, hd) bf16,
-// contiguous. head_dim is 64 or 128; window < 0 means no window. Returns
-// the CUDA error code of the launch, or 2000 + the CUresult of a tensor map
-// that could not be encoded.
+// contiguous. head_dim is 64, 128 or 256; window < 0 means no window.
+// Returns the CUDA error code of the launch, or 2000 + the CUresult of a
+// tensor map that could not be encoded.
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* out, int head_dim,
     int batch, int seq_q, int seq_k, int heads, int kv_heads, long long q_sb,
@@ -645,6 +774,7 @@ extern "C" int flash_attention_sm90_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(q, k, v, p, batch, kv_heads, st, s);
   if (head_dim == 128) return launch<128>(q, k, v, p, batch, kv_heads, st, s);
+  if (head_dim == 256) return launch<256>(q, k, v, p, batch, kv_heads, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,10 +7,11 @@ reads KV head h // (H / Kv)). Each kernel reads the operands in this layout
 through their strides and masks ragged S and L itself. :func:`route` picks
 one from the operands' dtype, head_dim, alignment and strides:
 
-  * ``"sm90"`` -> ``csrc/flash_attention_sm90.cu``: bf16, head_dim 64 or 128,
-    TMA-addressable views; wgmma on the tensor cores.
-  * ``"simt"`` -> ``csrc/flash_attention.cu``: everything else (float32,
-    head_dim 32 or 256, misaligned views); f32 FMAs on the CUDA cores.
+  * ``"sm90"`` -> ``csrc/flash_attention_sm90.cu``: bf16, head_dim 64, 128
+    or 256, TMA-addressable views; wgmma on the tensor cores.
+  * ``"simt"`` -> ``csrc/flash_attention.cu``: everything else (float32 at
+    any head_dim, bf16 at head_dim 32, misaligned or oddly strided views);
+    f32 FMAs on the CUDA cores.
 
 The plain version of both is ``ref.flash_attention_ref``.
 """
@@ -33,7 +34,7 @@ KERNEL_SM90 = CudaKernel("flash_attention_sm90", "flash_attention_sm90_launch",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
                          + [_L] * 9 + [_I, _I, _I, ctypes.c_float, _P])
 HEAD_DIMS = (32, 64, 128, 256)
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65_535
 
@@ -95,7 +96,7 @@ def _tma_addressable(t: torch.Tensor) -> bool:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The flash kernel that takes these operands on the card: ``"sm90"``
-    for bf16 with head_dim 64 or 128 whose three views TMA can address,
+    for bf16 with head_dim 64, 128 or 256 whose three views TMA can address,
     ``"simt"`` otherwise. Depends on nothing but the operands' metadata, so
     it answers for CPU tensors too."""
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16
@@ -110,9 +111,9 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          q_offset: int = 0) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, L, Kv, hd); bfloat16 with head_dim 64 or
-    128 on one CUDA device, views for which ``route`` says ``"sm90"`` ->
-    (B, S, H, hd) contiguous bfloat16."""
+    """q: (B, S, H, hd); k, v: (B, L, Kv, hd); bfloat16 with head_dim 64,
+    128 or 256 on one CUDA device, views for which ``route`` says
+    ``"sm90"`` -> (B, S, H, hd) contiguous bfloat16."""
     if route(q, k, v) != "sm90":
         raise ValueError("flash_attention_sm90 takes bf16 views with head_dim"
                          f" {SM90_HEAD_DIMS}, 16-byte aligned storage and "

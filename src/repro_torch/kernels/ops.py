@@ -60,10 +60,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """q: (B,S,H,hd); k,v: (B,L,Kv,hd) -> (B,S,H,hd).
 
     On the card, ``flash_attention.route`` picks the kernel: the tensor-core
-    one for TMA-addressable bf16 with head_dim 64 or 128, the CUDA-core one
-    otherwise. Non-causal attention whose KV length is not a multiple of
-    the JAX wrapper's KV block raises ``NotImplementedError``, as there: that
-    wrapper pads KV and cannot mask the padding without the causal test.
+    one (``flash_attention_sm90``) for bf16 with head_dim 64, 128 or 256
+    whose views TMA can address, the CUDA-core one (``flash_attention``)
+    for float32, bf16 at head_dim 32 and other views. Non-causal attention
+    whose KV length is not a multiple of the JAX wrapper's KV block raises
+    ``NotImplementedError``, as there: that wrapper pads KV and cannot mask
+    the padding without the causal test.
     The kernels have no backward (nor has the Pallas kernel): an input that
     needs a gradient raises on the card rather than dropping it."""
     if not _on_cuda(q):

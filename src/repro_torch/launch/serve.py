@@ -8,7 +8,8 @@
 ``recurrentgemma-2b``. The prefill runs attention through the flash kernel
 (``use_flash=True``): on the card the hand-written kernel, on the host its
 plain version. xLSTM has no attention; recurrentgemma's local attention
-(bf16, head_dim 256) takes the CUDA-core flash kernel.
+(bf16, head_dim 256) takes the tensor-core flash kernel, and its float32
+variant the CUDA-core one.
 """
 from __future__ import annotations
 

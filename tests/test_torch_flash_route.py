@@ -2,14 +2,15 @@
 kernel's numerics, on the CPU.
 
 ``flash_attention.route`` reads only the operands' metadata, so it is tested
-on CPU tensors: bf16 with head_dim 64 or 128 whose views TMA can address go
-to ``csrc/flash_attention_sm90.cu``; float32, other head dims, misaligned
-storage and strides that are not multiples of 16 bytes go to
+on CPU tensors: bf16 with head_dim 64, 128 or 256 whose views TMA can
+address go to ``csrc/flash_attention_sm90.cu``; float32, head_dim 32,
+misaligned storage and strides that are not multiples of 16 bytes go to
 ``csrc/flash_attention.cu``.
 
 The CUDA kernel cannot run here, so :func:`emulate_sm90` repeats its
 arithmetic in torch: bf16 operands, S = Q.K^T in f32 scaled in the log2
-domain, online softmax over tiles of 128 keys (64 at head_dim 128), p split
+domain, online softmax over tiles of 128 keys (64 at head_dim 128 and
+256), p split
 into bf16 p_hi + p_lo for two P.V products, l floored at 1e-30. It is held
 against JAX's Pallas kernel in interpret mode and against the plain version
 on the f32 values, with ``chip_smoke.py``'s bf16 tolerance: 1e-3 + 8e-3 *
@@ -93,6 +94,9 @@ def _route_cases():
     one = torch.as_strided(_bf16(16 * 4 * 64 + 8, seed=6), (1, 16, 4, 64),
                            (3, 256, 64, 1))       # batch of 1, odd stride
     wide = _bf16(1, 16, 4, 64, seed=10).expand(3, 16, 4, 64)
+    q256, k256 = _bf16(1, 8, 10, 256, seed=7), _bf16(1, 8, 1, 256, seed=11)
+    fused256 = _bf16(1, 8, 10 + 1 + 1, 256, seed=12)
+    odd256 = _bf16(1, 8, 12, 260, seed=13)[..., :256]   # 520-byte heads
     return {
         "bf16 hd 64": ((q64, k64, k64), "sm90"),
         "bf16 hd 128": ((q128, k128, k128), "sm90"),
@@ -102,7 +106,16 @@ def _route_cases():
         "mixed dtypes": ((q64, k64.float(), k64), "simt"),
         "bf16 hd 32": ((q64[..., :32].contiguous(), k64[..., :32]
                         .contiguous(), k64[..., :32].contiguous()), "simt"),
-        "bf16 hd 256": ((_bf16(1, 8, 2, 256, seed=7),) * 3, "simt"),
+        "bf16 hd 256": ((q256, k256, k256), "sm90"),
+        "fused qkv view hd 256": ((fused256[:, :, :10],
+                                   fused256[:, :, 10:11],
+                                   fused256[:, :, 11:]), "sm90"),
+        "f32 hd 256": ((q256.float(), k256.float(), k256.float()), "simt"),
+        "misaligned storage hd 256": ((_misaligned(q256), k256, k256),
+                                      "simt"),
+        "head stride of 260 elements hd 256": ((odd256[:, :, :10],
+                                                odd256[:, :, 10:11],
+                                                odd256[:, :, 11:]), "simt"),
         "misaligned storage": ((_misaligned(q64), k64, k64), "simt"),
         "head stride of 68 elements": ((odd, odd[:, :, :2], odd[:, :, 2:]),
                                        "simt"),
@@ -154,6 +167,10 @@ EMU_CASES = [  # b, s, lk, h, kv, hd, causal, window, q_offset
     (1, 160, 160, 4, 2, 128, True, 100, 0),     # window 100
     (1, 32, 128, 4, 4, 64, True, None, 96),     # q_offset
     (1, 64, 256, 4, 2, 64, False, None, 0),     # non-causal, L a block
+    (1, 160, 160, 4, 1, 256, True, 40, 0),      # hd 256: MQA, window
+    (1, 130, 130, 2, 2, 256, True, None, 0),    # hd 256: ragged S = L
+    (1, 32, 128, 2, 2, 256, True, None, 96),    # hd 256: q_offset
+    (1, 64, 128, 2, 1, 256, False, None, 0),    # hd 256: non-causal
 ]
 
 

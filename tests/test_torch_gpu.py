@@ -147,7 +147,7 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     b, s, lk, h, kv, hd, window, q_offset = case
     q, k, v = (t.to(dtype) for t in _flash_inputs(dev, b, s, lk, h, kv, hd))
     kw = dict(causal=True, window=window, q_offset=q_offset or 0)
-    sm90 = dtype == torch.bfloat16 and hd in (64, 128)
+    sm90 = dtype == torch.bfloat16 and hd in (64, 128, 256)
     with _launched("flash_attention_sm90" if sm90 else "flash_attention"):
         out = ops.flash_attention(q, k, v, **kw)
     assert out.dtype == dtype and out.shape == q.shape
@@ -217,12 +217,18 @@ SM90_CASES = [  # b, s, lk, h, kv, hd, causal, window, q_offset
     (1, 64, 200, 4, 2, 128, True, None, 136),
     (2, 256, 256, 8, 2, 64, False, None, 0),    # non-causal, L a block
     (1, 128, 512, 4, 1, 128, False, None, 0),   # multiple
+    (1, 300, 300, 4, 1, 256, True, None, 0),    # hd 256: MQA, ragged
+    (1, 200, 200, 10, 1, 256, True, None, 0),   # GQA group 10
+    (1, 300, 300, 10, 1, 256, True, 100, 0),    # window
+    (1, 130, 130, 2, 2, 256, True, None, 0),    # ragged S = L
+    (1, 64, 200, 4, 1, 256, True, None, 136),   # chunked prefill
+    (2, 256, 256, 4, 1, 256, False, None, 0),   # non-causal
 ]
 
 
 @pytest.mark.parametrize("case", SM90_CASES, ids=str)
 def test_flash_attention_sm90_matches_plain(dev, case):
-    """The tensor-core kernel (bf16, head_dim 64 and 128) against the plain
+    """The tensor-core kernel (bf16, head_dim 64, 128, 256) against the plain
     version on the f32 values of the same inputs, within one bf16 rounding
     of the output (rtol 8e-3, atol 1e-3): it keeps p in f32 as p_hi + p_lo."""
     b, s, lk, h, kv, hd, causal, window, q_offset = case

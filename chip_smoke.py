@@ -101,13 +101,37 @@
    logits against the plain route's on the card (recurrentgemma also with
    float32 activations, where the routes must agree within 1e-3) and one
    profiled decode step's device idle share.
+11. Serves the MoE family at full width through ``launch.serve.serve``:
+   (a) qwen2-moe-a2.7b (its config unchanged: 24 layers, d_model 2,048, 60
+   experts top-4 and 4 shared, capacity factor 1.25, the einsum dispatch;
+   14,315,587,584 float32 parameters from seed 0) at batch 4, 2,048-token
+   prompts, 32 tokens, whose prefill must launch the tensor-core flash
+   kernel once a layer and decode nothing; the draw's and the serve's
+   peaks, a profiled prefill and decode step, and the share of layer 0's
+   (token, expert) choices the capacity dropped; (b) that prefill in
+   float32 (the CUDA-core kernel) and in bf16 through the kernel route and
+   the plain route, and the plain route again with its routing pinned to
+   the kernel route's: pinned, the f32 routes within 1e-3 and the bf16
+   ones within 0.3; as served, their distance and the routing flips
+   between them, and both bf16 routes' distance from the f32 logits, are
+   printed as readings; (d) layer 0's MoE on its served input in float32 with
+   nothing dropped, the gather dispatch (one group, groups of 2,048)
+   against the einsum dispatch within 1e-4 relative; (c)
+   phi3.5-moe-42b-a6.6b and moonshot-v1-16b-a3b at full width cut to 8
+   layers (their full depths do not fit one card in float32), at 4 x 2,048
+   + 8 tokens, each prefill launching the tensor-core kernel 8 times.
+   Phase 2 also checks and times the tensor-core kernel at qwen2-moe's
+   attention (q/k/v (4, 2048, 16, 128) bf16, MHA), checks it at
+   phi3.5-moe's (q (4, 2048, 32, 128), k/v (4, 2048, 8, 128) bf16) and the
+   CUDA-core kernel at (b)'s float32 shape (4, 2048, 16, 128); phase 3
+   runs the smoke qwen2-moe in float32, card against host.
 
-Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b) and 10 set every
+Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10 and 11 set every
 kernel's launch count to 0 just before each run they drive (the main path,
 the bf16 serve, the f32 serve, the two online runs, the two training runs,
 the federated-LLM run, the eager and scan runs, the CIFAR-like main path,
 the clustering loop on the card, the traced online and scan runs, the two
-recurrent serves) and read the counts just after. Before the main path,
+recurrent serves, the three MoE serves) and read the counts just after. Before the main path,
 each serve, each online run and each training run they reset the
 peak-memory counter and print what is allocated then; each peak is printed
 absolute and above that allocation.
@@ -119,12 +143,15 @@ each kernel's launches on the main path and, as ``online_launches``, on the
 ``cifar_launches`` in phase 8 (a, c), as ``traced_online_launches`` and
 ``traced_scan_launches`` in phase 9 (a, b), as
 ``recurrentgemma_serve_launches`` and ``xlstm_serve_launches`` in phase 10,
-the online shapes' errors, the federated shape (e) and the clustering
-loop's (f) among the kmeans row's ``shapes``, the CIFAR-like shape among
-the recon_gate row's, recurrentgemma's among both flash rows') and, as
-the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
+as ``qwen2_moe_serve_launches``, ``phi35_moe_serve_launches`` and
+``moonshot_serve_launches`` in phase 11, the online shapes' errors, the
+federated shape (e) and the clustering loop's (f) among the kmeans row's
+``shapes``, the CIFAR-like shape among the recon_gate row's,
+recurrentgemma's among both flash rows', qwen2-moe's among the tensor-core
+row's) and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
 with a non-zero exit code and no result line. Imports nothing of JAX.
 """
+import contextlib
 import gc
 import json
 import math
@@ -337,6 +364,9 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     # the tensor-core kernel's edges: bf16, head_dim 64 and 128
     check_flash(ops, ref, *qkv(1, 2048, 2048, 24, 8, 128),
                 "Llama-3.2-3B-like (1,2048,24,128) Kv 8 bf16", sm90)
+    # phi3.5-moe's prefill in phase 11 (c): GQA group 4
+    check_flash(ops, ref, *qkv(4, 2048, 2048, 32, 8, 128),
+                "phi3.5-moe (4,2048,32/8,128) bf16", sm90)
     for n in (100, 2047):
         check_flash(ops, ref, *qkv(1, n, n, 4, 2, 64),
                     f"ragged S = L = {n} bf16", sm90)
@@ -388,6 +418,9 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     for hd in (32, 128, 256):
         check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd, torch.float32),
                     f"hd {hd} f32", simt)
+    # phase 11 (b)'s float32 route of qwen2-moe's prefill
+    check_flash(ops, ref, *qkv(4, 2048, 2048, 16, 16, 128, torch.float32),
+                "qwen2-moe f32 route (4,2048,16,128) f32", simt)
     check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, 32), "hd 32 bf16", simt)
     off = tuple(misaligned(t) for t in qkv(1, 200, 200, 4, 1, 256))
     check_flash(ops, ref, *off, "misaligned views hd 256 bf16", simt)
@@ -443,9 +476,50 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
         f"{simt_bf16:.5f} ms")
     del q, k, v, q32, k32, v32
     fast, slow = recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv)
-    rows[sm90]["shapes"] = [fast]
+    rows[sm90]["shapes"] = [fast, qwen2_moe_flash(torch, F, ops, ref, fa_mod,
+                                                  qkv)]
     rows[simt]["shapes"] = [slow]
     return rows
+
+
+def qwen2_moe_flash(torch, F, ops, ref, fa_mod, qkv):
+    """qwen2-moe-a2.7b's (and moonshot's) attention at phase 11's prefill:
+    q/k/v (4, 2048, 16, 128) bf16, causal, MHA, which ``route`` sends to the
+    tensor-core kernel. Checked as the other shapes (one launch), then timed
+    beside the plain version, one SDPA call and the bound (causal: every
+    (b, h) row i sees i + 1 keys, at the bf16 tensor-core rate). Returns
+    the shape's entry of the tensor-core kernel's row."""
+    b, s, h, hd = 4, 2048, 16, 128
+    q, k, v = qkv(b, s, s, h, h, hd)
+    if fa_mod.route(q, k, v) != "sm90":
+        raise AssertionError("route did not send qwen2-moe's shape to the "
+                             "tensor-core kernel")
+    label = f"qwen2-moe ({b},{s},{h},{hd}) MHA bf16"
+    err = check_flash(ops, ref, q, k, v, label, "flash_attention_sm90")
+    flops = 4 * hd * (b * h * s * (s + 1) // 2)
+    moved = q.element_size() * 4 * q.numel()
+    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        return fa_mod.flash_attention_sm90(q, k, v)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v)
+    r = dict(shape=f"q/k/v ({b}, {s}, {h}, {hd}) bf16, causal, MHA",
+             max_abs_err=err, ms=graph_ms(kernel, iters=20, replays=3),
+             call_ms=cuda_ms(kernel, iters=50),
+             plain_ms=graph_ms(plain, iters=3, replays=3),
+             plain_call_ms=cuda_ms(plain, iters=5, warmup=2),
+             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True), iters=10, replays=3),
+             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved)
+    log(f"  flash_attention_sm90 {label}: {flops / 1e9:.1f} GFLOP unmasked, "
+        f"{moved / 1e6:.1f} MB; kernel {flops / r['ms'] / 1e9:.1f} TFLOP/s; "
+        f"device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms; per call "
+        f"{r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms; bound "
+        f"{b_ms:.5f} ms ({b_by}); SDPA {r['library_ms']:.5f} ms")
+    return r
 
 
 def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
@@ -833,6 +907,48 @@ def recurrent_reference_phase(torch, ops, dev):
                 f"{max(errs[1:]):.3e} (|logits| <= "
                 f"{float(hl.abs().max()):.3f}); cache leaves max diff "
                 f"{state:.3e}; flash launches {moved}")
+
+
+def moe_reference_phase(torch, ops, dev):
+    """Phase 3, the MoE family: the smoke qwen2-moe (2 layers, d_model 256,
+    4 experts top-2, one shared expert) in float32 (TF32 off) with the same
+    parameters and tokens on the card (the CUDA-core flash kernel once a
+    layer) and on the host (plain versions), prefill then 8 teacher-forced
+    decode steps, logits within 1e-3 absolute (f32 sums in other orders;
+    a routing flip would show far above it)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    host_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card_p = tree_map(lambda a: a.to(dev), host_p)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(1))
+    hl, hc = model.prefill(host_p, {"tokens": toks[:, :40]}, max_len=48)
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    cl, cc = model.prefill(card_p, {"tokens": toks[:, :40].to(dev)},
+                           max_len=48, use_flash=True)
+    moved = {n: k.launches - before[n] for n, k in ops.KERNELS.items()}
+    want = {n: (cfg.n_layers if n == "flash_attention" else 0) for n in moved}
+    if moved != want:
+        raise AssertionError(f"small qwen2-moe prefill launched {moved}, "
+                             f"expected {want}")
+    errs = [float((cl.cpu() - hl).abs().max())]
+    for t in range(40, 48):
+        hl, hc = model.decode(host_p, hc, {"token": toks[:, t:t + 1]})
+        cl, cc = model.decode(card_p, cc, {"token": toks[:, t:t + 1].to(dev)})
+        errs.append(float((cl.cpu() - hl).abs().max()))
+    if max(errs) > 1e-3:
+        raise AssertionError(f"small qwen2-moe float32: logits differ by "
+                             f"{errs} (tol 1e-3)")
+    log(f"  small qwen2-moe float32 ({cfg.n_layers} layers, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, "
+        f"{cfg.n_shared_experts} shared) agrees: prefill max err "
+        f"{errs[0]:.3e}, decode max err {max(errs[1:]):.3e} (|logits| <= "
+        f"{float(hl.abs().max()):.3f}); flash launches {moved}")
 
 
 def device_profile(torch, label, fn, top=6):
@@ -2262,6 +2378,343 @@ def recurrent_serve_phase(torch, ops, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the MoE family served at full width
+# ---------------------------------------------------------------------------
+
+# qwen2-moe-a2.7b's parameters and active parameters a token (JAX's counts)
+QWEN2_MOE_COUNTS = (14_315_587_584, 2_688_976_896)
+# arch, the layers served of its config's: full depth does not fit one
+# 80 GB card in float32 (phi3.5-moe 155.99 GiB, moonshot 107.62 GiB)
+MOE_CUT = (("phi3.5-moe-42b-a6.6b", 8), ("moonshot-v1-16b-a3b", 8))
+# bf16 kernel route vs plain route with the routing pinned: twice the
+# 0.147 an H100 showed (the two routes round attention at other places,
+# one bf16 rounding of its output by phase 2, amplified over 24 layers, as
+# recurrentgemma's 26 layers amplify it to 0.119 in phase 10)
+BF16_PINNED = 0.3
+
+
+def _release(torch):
+    """Frees what the last model left in the caching allocator, so the
+    next model's draw starts from an empty card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _draw_moe(torch, model, dev):
+    """The model's weights drawn from seed 0 on the card, with the draw's
+    seconds and peak (each leaf is scaled in place: the peak is the
+    weights); returns (params, the generator, now past the draws)."""
+    cfg = model.cfg
+    base = reset_peak(torch, f"{cfg.name} ({cfg.n_layers} layers) draw")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g, device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}, {cfg.n_layers} layers: {model.n_params():,} "
+        f"parameters ({cfg.param_dtype}, {cfg.dtype} activations), "
+        f"{model.n_active_params():,} active a token; drawn in "
+        f"{time.perf_counter() - t0:.2f} s; draw {peak_text(torch, base)}")
+    return params, g
+
+
+def _moe_serve(torch, ops, model, params, g, dev, batch, prompt, gen):
+    """A warm-up serve of 256-token prompts, then the serve of ``batch`` x
+    ``prompt`` + ``gen`` tokens with every launch count set to 0 just
+    before it and read just after; prints prefill ms, tokens/s, decode ms
+    a step and the peak. Returns (result, tokens, launches, checks)."""
+    from repro_torch.launch.serve import serve
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                           device=dev)
+    serve(model, params, tokens[:, :256], 2, generator=g, device=dev)
+    base = reset_peak(torch, f"{cfg.name} serve")
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    res = serve(model, params, tokens, gen, temperature=1.0, generator=g,
+                device=dev)
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    peak = peak_text(torch, base)
+    steps = gen - 1
+    log(f"  {cfg.name} prefill {batch}x{prompt}: {res.prefill_s * 1e3:.2f} ms"
+        f" ({batch * prompt / res.prefill_s:.0f} tok/s)")
+    log(f"  {cfg.name} decode {steps} steps x {batch} seqs: "
+        f"{res.decode_s * 1e3:.2f} ms ({steps * batch / res.decode_s:.0f} "
+        f"tok/s, {res.decode_s * 1e3 / steps:.3f} ms per step)")
+    log(f"  {cfg.name} serve: {peak}")
+    log(f"  {cfg.name} sampled tokens[0][:8] {res.tokens[0, :8].tolist()}; "
+        f"launches {launches}")
+    toks = res.tokens
+    checks = {
+        f"flash_attention_sm90 launched {cfg.n_layers} times (once per "
+        "layer of the prefill), no other kernel":
+            launches == {n: (cfg.n_layers if n == "flash_attention_sm90"
+                             else 0) for n in launches},
+        f"tokens ({batch}, {gen}) in [0, vocab)":
+            tuple(toks.shape) == (batch, gen)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        "prefill logits finite": bool(torch.isfinite(res.logits).all())
+            and tuple(res.logits.shape) == (batch, 1, cfg.vocab_size),
+    }
+    return res, tokens, launches, checks
+
+
+def _first_layer_routing(torch, moe, cfg, probs, groups):
+    """Prints, from layer 0's router probabilities as a served prefill
+    computed them (``router_tape``), the share of (token, expert) choices
+    that the einsum dispatch's capacity dropped, the largest load of an
+    expert in a group against the capacity and the smallest margin between
+    a token's k-th and (k+1)-th router probability."""
+    r = moe.decide(probs.reshape(groups, -1, cfg.n_experts), cfg)
+    chosen, dropped = int(r.mask.sum()), int((r.mask & ~r.keep).sum())
+    top = torch.sort(r.probs, dim=-1, descending=True).values
+    k = cfg.experts_per_token
+    margin = float((top[..., k - 1] - top[..., k]).min())
+    load = int(r.mask.sum(1).max())
+    log(f"  {cfg.name} layer 0 routing ({r.probs.shape[0]} groups of "
+        f"{r.probs.shape[1]} tokens, capacity {r.cap}): dropped {dropped} of "
+        f"{chosen} (token, expert) choices ({dropped / chosen:.4f}); the "
+        f"busiest expert drew {load} in a group; smallest top-{k} margin "
+        f"{margin:.3e}")
+
+
+@contextlib.contextmanager
+def first_moe_input(moe):
+    """Inside the block, the first MoE layer called stores its (parameters,
+    input) under "first" in the dict it yields."""
+    got, real = {}, moe.moe_forward
+
+    def taped(params, x, cfg):
+        got.setdefault("first", (params, x))
+        return real(params, x, cfg)
+    moe.moe_forward = taped
+    try:
+        yield got
+    finally:
+        moe.moe_forward = real
+
+
+@contextlib.contextmanager
+def router_tape(moe, replay=None):
+    """Inside the block, every MoE layer's router probabilities, in call
+    order, are appended to the list it yields. Given ``replay`` (such a
+    list from another run), each call returns the recorded probabilities
+    instead: the routing decisions (top-k, ranks, capacity drops) and the
+    gates of the recorded run are pinned."""
+    tape, real = [], moe.router_probs
+    recorded = None if replay is None else iter(replay)
+
+    def taped(params, x2d):
+        probs = real(params, x2d) if recorded is None else next(recorded)
+        tape.append(probs)
+        return probs
+    moe.router_probs = taped
+    try:
+        yield tape
+    finally:
+        moe.router_probs = real
+
+
+def _flips(moe, cfg, tape_a, tape_b, groups):
+    """Routing differences of two runs, layer by layer: (tokens whose top-k
+    set differs, (token, expert) choices whose capacity keep differs, the
+    first layer with either, or None)."""
+    tokens = choices = 0
+    first = None
+    for i, (pa, pb) in enumerate(zip(tape_a, tape_b)):
+        ra = moe.decide(pa.reshape(groups, -1, cfg.n_experts), cfg)
+        rb = moe.decide(pb.reshape(groups, -1, cfg.n_experts), cfg)
+        t = int((ra.mask != rb.mask).any(-1).sum())
+        c = int((ra.keep != rb.keep).sum())
+        tokens, choices = tokens + t, choices + c
+        if first is None and (t or c):
+            first = i
+    return tokens, choices, first
+
+
+def qwen2_moe_routes(torch, ops, model, params, tokens):
+    """The served prefill's kernel route held to its plain route at full
+    width, in float32 activations (the CUDA-core flash kernel, 24
+    launches) and in bf16 (the tensor-core one). Routing is discontinuous:
+    the two routes' f32 sums in other orders move a router probability by
+    ~1e-7, layer 0's closest top-4 margin is ~3e-7 (phase 11 (a) prints
+    it), and a flipped choice shifts the capacity rank of every later
+    choice of its expert in the row. So each route is run as served, and
+    the plain route once more with its routing pinned to the kernel
+    route's (``router_tape``): pinned, the f32 routes must agree within
+    1e-3 (phase 5's bound: f32 sums in other orders), and in bf16 within
+    ``BF16_PINNED``. As served, the routes' distance and the routing flips
+    between them (``_flips``) are printed as a reading, and so are both
+    served bf16 routes' distances from the f32 plain logits. The served
+    bf16 kernel route also gives layer 0's routing
+    (``_first_layer_routing``) and its MoE parameters and input. Returns
+    (the checks, those parameters, that input)."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    cfg = model.cfg
+    groups, n = tokens.shape[0], cfg.n_layers
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    got = {}
+    for label, m in (("bf16", model), ("f32", m32)):
+        before = {k: v.launches for k, v in ops.KERNELS.items()}
+        with router_tape(moe) as tape_k, first_moe_input(moe) as tap:
+            lk, _ = m.prefill(params, {"tokens": tokens}, use_flash=True)
+        launched = {k: v.launches - before[k] for k, v in ops.KERNELS.items()}
+        with router_tape(moe) as tape_p:
+            lp, _ = m.prefill(params, {"tokens": tokens}, use_flash=False)
+        with router_tape(moe, replay=tape_k):
+            pinned, _ = m.prefill(params, {"tokens": tokens}, use_flash=False)
+        flips = _flips(moe, cfg, tape_k, tape_p, groups)
+        got[label] = dict(kernel=lk, plain=lp, launched=launched, flips=flips,
+                          err=float((lk - lp).abs().max()),
+                          pinned=float((lk - pinned).abs().max()))
+        if label == "bf16":
+            _first_layer_routing(torch, moe, cfg, tape_k[0], groups)
+            moe_p, xin = tap["first"]
+        del tape_k, tape_p, tap
+        log(f"  {cfg.name} {label} prefill, kernel vs plain route: max err "
+            f"{got[label]['err']:.3e} as served, {got[label]['pinned']:.3e} "
+            f"with the routing pinned (|logits| <= "
+            f"{float(lp.abs().max()):.3f}); routing flips between the "
+            f"routes: {flips[0]} tokens' top-{cfg.experts_per_token} sets, "
+            f"{flips[1]} capacity keeps, first in layer {flips[2]}; "
+            f"launches {launched}")
+    f32, bf16 = got["f32"], got["bf16"]
+    err_k = float((bf16["kernel"] - f32["plain"]).abs().max())
+    err_p = float((bf16["plain"] - f32["plain"]).abs().max())
+    log(f"  {cfg.name} bf16 routes against the f32 plain logits: kernel "
+        f"{err_k:.3e}, plain {err_p:.3e}")
+    return {
+        f"f32 prefill launched flash_attention {n} times, no other kernel":
+            f32["launched"] == {k: (n if k == "flash_attention" else 0)
+                                for k in f32["launched"]},
+        f"bf16 prefill launched flash_attention_sm90 {n} times":
+            bf16["launched"] == {k: (n if k == "flash_attention_sm90" else 0)
+                                 for k in bf16["launched"]},
+        "f32, routing pinned: kernel route vs plain route within 1e-3":
+            f32["pinned"] <= 1e-3,
+        f"bf16, routing pinned: kernel route vs plain route within "
+        f"{BF16_PINNED}": bf16["pinned"] <= BF16_PINNED,
+    }, moe_p, xin
+
+
+def moe_dispatch_phase(torch, moe_p, xin, cfg):
+    """Phase 11 (d): one qwen2-moe MoE layer (layer 0's weights) on its
+    served input (4 x 2,048 tokens) in float32 with capacity_factor = E / k,
+    so no choice drops: the einsum dispatch (batch-row groups), the gather
+    dispatch (one group of 8,192 tokens) and the gather dispatch in groups
+    of 2,048 must agree within 1e-4 of the output's largest |y|. Each is
+    timed once more with CUDA events. Returns the checks."""
+    import dataclasses
+    from repro_torch.models import moe
+    e, k = cfg.n_experts, cfg.experts_per_token
+    base = dataclasses.replace(cfg, dtype="float32", capacity_factor=e / k)
+    x = xin.float()
+    r = moe.routing(moe_p, x, base)
+    nothing_drops = bool(torch.equal(r.keep, r.mask))
+    del r
+    outs, times = {}, {}
+    for name, over in (("einsum", {}), ("gather", {"moe_dispatch": "gather"}),
+                       ("gather, groups of 2048",
+                        {"moe_dispatch": "gather", "moe_group_size": 2048})):
+        c = dataclasses.replace(base, **over)
+        outs[name] = moe.moe_forward(moe_p, x, c)
+        times[name] = cuda_ms(lambda: moe.moe_forward(moe_p, x, c), iters=2,
+                              warmup=0)
+    scale = float(outs["einsum"].y.abs().max())
+    errs = {name: float((o.y - outs["einsum"].y).abs().max()) / scale
+            for name, o in outs.items() if name != "einsum"}
+    aux = {name: float(o.aux_loss) for name, o in outs.items()}
+    log(f"  qwen2-moe layer 0 in f32, capacity factor {e / k:g} (capacity "
+        f"{moe.capacity(k, x.shape[1], e / k, e)} a batch row, nothing "
+        f"dropped: {nothing_drops}): gather vs einsum max err / max|y| "
+        f"{errs} (max|y| {scale:.3f}); aux {aux}; ms {times}")
+    return {
+        "dispatch check: capacity factor E / k drops nothing": nothing_drops,
+        "gather (one group and groups of 2048) equals einsum within 1e-4 "
+        "relative": all(v <= 1e-4 for v in errs.values()),
+        "aux equal across dispatches within 1e-5 relative":
+            all(abs(v - aux["einsum"]) <= 1e-5 * aux["einsum"]
+                for v in aux.values()),
+    }
+
+
+def moe_serve_phase(torch, ops, dev):
+    """Phase 11: (a) qwen2-moe-a2.7b (its config unchanged: 24 layers,
+    d_model 2,048, 60 experts top-4, 4 shared, capacity factor 1.25, the
+    einsum dispatch; weights drawn from seed 0) served through
+    ``launch.serve.serve`` at batch 4, 2,048-token prompts, 32 tokens:
+    ``flash_attention_sm90`` once per layer in the prefill, nothing in
+    decode, no other kernel; a profiled prefill and decode step; layer 0's
+    dropped share; (b) the prefill's routes (``qwen2_moe_routes``); (d) the
+    two dispatches at full width (``moe_dispatch_phase``); (c)
+    phi3.5-moe-42b-a6.6b and moonshot-v1-16b-a3b at full width, cut to 8
+    layers, at 4 x 2,048 + 8 tokens. Returns {arch: the serve's launch
+    counts}."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    out = {}
+    cfg = get_config("qwen2-moe-a2.7b")
+    model = build_model(cfg)
+    params, g = _draw_moe(torch, model, dev)
+    batch, prompt, gen = 4, 2048, 32
+    res, tokens, launches, checks = _moe_serve(torch, ops, model, params, g,
+                                               dev, batch, prompt, gen)
+    checks["n_params and n_active_params equal JAX's"] = \
+        (model.n_params(), model.n_active_params()) == QWEN2_MOE_COUNTS
+    step_ms = res.decode_s * 1e3 / (gen - 1)
+    (_, cache), busy = device_profile(
+        torch, f"{cfg.name} prefill {batch}x{prompt}", lambda: model.prefill(
+            params, {"tokens": tokens}, max_len=prompt + gen, use_flash=True))
+    if busy is not None:
+        log(f"  {cfg.name} prefill device idle share "
+            f"{1 - busy / (res.prefill_s * 1e3):.3f} of the unprofiled "
+            f"prefill's {res.prefill_s * 1e3:.2f} ms")
+    n0 = {n: k.launches for n, k in ops.KERNELS.items()}
+    _, busy = device_profile(torch, f"{cfg.name} one decode step",
+                             lambda: model.decode(
+                                 params, cache,
+                                 {"token": res.tokens[:, :1]})[0])
+    checks["a decode step launched no kernel"] = \
+        n0 == {n: k.launches for n, k in ops.KERNELS.items()}
+    if busy is not None:
+        log(f"  {cfg.name} decode device idle share {1 - busy / step_ms:.3f}"
+            f" of the unprofiled serve loop's {step_ms:.3f} ms per step")
+    del cache
+    routes, moe_p, xin = qwen2_moe_routes(torch, ops, model, params, tokens)
+    checks.update(routes)
+    moe_p = tree_map(lambda a: a.clone(), moe_p)
+    out[cfg.name] = launches
+    del params, res
+    _release(torch)
+    checks.update(moe_dispatch_phase(torch, moe_p, xin, cfg))
+    del moe_p, xin
+    _release(torch)
+    failed = [k_ for k_, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{cfg.name} checks failed: {failed}")
+
+    for arch, layers in MOE_CUT:
+        full = get_config(arch)
+        model = build_model(dataclasses.replace(full, n_layers=layers))
+        log(f"  {arch}: {layers} of its {full.n_layers} layers "
+            f"({build_model(full).n_params():,} parameters at full depth)")
+        params, g = _draw_moe(torch, model, dev)
+        _, _, launches, checks = _moe_serve(torch, ops, model, params, g, dev,
+                                            4, 2048, 8)
+        failed = [k_ for k_, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{arch} serving checks failed: {failed}")
+        out[arch] = launches
+        del params
+        _release(torch)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2311,6 +2764,7 @@ def main() -> int:
     reference_phase(torch, dev)
     transformer_reference_phase(torch, ops, dev)
     recurrent_reference_phase(torch, ops, dev)
+    moe_reference_phase(torch, ops, dev)
 
     log("== phase 4: smart-exchange main path at full width")
     launches = main_path(torch, ops, dev)
@@ -2348,6 +2802,9 @@ def main() -> int:
 
     log("== phase 10: serving recurrentgemma-2b and xlstm-125m at full width")
     recurrent = recurrent_serve_phase(torch, ops, dev)
+
+    log("== phase 11: serving the MoE family at full width")
+    moe_served = moe_serve_phase(torch, ops, dev)
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -2362,6 +2819,11 @@ def main() -> int:
         row["recurrentgemma_serve_launches"] = \
             recurrent["recurrentgemma-2b"][name]
         row["xlstm_serve_launches"] = recurrent["xlstm-125m"][name]
+        row["qwen2_moe_serve_launches"] = moe_served["qwen2-moe-a2.7b"][name]
+        row["phi35_moe_serve_launches"] = \
+            moe_served["phi3.5-moe-42b-a6.6b"][name]
+        row["moonshot_serve_launches"] = \
+            moe_served["moonshot-v1-16b-a3b"][name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -2371,7 +2833,9 @@ def main() -> int:
             "online_launches", "train_launches", "federated_llm_launches",
             "scan_launches", "cifar_launches", "traced_online_launches",
             "traced_scan_launches", "recurrentgemma_serve_launches",
-            "xlstm_serve_launches", "max_abs_err",
+            "xlstm_serve_launches", "qwen2_moe_serve_launches",
+            "phi35_moe_serve_launches", "moonshot_serve_launches",
+            "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
             "shapes")

@@ -1,8 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
 Holds the architectures whose blocks the port runs: the dense GQA family,
-xLSTM and the RG-LRU hybrid. The JAX package's MoE, vision and audio configs
-come with their families (ROADMAP Queue 1)."""
+the MoE family, xLSTM and the RG-LRU hybrid. The JAX package's vision and
+audio configs come with their families (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,9 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "xlstm-125m": "xlstm_125m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a27b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b",
 }
 
 ARCH_IDS = tuple(_MODULES)

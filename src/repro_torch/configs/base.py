@@ -7,9 +7,9 @@ Every ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 by CPU tests: <= 2 layers, d_model <= 512).
 
 Only the fields the ported families read are here (the dense transformer,
-xLSTM and the RG-LRU hybrid), plus the switches that select an unported
-family (``n_experts``, ``frontend``, ``mrope_sections``, ``act_seq_shard``):
-the model raises ``NotImplementedError`` naming ROADMAP when one of those is
+MoE, xLSTM and the RG-LRU hybrid), plus the switches that select an
+unported feature (``frontend``, ``mrope_sections``, ``act_seq_shard``): the
+model raises ``NotImplementedError`` naming ROADMAP when one of those is
 set. The other families' knobs come with their blocks (ROADMAP Queue 1,
 item 10).
 """
@@ -33,8 +33,17 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // n_heads
 
-    # --- MoE (unported: > 0 raises) ---
+    # --- MoE ---
     n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0          # per-expert hidden size (routed experts)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_group_size: int = 0        # tokens per dispatch group (0: one batch
+                                   # row per group, the GShard default)
+    moe_dispatch: str = "einsum"   # "einsum" (one-hot (T,E,C)) | "gather"
+                                   # (sort and index dispatch)
 
     # --- attention ---
     attention: str = "causal"      # "causal" | "sliding"
@@ -103,6 +112,13 @@ class ModelConfig:
             window=128,
             local_window=64,
         )
+        if self.is_moe:
+            base.update(
+                n_experts=min(self.n_experts, 4),
+                experts_per_token=min(self.experts_per_token, 2),
+                n_shared_experts=min(self.n_shared_experts, 1),
+                moe_d_ff=min(self.moe_d_ff, 256),
+            )
         if self.family == "hybrid":
             base.update(rglru_d_rnn=min(self.rglru_d_rnn, 256))
         base.update(overrides)

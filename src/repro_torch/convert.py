@@ -30,7 +30,9 @@ def _tensor(a, device):
 def lm_params(tree, device="cpu") -> dict:
     """A transformer's parameter tree ({"embed", "scan": (...), "tail":
     (...), "final_norm", "head"}), attention and recurrent blocks alike;
-    the layouts match, so this is a copy."""
+    the layouts match, so this is a copy. An MoE block's ``moe`` sub-tree
+    (router, the stacked experts' wi_gate / wi_up / wo, and ``shared``)
+    comes across the same way."""
     return tree_map(lambda a: _tensor(a, device), tree)
 
 

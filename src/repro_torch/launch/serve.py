@@ -4,12 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-``--arch`` takes every ported config: the Llama family, ``xlstm-125m`` and
-``recurrentgemma-2b``. The prefill runs attention through the flash kernel
-(``use_flash=True``): on the card the hand-written kernel, on the host its
-plain version. xLSTM has no attention; recurrentgemma's local attention
-(bf16, head_dim 256) takes the tensor-core flash kernel, and its float32
-variant the CUDA-core one.
+``--arch`` takes every ported config: the Llama family, the MoE family
+(``qwen2-moe-a2.7b``, ``phi3.5-moe-42b-a6.6b``, ``moonshot-v1-16b-a3b``),
+``xlstm-125m`` and ``recurrentgemma-2b``. The prefill runs attention through
+the flash kernel (``use_flash=True``): on the card the hand-written kernel,
+on the host its plain version. xLSTM has no attention; the MoE family's
+attention (bf16, head_dim 128) and recurrentgemma's local attention (bf16,
+head_dim 256) take the tensor-core flash kernel, their float32 variants the
+CUDA-core one.
 """
 from __future__ import annotations
 

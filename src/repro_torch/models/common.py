@@ -94,8 +94,9 @@ def _init_leaf(generator, spec: Spec, lead: tuple, dtype, n_layers: int):
         scale = 0.02 / math.sqrt(2 * max(n_layers, 1))
     else:
         raise ValueError(f"unknown initialiser {spec.init!r}")
+    # scaled in place: no second leaf-sized buffer while the draw is scaled
     return torch.randn(shape, generator=generator, dtype=dtype,
-                       device=generator.device) * scale
+                       device=generator.device).mul_(scale)
 
 
 def init_params(generator: torch.Generator, spec_tree, dtype=torch.float32,

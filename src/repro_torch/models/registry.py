@@ -45,12 +45,19 @@ class Model:
         return sum(math.prod(s.shape) for s in cm.tree_leaves(self.specs))
 
     def n_active_params(self) -> int:
-        """Active parameters per token: all of them for the dense, xLSTM and
-        RG-LRU hybrid families."""
-        if self.cfg.is_moe:
-            raise NotImplementedError("not ported yet: ROADMAP Queue 1, item "
-                                      "10 (the MoE family)")
-        return self.n_params()
+        """Active parameters per token. MoE: a leaf under a ``moe`` key
+        counts k / E of its size (integer division), except under
+        ``shared`` or ``router``; the other families: all of them."""
+        cfg = self.cfg
+        if not cfg.is_moe:
+            return self.n_params()
+        total = 0
+        for path, s in _spec_paths(self.specs):
+            size = math.prod(s.shape)
+            if "moe" in path and "shared" not in path and "router" not in path:
+                size = size * cfg.experts_per_token // cfg.n_experts
+            total += size
+        return total
 
     # ---- forwards ----
     def loss_fn(self, params, batch, *, remat=False, use_flash=False):
@@ -63,6 +70,18 @@ class Model:
 
     def decode(self, params, cache, batch):
         return tf.forward_decode(params, cache, batch, self.cfg)
+
+
+def _spec_paths(tree, path=()):
+    """(key path, Spec) of every leaf, in flatten order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_paths(tree[k], path + (k,))
+    elif isinstance(tree, tuple) and not isinstance(tree, cm.Spec):
+        for i, t in enumerate(tree):
+            yield from _spec_paths(t, path + (i,))
+    elif tree is not None:
+        yield path, tree
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,5 +1,5 @@
-"""Decoder backbone: the dense-attention, xLSTM and RG-LRU hybrid families
-(mirrors ``repro.models.transformer``).
+"""Decoder backbone: the dense-attention, MoE, xLSTM and RG-LRU hybrid
+families (mirrors ``repro.models.transformer``).
 
 Layer stacking: layers are grouped into *units* of ``len(block_pattern)``
 layers, and each unit's parameters are stacked along a leading n_units axis,
@@ -26,8 +26,13 @@ states in float32 and the conv histories in the activation dtype.
 :func:`init_cache` allocates every buffer once; prefill writes the prompt's
 K/V and final states into them, and each decode step updates them in place.
 
-MoE, the vision and audio frontends and ``act_seq_shard`` are not ported
-yet and raise ``NotImplementedError`` (ROADMAP Queue 1).
+An MoE config's attention blocks take ``moe.moe_forward`` as their second
+residual branch; each adds its router loss times ``cfg.router_aux_weight``
+to ``aux``, which the blocks pass along and ``forward_train`` adds to the
+loss (prefill and decode drop it, as the reference does).
+
+The vision and audio frontends, M-RoPE and ``act_seq_shard`` are not
+ported yet and raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.rope import apply_rope
@@ -60,18 +66,20 @@ def mlp_specs(cfg):
 
 
 def attn_specs(cfg):
-    if cfg.is_moe:
-        raise NotImplementedError(_LATER.format("10: the MoE family (moe.py)"))
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "ln1": cm.Spec((d,), ("d_model",), "zeros"),
         "wq": cm.Spec((d, h * hd), ("d_model", "heads")),
         "wk": cm.Spec((d, kv * hd), ("d_model", "kv_heads")),
         "wv": cm.Spec((d, kv * hd), ("d_model", "kv_heads")),
         "wo": cm.Spec((h * hd, d), ("heads", "d_model"), "scaled"),
         "ln2": cm.Spec((d,), ("d_model",), "zeros"),
-        "mlp": mlp_specs(cfg),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        p["mlp"] = mlp_specs(cfg)
+    return p
 
 
 def block_specs(cfg, kind: str):
@@ -202,18 +210,21 @@ def _mlp(p, x):
     return cm.dense(h, p["wo"].to(x.dtype))
 
 
-def _ffn(p, x, cfg):
-    """Second residual branch (the MLP) of an attention block."""
+def _ffn(p, x, cfg, aux):
+    """Second residual branch (MLP or MoE) of an attention block; returns
+    (x, aux) with the MoE router loss, weighted, added to ``aux``."""
+    xin = cm.rms_norm(x, p["ln2"])
     if "moe" in p:
-        raise NotImplementedError(_LATER.format("10: the MoE family (moe.py)"))
-    return x + _mlp(p["mlp"], cm.rms_norm(x, p["ln2"]))
+        out = moe_lib.moe_forward(p["moe"], xin, cfg)
+        return x + out.y, aux + out.aux_loss * cfg.router_aux_weight
+    return x + _mlp(p["mlp"], xin), aux
 
 
-def attn_block_seq(p, x, cfg, kind, positions, *, cache=None,
+def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
                    use_flash=False):
-    """Train/prefill attention block. positions: (B,S). A prefill passes
-    ``cache`` ({"k", "v"} ring buffers from :func:`init_cache`) and the
-    block writes its K/V there."""
+    """Train/prefill attention block; returns (x, aux). positions: (B,S).
+    A prefill passes ``cache`` ({"k", "v"} ring buffers from
+    :func:`init_cache`) and the block writes its K/V there."""
     window = None
     if kind == "local_attn":
         window = cfg.local_window
@@ -224,7 +235,7 @@ def attn_block_seq(p, x, cfg, kind, positions, *, cache=None,
     y = attn.attention(q, k, v, causal=True, window=window, use_flash=use_flash)
     b, s, _, _ = y.shape
     x = x + cm.dense(y.reshape(b, s, -1), p["wo"].to(x.dtype))
-    x = _ffn(p, x, cfg)
+    x, aux = _ffn(p, x, cfg, aux)
     if cache is not None:
         w = cache["k"].shape[1]
         if w >= s:      # linear region: positions 0..s-1 land at slots 0..s-1
@@ -233,12 +244,12 @@ def attn_block_seq(p, x, cfg, kind, positions, *, cache=None,
         else:           # ring: keep the last w positions at slot p % w
             cache["k"].copy_(torch.roll(k[:, -w:], s % w, dims=1))
             cache["v"].copy_(torch.roll(v[:, -w:], s % w, dims=1))
-    return x
+    return x, aux
 
 
-def attn_block_step(p, cache, x, cfg, pos: int):
-    """Single-token decode. x: (B,1,D); pos: absolute position. Writes the
-    token's K/V into ``cache`` in place."""
+def attn_block_step(p, cache, x, cfg, pos: int, aux):
+    """Single-token decode; returns (x, aux). x: (B,1,D); pos: absolute
+    position. Writes the token's K/V into ``cache`` in place."""
     q, k, v = _project_qkv(p, cm.rms_norm(x, p["ln1"]), cfg)
     b = x.shape[0]
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
@@ -248,7 +259,7 @@ def attn_block_step(p, cache, x, cfg, pos: int):
     slot_pos = attn.cache_slot_positions(pos, w, x.device)
     y = attn.decode_attention(q, kc, vc, slot_pos, pos=pos)
     x = x + cm.dense(y.reshape(b, 1, -1), p["wo"].to(x.dtype))
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, aux)
 
 
 def _store(cache, new: dict):
@@ -257,15 +268,16 @@ def _store(cache, new: dict):
         cache[name].copy_(t)
 
 
-def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos,
+def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos, aux,
                 use_flash=False):
-    """Dispatch one block; returns x. A block given a cache (prefill,
-    decode) reads its state there and writes the new one in place."""
+    """Dispatch one block; returns (x, aux). A block given a cache
+    (prefill, decode) reads its state there and writes the new one in
+    place."""
     if kind in ("attn", "local_attn"):
         if mode == "decode":
-            return attn_block_step(p, cache, x, cfg, pos)
-        return attn_block_seq(p, x, cfg, kind, positions, cache=cache,
-                              use_flash=use_flash)
+            return attn_block_step(p, cache, x, cfg, pos, aux)
+        return attn_block_seq(p, x, cfg, kind, positions, aux=aux,
+                              cache=cache, use_flash=use_flash)
     if kind == "rglru":
         st = None if cache is None else rglru_lib.RGLRUState(cache["h"],
                                                              cache["conv"])
@@ -275,7 +287,7 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos,
         x = x + _mlp(p["mlp"], cm.rms_norm(x, p["ln2"]))
         if cache is not None:
             _store(cache, st._asdict())
-        return x
+        return x, aux
     if kind == "mlstm":
         st = conv = None
         if cache is not None:
@@ -284,14 +296,14 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos,
         x, (st, conv) = xlstm_lib.mlstm_block(p, x, cfg, st, conv)
         if cache is not None:
             _store(cache, dict(st._asdict(), conv=conv))
-        return x
+        return x, aux
     if kind == "slstm":
         st = None if cache is None else xlstm_lib.SLSTMState(
             cache["c"], cache["n"], cache["m"], cache["h"])
         x, st = xlstm_lib.slstm_block(p, x, cfg, st)
         if cache is not None:
             _store(cache, st._asdict())
-        return x
+        return x, aux
     raise ValueError(kind)
 
 
@@ -335,20 +347,23 @@ def _unit_views(tree, n_units: int) -> list:
 
 def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
                use_flash=False, remat=False):
-    """Every layer in order; returns x. mode: "train" (no cache),
-    "prefill" (fills ``cache``) or "decode" (reads and updates ``cache`` in
-    place). ``remat`` checkpoints each unit: its parameter views and x go
-    in, only x is kept."""
+    """Every layer in order; returns (x, aux), aux the MoE layers' weighted
+    router losses summed (a float32 zero for the other families). mode:
+    "train" (no cache), "prefill" (fills ``cache``) or "decode" (reads and
+    updates ``cache`` in place). ``remat`` checkpoints each unit: its
+    parameter views, x and aux go in, only x and aux are kept."""
     if cfg.act_seq_shard:
         raise NotImplementedError(_LATER.format("11: sharding"))
     period, n_units, tail_kinds = scan_meta(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def unit_body(x, p_unit, c_unit):
+    def unit_body(x, aux, p_unit, c_unit):
         for i, kind in enumerate(cfg.block_pattern):
-            x = apply_block(p_unit[i], None if c_unit is None else c_unit[i],
-                            x, cfg, kind, positions, mode=mode, pos=pos,
-                            use_flash=use_flash)
-        return x
+            x, aux = apply_block(p_unit[i],
+                                 None if c_unit is None else c_unit[i], x,
+                                 cfg, kind, positions, mode=mode, pos=pos,
+                                 aux=aux, use_flash=use_flash)
+        return x, aux
 
     units = list(zip(*(_unit_views(params["scan"][i], n_units)
                        for i in range(period)))) if n_units else []
@@ -357,26 +372,27 @@ def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
             cm.tree_map(lambda a: a[u], cache["scan"][i])
             for i in range(period))
         if remat:
-            x = checkpoint(unit_body, x, p_unit, c_unit, use_reentrant=False)
+            x, aux = checkpoint(unit_body, x, aux, p_unit, c_unit,
+                                use_reentrant=False)
         else:
-            x = unit_body(x, p_unit, c_unit)
+            x, aux = unit_body(x, aux, p_unit, c_unit)
     for i, kind in enumerate(tail_kinds):
         c_i = None if cache is None else cache["tail"][i]
-        x = apply_block(params["tail"][i], c_i, x, cfg, kind, positions,
-                        mode=mode, pos=pos, use_flash=use_flash)
-    return x
+        x, aux = apply_block(params["tail"][i], c_i, x, cfg, kind, positions,
+                             mode=mode, pos=pos, aux=aux, use_flash=use_flash)
+    return x, aux
 
 
 def forward_train(params, batch, cfg, *, remat=False, use_flash=False):
-    """Returns (loss, {"ce", "aux"}): the mean CE of the logits at positions
-    0..S-2 against ``batch["labels"]`` at 1..S-1. ``aux`` (the MoE router
-    loss in the reference) is 0 for the dense family."""
+    """Returns (loss, {"ce", "aux"}): loss = ce + aux, ce the mean CE of
+    the logits at positions 0..S-2 against ``batch["labels"]`` at 1..S-1,
+    aux the MoE layers' router losses times ``cfg.router_aux_weight`` (0
+    for the other families)."""
     x, positions, labels = embed_inputs(params, batch, cfg)
-    x = _run_stack(params, None, x, cfg, positions, mode="train",
-                   use_flash=use_flash, remat=remat)
+    x, aux = _run_stack(params, None, x, cfg, positions, mode="train",
+                        use_flash=use_flash, remat=remat)
     logits = logits_from_hidden(params, x, cfg)
     ce = cm.cross_entropy(logits[:, :-1], labels[:, 1:])
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -391,8 +407,8 @@ def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False):
     b, s = x.shape[:2]
     cap = max(max_len or s, s)
     cache = init_cache(cfg, b, cap, cfg.act_dtype, x.device)
-    x = _run_stack(params, cache, x, cfg, positions, mode="prefill",
-                   use_flash=use_flash)
+    x, _ = _run_stack(params, cache, x, cfg, positions, mode="prefill",
+                      use_flash=use_flash)
     return logits_from_hidden(params, x[:, -1:], cfg), dict(cache, pos=s)
 
 
@@ -401,5 +417,5 @@ def forward_decode(params, cache, batch, cfg):
     cache's buffers are updated in place and its position advanced."""
     pos = cache["pos"]
     x = cm.embed_lookup(batch["token"], params["embed"]["tok"], cfg.act_dtype)
-    x = _run_stack(params, cache, x, cfg, None, mode="decode", pos=pos)
+    x, _ = _run_stack(params, cache, x, cfg, None, mode="decode", pos=pos)
     return logits_from_hidden(params, x, cfg), dict(cache, pos=pos + 1)

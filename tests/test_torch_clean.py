@@ -62,6 +62,8 @@ def test_port_has_the_slice_modules():
                 "models/transformer.py", "models/registry.py",
                 "models/xlstm.py", "models/rglru.py",
                 "configs/xlstm_125m.py", "configs/recurrentgemma_2b.py",
+                "models/moe.py", "configs/qwen2_moe_a27b.py",
+                "configs/phi35_moe_42b.py", "configs/moonshot_v1_16b.py",
                 "launch/serve.py", "dynamics/__init__.py",
                 "dynamics/scenarios.py", "dynamics/environment.py",
                 "dynamics/metrics.py", "dynamics/runstate.py",

@@ -220,6 +220,7 @@ SM90_CASES = [  # b, s, lk, h, kv, hd, causal, window, q_offset
     (1, 300, 300, 4, 1, 256, True, None, 0),    # hd 256: MQA, ragged
     (1, 200, 200, 10, 1, 256, True, None, 0),   # GQA group 10
     (1, 300, 300, 10, 1, 256, True, 100, 0),    # window
+    (1, 512, 512, 16, 16, 128, True, None, 0),  # qwen2-moe's MHA, cut
     (1, 130, 130, 2, 2, 256, True, None, 0),    # ragged S = L
     (1, 64, 200, 4, 1, 256, True, None, 136),   # chunked prefill
     (2, 256, 256, 4, 1, 256, False, None, 0),   # non-causal
@@ -359,3 +360,43 @@ def test_train_step_card_matches_host(dev):
             np.testing.assert_allclose(float(cm[name]), float(hm[name]),
                                        rtol=1e-5)
     assert before == {n: k.launches for n, k in ops.KERNELS.items()}
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
+def test_small_moe_card_matches_host(dev, dispatch):
+    """The smoke qwen2-moe (2 layers, d_model 256, 4 experts top-2, one
+    shared expert) in float32 on the card and on the host from the same
+    weights and tokens: prefill (the CUDA-core flash kernel once a layer)
+    and 8 decode steps, logits within 1e-3 absolute (phase 3's bound), the
+    routing decisions of the first layer equal."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              dtype="float32", moe_dispatch=dispatch)
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(dev), host)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(1))
+    hl, hc = model.prefill(host, {"tokens": toks[:, :40]}, max_len=48)
+    before = ops.KERNELS["flash_attention"].launches
+    cl, cc = model.prefill(card, {"tokens": toks[:, :40].to(dev)}, max_len=48,
+                           use_flash=True)
+    assert ops.KERNELS["flash_attention"].launches == before + cfg.n_layers
+    torch.testing.assert_close(cl.cpu(), hl, rtol=0, atol=1e-3)
+    for t in range(40, 48):
+        hl, hc = model.decode(host, hc, {"token": toks[:, t:t + 1]})
+        cl, cc = model.decode(card, cc, {"token": toks[:, t:t + 1].to(dev)})
+        torch.testing.assert_close(cl.cpu(), hl, rtol=0, atol=1e-3)
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    unit = tree_map(lambda a: a[0], host["scan"][0])["moe"]
+    r_host = moe.routing(unit, x, cfg)
+    r_card = moe.routing(tree_map(lambda a: a.to(dev), unit), x.to(dev), cfg)
+    top = torch.sort(r_host.probs, -1, descending=True).values
+    k = cfg.experts_per_token
+    assert float((top[..., k - 1] - top[..., k]).min()) > 1e-5
+    assert torch.equal(r_host.keep, r_card.keep.cpu())

@@ -1,0 +1,455 @@
+"""The port's MoE family against the JAX package on the CPU: the layer
+(``models/moe.py``) for the three MoE smoke configs (d_model 256, 4 experts
+top-2; qwen2-moe and moonshot with one shared expert, phi3.5-moe with none
+and GQA), and the smoke qwen2-moe and phi3.5-moe models (2 layers): prefill,
+decode, ``forward_train`` and ``serve``, from JAX's own parameters carried
+across by ``convert.lm_params``.
+
+Routing is discontinuous: a top-k choice or a capacity rank can flip on a
+rounding difference. So every comparison first asserts that each token's
+margin between its k-th and (k+1)-th router probability exceeds 1e-5 (the
+router probabilities agree to ~2e-8), then holds the choices (the einsum
+path's top-k mask and ``keep``, the gather path's top-k indices) exactly
+equal, and only then the values. The layer inputs share a common direction
+(as a residual stream's tokens do), so some experts draw more tokens and the
+default capacity drops choices; the tests assert that it does.
+
+Tolerances: float32 ``y``, ``aux_loss`` and ``router_probs_mean`` 1e-5
+relative, 1e-6 absolute (measured ~5e-8 on y of size ~0.1); bfloat16 ``y``
+2e-2 (the same bf16 products, rounded at other places and, in the gather
+path, the k contributions summed in float32 here where the reference adds
+them in bf16); the models' logits and caches in float32 1e-5 (measured
+~1e-6), as the dense family's in ``test_torch_transformer.py``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from hypothesis import given, settings, strategies as st
+
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
+from repro.models import moe as JM
+from repro.models.registry import build_model as jbuild
+from repro_torch import convert
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.launch import serve as srv
+from repro_torch.models import common as cm
+from repro_torch.models import moe as M
+from repro_torch.models.registry import build_model
+from test_torch_draws import one_torch_thread  # noqa: F401
+from test_torch_serve import MARGIN, _jax_serve
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+ARCHS = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")
+ROUTE_MARGIN = 1e-5
+# (config overrides, capacity binds)
+CASES = {
+    "einsum": ({}, True),
+    "einsum-cap1": ({"capacity_factor": 1e-6}, True),
+    "einsum-cap64": ({"capacity_factor": 64.0}, False),
+    "einsum-groups8": ({"moe_group_size": 8}, True),
+    "gather": ({"moe_dispatch": "gather"}, None),
+    "gather-groups16": ({"moe_dispatch": "gather", "moe_group_size": 16},
+                        None),
+}
+
+
+# ---------------------------------------------------------------------------
+# the layer against JAX
+# ---------------------------------------------------------------------------
+
+def _cfgs(arch, dtype="float32", **over):
+    return (dataclasses.replace(jget_smoke(arch), dtype=dtype, **over),
+            dataclasses.replace(get_smoke_config(arch), dtype=dtype, **over))
+
+
+def _layer_inputs(cfg, b=2, s=32, seed=0):
+    """numpy parameters at the specs' shapes (N(0, 0.02)) and x (B, S, D):
+    standard normal tokens plus one shared direction."""
+    rng = np.random.default_rng(seed)
+    p = cm.tree_map(lambda sp: (rng.standard_normal(sp.shape) * 0.02)
+                    .astype(np.float32), M.moe_specs(cfg))
+    x = rng.standard_normal((b, s, cfg.d_model)) + \
+        rng.standard_normal(cfg.d_model)
+    return p, x.astype(np.float32)
+
+
+def _assert_margins(probs, k):
+    top = np.sort(np.asarray(probs, np.float64), -1)[..., ::-1]
+    margin = top[..., k - 1] - top[..., k]
+    assert margin.min() > ROUTE_MARGIN, margin.min()
+
+
+def _jax_routing(p, x, cfg):
+    """The reference's routing lines (moe.py:79-95) for batch-row or
+    ``moe_group_size`` groups: probs, top-k mask and keep."""
+    b, s, d = x.shape
+    g = max(1, (b * s) // cfg.moe_group_size) if cfg.moe_group_size else b
+    xt = jnp.asarray(x).reshape(g, (b * s) // g, d)
+    logits = jnp.einsum("gtd,de->gte", xt.astype(jnp.float32),
+                        jnp.asarray(p["router"]))
+    probs = jax.nn.softmax(logits, axis=-1)
+    mask = JM._top_k_mask(probs, cfg.experts_per_token)
+    t = xt.shape[1]
+    cap = int(max(1, round(cfg.experts_per_token * t * cfg.capacity_factor
+                           / cfg.n_experts)))
+    pos = jnp.cumsum(mask.astype(jnp.int32), axis=1) - 1
+    return (np.asarray(probs), np.asarray(mask), np.asarray(mask & (pos < cap)),
+            cap)
+
+
+def _run_layer(arch, dtype, over):
+    jcfg, cfg = _cfgs(arch, dtype, **over)
+    p, x = _layer_inputs(cfg)
+    jx = jnp.asarray(x).astype(jcfg.act_dtype)
+    jo = jax.jit(lambda pp, xx: JM.moe_forward(pp, xx, jcfg))(p, jx)
+    tx = torch.as_tensor(x).to(cfg.act_dtype)
+    tp = convert.lm_params(p)
+    return jcfg, cfg, p, jx, tx, tp, jo, M.moe_forward(tp, tx, cfg)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_forward_matches_jax_f32(arch, case):
+    over, binds = CASES[case]
+    jcfg, cfg, p, jx, tx, tp, jo, out = _run_layer(arch, "float32", over)
+    k = cfg.experts_per_token
+    if cfg.moe_dispatch == "einsum":
+        jprobs, jmask, jkeep, jcap = _jax_routing(p, np.asarray(jx), jcfg)
+        _assert_margins(jprobs, k)
+        r = M.routing(tp, tx, cfg)
+        assert r.cap == jcap
+        np.testing.assert_allclose(r.probs.numpy(), jprobs, rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_array_equal(r.mask.numpy(), jmask)
+        np.testing.assert_array_equal(r.keep.numpy(), jkeep)
+        assert bool((r.mask & ~r.keep).any()) == binds
+    else:
+        probs = M.router_probs(tp, tx.reshape(-1, cfg.d_model))
+        jprobs = jax.nn.softmax(jnp.asarray(jx).reshape(-1, cfg.d_model)
+                                @ jnp.asarray(p["router"]), -1)
+        _assert_margins(jprobs, k)
+        np.testing.assert_array_equal(
+            M.top_k(probs, k)[1].numpy(),
+            np.asarray(jax.lax.top_k(jprobs, k)[1]))
+    for got, want in ((out.y, jo.y), (out.aux_loss, jo.aux_loss),
+                      (out.router_probs_mean, jo.router_probs_mean)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-6)
+    assert out.y.dtype == torch.float32 and out.aux_loss.dtype == torch.float32
+
+
+@pytest.mark.parametrize("case", ["einsum", "gather"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_forward_matches_jax_bf16(arch, case):
+    over, _ = CASES[case]
+    jcfg, cfg, p, jx, tx, tp, jo, out = _run_layer(arch, "bfloat16", over)
+    jprobs = jax.nn.softmax(jnp.asarray(jx).astype(jnp.float32).reshape(
+        -1, cfg.d_model) @ jnp.asarray(p["router"]), -1)
+    _assert_margins(jprobs, cfg.experts_per_token)
+    assert out.y.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.y.float().numpy(),
+                               np.asarray(jo.y.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(float(out.aux_loss), float(jo.aux_loss),
+                               rtol=1e-5)
+
+
+def test_capacity_rounds_halves_to_even():
+    """Python's round, as the reference's: k * t * cf / E = 2.5 -> 2,
+    3.5 -> 4, and never below 1."""
+    assert M.capacity(1, 5, 1.0, 2) == 2
+    assert M.capacity(1, 7, 1.0, 2) == 4
+    assert M.capacity(4, 1, 1.25, 60) == 1
+    assert M.capacity(4, 2048, 1.25, 60) == 171
+    assert M.capacity(4, 8192, 1.25, 60) == 683
+
+
+def test_top_k_breaks_ties_to_the_lower_index():
+    probs = torch.tensor([[0.25, 0.25, 0.25, 0.25], [0.1, 0.3, 0.3, 0.3],
+                          [0.4, 0.2, 0.4, 0.0]])
+    vals, idx = M.top_k(probs, 2)
+    jv, ji = jax.lax.top_k(jnp.asarray(probs.numpy()), 2)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+
+
+# ---------------------------------------------------------------------------
+# the reference's tests/test_moe.py on the port
+# ---------------------------------------------------------------------------
+
+def _setup(seed, b=2, s=16, cap=8.0, arch="phi3.5-moe-42b-a6.6b"):
+    cfg = dataclasses.replace(get_smoke_config(arch), capacity_factor=cap)
+    g = torch.Generator().manual_seed(seed)
+    p = cm.init_params(g, M.moe_specs(cfg), torch.float32, device="cpu")
+    x = torch.randn((b, s, cfg.d_model), generator=g)
+    return cfg, p, x
+
+
+def test_output_shape_and_finite():
+    cfg, p, x = _setup(0)
+    out = M.moe_forward(p, x, cfg)
+    assert out.y.shape == x.shape
+    assert bool(torch.isfinite(out.y).all())
+    assert float(out.aux_loss) > 0.0
+
+
+def test_router_probs_mean_sums_to_one():
+    cfg, p, x = _setup(1)
+    out = M.moe_forward(p, x, cfg)
+    np.testing.assert_allclose(float(out.router_probs_mean.sum()), 1.0,
+                               rtol=1e-5)
+
+
+def test_high_capacity_matches_dense_expert_mixture():
+    """With capacity >= tokens, MoE == explicit per-token expert mixture."""
+    cfg, p, x = _setup(2, b=1, s=8, cap=64.0)
+    out = M.moe_forward(p, x, cfg)
+    xt = x.reshape(-1, cfg.d_model)
+    probs = torch.softmax(xt @ p["router"], -1)
+    _, topk = M.top_k(probs, cfg.experts_per_token)
+    y_ref = []
+    for t in range(xt.shape[0]):
+        acc = torch.zeros(cfg.d_model)
+        gate_sum = sum(probs[t, e] for e in topk[t])
+        for e in topk[t]:
+            h = F.silu(xt[t] @ p["wi_gate"][e]) * (xt[t] @ p["wi_up"][e])
+            acc = acc + (probs[t, e] / gate_sum) * (h @ p["wo"][e])
+        y_ref.append(acc)
+    y_ref = torch.stack(y_ref).reshape(x.shape)
+    torch.testing.assert_close(out.y, y_ref, rtol=2e-3, atol=2e-4)
+
+
+def test_capacity_drops_overflow_tokens():
+    """capacity_factor -> tiny: most tokens dropped, output ~ 0 for them."""
+    cfg, p, x = _setup(3, b=1, s=64)
+    cfg_small = dataclasses.replace(cfg, capacity_factor=1e-6)   # cap = 1
+    out = M.moe_forward(p, x, cfg_small)
+    nonzero_rows = int((out.y.abs() > 1e-7).any(-1).sum())
+    assert nonzero_rows <= cfg.n_experts * cfg.experts_per_token
+
+
+def test_shared_experts_always_active():
+    cfg, p, x = _setup(4, arch="qwen2-moe-a2.7b")
+    assert "shared" in p
+    p_zero = dict(p, wo=torch.zeros_like(p["wo"]))   # routed path off
+    out = M.moe_forward(p_zero, x, cfg)
+    assert float(out.y.abs().max()) > 0.0
+
+
+def test_aux_loss_uniform_router_equals_one():
+    """Switch aux loss == 1.0 when routing is perfectly uniform (every
+    probability ties: the first k experts are chosen, as JAX chooses)."""
+    cfg, p, x = _setup(5)
+    out = M.moe_forward(dict(p, router=torch.zeros_like(p["router"])), x, cfg)
+    np.testing.assert_allclose(float(out.aux_loss), 1.0, rtol=1e-4)
+    r = M.routing(dict(p, router=torch.zeros_like(p["router"])), x, cfg)
+    assert bool(r.mask[..., :cfg.experts_per_token].all())
+    assert not bool(r.mask[..., cfg.experts_per_token:].any())
+
+
+@settings(max_examples=10, deadline=None)
+@given(seed=st.integers(0, 1000), s=st.sampled_from([8, 16, 32]))
+def test_property_finite_any_input(seed, s):
+    cfg, p, _ = _setup(seed, s=s)
+    x = torch.randn((2, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed + 1)) * 10
+    out = M.moe_forward(p, x, cfg)
+    assert bool(torch.isfinite(out.y).all())
+    assert bool(torch.isfinite(out.aux_loss))
+
+
+def test_gather_dispatch_matches_einsum():
+    """The sort/gather dispatch equals the one-hot einsum dispatch when the
+    capacity does not bind (cap 64)."""
+    cfg, p, x = _setup(8, cap=64.0, arch="qwen2-moe-a2.7b")
+    out_e = M.moe_forward(p, x, cfg)
+    out_g = M.moe_forward(p, x, dataclasses.replace(cfg,
+                                                    moe_dispatch="gather"))
+    torch.testing.assert_close(out_e.y, out_g.y, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(float(out_e.aux_loss), float(out_g.aux_loss),
+                               rtol=1e-3)
+
+
+def test_gather_dispatch_differentiable():
+    cfg, p, x = _setup(9, arch="qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(cfg, moe_dispatch="gather")
+    _, g = cm.value_and_grad(
+        lambda pp: torch.sum(M.moe_forward(pp, x, cfg).y ** 2), p)
+    leaves = cm.tree_leaves(g)
+    assert all(bool(torch.isfinite(leaf).all()) for leaf in leaves)
+    assert float(g["router"].abs().max()) > 0.0
+
+
+def test_fine_groups_same_shape():
+    cfg, p, x = _setup(10, b=4, s=16)
+    cfg = dataclasses.replace(cfg, moe_group_size=8)
+    out = M.moe_forward(p, x, cfg)
+    assert out.y.shape == x.shape
+    assert bool(torch.isfinite(out.y).all())
+
+
+def test_unknown_dispatch_raises():
+    cfg, p, x = _setup(11)
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        M.moe_forward(p, x, dataclasses.replace(cfg, moe_dispatch="sorted"))
+
+
+# ---------------------------------------------------------------------------
+# configs and counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,n,active", [
+    ("qwen2-moe-a2.7b", 14_315_587_584, 2_688_976_896),
+    ("phi3.5-moe-42b-a6.6b", 41_872_527_360, 6_640_373_760),
+    ("moonshot-v1-16b-a3b", 28_888_467_456, 4_804_773_888)])
+def test_configs_and_counts_match_jax(arch, n, active):
+    assert arch in ARCH_IDS
+    for cfg, jcfg in ((get_config(arch), jget_config(arch)),
+                      (get_smoke_config(arch), jget_smoke(arch)),
+                      (get_config(arch).reduced(n_layers=4),
+                       jget_config(arch).reduced(n_layers=4))):
+        got, want = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+        assert got == {key: want[key] for key in got}
+    m, jm = build_model(get_config(arch)), jbuild(jget_config(arch))
+    assert m.n_params() == jm.n_params() == n
+    assert m.n_active_params() == jm.n_active_params() == active
+
+
+# ---------------------------------------------------------------------------
+# the smoke models against JAX
+# ---------------------------------------------------------------------------
+
+B, S, N_PRE = 2, 32, 24
+
+
+@pytest.fixture
+def margins(monkeypatch):
+    """Records the smallest k-th to (k+1)-th router probability margin of
+    every port MoE layer run in the test."""
+    seen = []
+    probs_fn = M.router_probs
+
+    def recording(params, x2d):
+        probs = probs_fn(params, x2d)
+        seen.append(probs.detach().cpu().numpy())
+        return probs
+    monkeypatch.setattr(M, "router_probs", recording)
+    return seen
+
+
+def _assert_seen_margins(seen, k):
+    assert seen
+    for probs in seen:
+        _assert_margins(probs, k)
+
+
+@pytest.fixture(scope="module", params=["qwen2-moe-a2.7b",
+                                        "phi3.5-moe-42b-a6.6b"])
+def lm(request):
+    jcfg, cfg = _cfgs(request.param)
+    jm, m = jbuild(jcfg), build_model(cfg)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (B, S)).astype(np.int32)
+    return dict(jm=jm, m=m, jp=jp, tokens=tokens,
+                tp=convert.lm_params(jax.tree.map(np.asarray, jp)))
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a)).long()
+
+
+def _close(got, want, tol=1e-5):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_params_carry_the_moe_subtrees(lm):
+    unit = lm["tp"]["scan"][0]
+    jl = jax.tree.leaves(lm["jp"])
+    assert "moe" in unit and "mlp" not in unit
+    assert ("shared" in unit["moe"]) == bool(lm["m"].cfg.n_shared_experts)
+    assert tuple(unit["moe"]["wi_gate"].shape) == \
+        (2, 4, 256, lm["m"].cfg.moe_d_ff)
+    leaves = cm.tree_leaves(lm["tp"])
+    assert len(leaves) == len(jl)
+    for got, want in zip(leaves, jl):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_prefill_and_decode_match_jax(lm, margins):
+    jm, m, toks = lm["jm"], lm["m"], lm["tokens"]
+    jl, jc = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, max_len=S))(
+        lm["jp"], toks[:, :N_PRE])
+    logits, cache = m.prefill(lm["tp"], {"tokens": _t(toks[:, :N_PRE])},
+                              max_len=S, use_flash=True)
+    _assert_seen_margins(margins, m.cfg.experts_per_token)
+    _close(logits, jl)
+    for got, want in zip(cm.tree_leaves((cache["scan"], cache["tail"])),
+                         jax.tree.leaves((jc["scan"], jc["tail"]))):
+        _close(got, want)
+    cache = convert.lm_cache(jax.tree.map(np.asarray, jc))
+    jdecode = jax.jit(lambda p, c, t: jm.decode(p, c, {"token": t}))
+    for t in range(N_PRE, S):
+        margins.clear()
+        jl, jc = jdecode(lm["jp"], jc, toks[:, t:t + 1])
+        logits, cache = m.decode(lm["tp"], cache,
+                                 {"token": _t(toks[:, t:t + 1])})
+        _assert_seen_margins(margins, m.cfg.experts_per_token)
+        _close(logits, jl)
+    assert cache["pos"] == S
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_train_matches_jax(lm, margins, remat):
+    batch = {"tokens": lm["tokens"], "labels": lm["tokens"]}
+    jloss, jmet = jax.jit(lambda p: lm["jm"].loss_fn(p, batch, remat=remat))(
+        lm["jp"])
+    loss, met = lm["m"].loss_fn(lm["tp"], {k: _t(v) for k, v in batch.items()},
+                                remat=remat)
+    _assert_seen_margins(margins, lm["m"].cfg.experts_per_token)
+    assert float(met["aux"]) > 0.0
+    np.testing.assert_allclose(float(met["aux"]), float(jmet["aux"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(met["ce"]), float(jmet["ce"]), rtol=1e-5)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(loss), float(met["ce"] + met["aux"]),
+                               rtol=1e-7)
+
+
+def test_serve_with_replayed_noise_samples_jax_tokens(lm, margins):
+    """As ``test_torch_serve.py`` for Llama: JAX's Gumbel draws replayed,
+    tokens equal wherever the top-two margin exceeds 1e-4."""
+    gen = 8
+    key = jax.random.PRNGKey(0)
+    want, noise, top2, first = _jax_serve(lm["jm"], lm["jp"],
+                                          lm["tokens"][:, :N_PRE], gen, 1.0,
+                                          key)
+    res = srv.serve(lm["m"], lm["tp"], _t(lm["tokens"][:, :N_PRE]), gen,
+                    gumbel=torch.as_tensor(noise), device="cpu")
+    _assert_seen_margins(margins, lm["m"].cfg.experts_per_token)
+    _close(res.logits, first)
+    got = res.tokens.numpy()
+    compared = 0
+    for row in range(B):
+        for i in range(gen):
+            if top2[row, i] <= MARGIN:
+                break
+            assert got[row, i] == want[row, i], (row, i, got[row], want[row])
+            compared += 1
+    assert compared >= 0.75 * B * gen, compared
+
+
+def test_serve_main_runs_an_moe_arch_on_the_host():
+    res = srv.main(["--arch", "qwen2-moe-a2.7b", "--smoke", "--batch", "1",
+                    "--prompt-len", "8", "--gen", "3", "--device", "cpu"])
+    assert res.tokens.shape == (1, 3)
+    assert bool(torch.isfinite(res.logits).all())

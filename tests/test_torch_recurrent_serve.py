@@ -122,8 +122,8 @@ def test_prefill_plus_decode_matches_own_full_forward(lm):
     toks = _t(lm["tokens"])
     x, positions, _ = tf.embed_inputs(params, {"tokens": toks}, cfg)
     full = tf.logits_from_hidden(
-        params, tf._run_stack(params, None, x, cfg, positions, mode="train"),
-        cfg)
+        params, tf._run_stack(params, None, x, cfg, positions,
+                              mode="train")[0], cfg)
     n = lm["n_pre"]
     logits, cache = lm["m"].prefill(params, {"tokens": toks[:, :n]},
                                     max_len=lm["end"], use_flash=True)

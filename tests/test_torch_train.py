@@ -43,7 +43,7 @@ from repro_torch.configs import (INPUT_SHAPES, TrainConfig, get_config,
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
-from repro_torch.models.registry import Model, build_model, make_train_step
+from repro_torch.models.registry import build_model, make_train_step
 from test_torch_draws import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -211,9 +211,13 @@ def test_configs_and_entry_points_match_jax():
         {k: dataclasses.asdict(v) for k, v in J_INPUT_SHAPES.items()}
     m = build_model(get_config("llama3.2-1b"))
     assert m.n_active_params() == m.n_params() == 1_498_482_688
-    moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Model(moe, m.specs).n_active_params()
+    moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4,
+                              experts_per_token=2, moe_d_ff=256)
+    jmoe = dataclasses.replace(jget_smoke("llama3.2-1b"), n_experts=4,
+                               experts_per_token=2, moe_d_ff=256)
+    mm = build_model(moe)
+    assert mm.n_active_params() == jbuild(jmoe).n_active_params() < \
+        mm.n_params()
     vis = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                               frontend="vision_stub")
     with pytest.raises(NotImplementedError, match="item 10"):

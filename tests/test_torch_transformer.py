@@ -79,7 +79,10 @@ def test_specs_and_param_counts_match_jax(arch):
     assert [tuple(t.shape) for t in cm.tree_leaves(m.param_shapes())] == \
         [s.shape for s in jleaves]
     want = {"llama3.2-1b": 1_498_482_688, "xlstm-125m": 168_266_544,
-            "recurrentgemma-2b": 3_549_934_080}
+            "recurrentgemma-2b": 3_549_934_080,
+            "qwen2-moe-a2.7b": 14_315_587_584,
+            "phi3.5-moe-42b-a6.6b": 41_872_527_360,
+            "moonshot-v1-16b-a3b": 28_888_467_456}
     if arch in want:
         assert m.n_params() == want[arch]
 
@@ -146,7 +149,7 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
     cfg, params = lm["m"].cfg, lm["tp"]
     toks = _t(lm["tokens"])
     x, positions, _ = tf.embed_inputs(params, {"tokens": toks}, cfg)
-    x = tf._run_stack(params, None, x, cfg, positions, mode="train")
+    x, _ = tf._run_stack(params, None, x, cfg, positions, mode="train")
     full = tf.logits_from_hidden(params, x, cfg)
     tol = TOL[lm["dtype"]]["logits"]
     logits, cache = lm["m"].prefill(params, {"tokens": toks[:, :N_PRE]},
@@ -161,11 +164,17 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    """MoE, the frontends and M-RoPE raise, naming their ROADMAP item; the
-    recurrent kinds (rglru, mlstm, slstm) build."""
-    moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        build_model(moe)
+    """The frontends and M-RoPE raise, naming their ROADMAP item; MoE and
+    the recurrent kinds (rglru, mlstm, slstm) build, MoE with JAX's
+    parameter counts."""
+    moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4,
+                              experts_per_token=2, moe_d_ff=256)
+    jmoe = dataclasses.replace(jget_smoke("llama3.2-1b"), n_experts=4,
+                               experts_per_token=2, moe_d_ff=256)
+    m, jm = build_model(moe), jbuild(jmoe)
+    assert "moe" in m.specs["scan"][0] and "mlp" not in m.specs["scan"][0]
+    assert m.n_params() == jm.n_params()
+    assert m.n_active_params() == jm.n_active_params() < m.n_params()
     for kind in ("rglru", "mlstm", "slstm"):
         cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                                   block_pattern=(kind,))
@@ -179,7 +188,7 @@ def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="item 10"):
         tf._apply_rope(None, None, None, mrope)
     with pytest.raises(KeyError, match="unported"):
-        get_config("qwen2-moe-a2.7b")
+        get_config("qwen2-vl-72b")
 
 
 def test_tree_helpers_walk_tuples_in_jax_order():

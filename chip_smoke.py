@@ -125,13 +125,33 @@
    phi3.5-moe's (q (4, 2048, 32, 128), k/v (4, 2048, 8, 128) bf16) and the
    CUDA-core kernel at (b)'s float32 shape (4, 2048, 16, 128); phase 3
    runs the smoke qwen2-moe in float32, card against host.
+12. Serves the vision-stub and audio-codec families through
+   ``launch.serve.serve``: (a) qwen2-vl-72b at full width cut to 8 of its
+   80 layers (9,523,306,496 float32 parameters, 35.48 GiB; full depth is
+   270.89 GiB) at batch 4 on 2,048-token prompts (256 bf16 patch
+   embeddings of width 1,280 ahead of 1,792 text tokens, with Qwen2-VL's
+   (t, h, w) position grid, so M-RoPE's three streams differ) + 32 tokens;
+   (c) musicgen-medium at full depth (48 layers, 4 codebooks of 2,048;
+   1,837,254,144 parameters) at batch 4 on 1,500-frame prompts + 32
+   frames. Each prefill must launch the tensor-core flash kernel once a
+   layer (8, 48) and a decode step nothing; prefill ms, decode ms a step,
+   the draw's and the serve's peaks, a profiled prefill and decode step;
+   (b) each prefill's bf16 kernel route against its plain route (printed),
+   and the f32 routes at batch 1 (the CUDA-core kernel) within 1e-3, the
+   bf16 kernel route at most 3e-2 farther from those f32 logits than the
+   bf16 plain route. Phase 2 also checks and times the tensor-core kernel
+   at qwen2-vl's attention (q (4, 2048, 64, 128), k/v (4, 2048, 8, 128),
+   GQA group 8) and musicgen's (q/k/v (4, 1500, 24, 64), MHA) and checks
+   the CUDA-core kernel at their float32 batch-1 shapes; phase 3 runs the
+   smoke qwen2-vl (distinct position streams) and the smoke musicgen in
+   float32, card against host.
 
-Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10 and 11 set every
-kernel's launch count to 0 just before each run they drive (the main path,
-the bf16 serve, the f32 serve, the two online runs, the two training runs,
-the federated-LLM run, the eager and scan runs, the CIFAR-like main path,
-the clustering loop on the card, the traced online and scan runs, the two
-recurrent serves, the three MoE serves) and read the counts just after. Before the main path,
+Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11 and 12 set
+every kernel's launch count to 0 just before each run they drive (the main
+path, the bf16 serve, the f32 serve, the two online runs, the two training
+runs, the federated-LLM run, the eager and scan runs, the CIFAR-like main
+path, the clustering loop on the card, the traced online and scan runs, the
+two recurrent serves, the three MoE serves, the vision and audio serves) and read the counts just after. Before the main path,
 each serve, each online run and each training run they reset the
 peak-memory counter and print what is allocated then; each peak is printed
 absolute and above that allocation.
@@ -144,11 +164,12 @@ each kernel's launches on the main path and, as ``online_launches``, on the
 ``traced_scan_launches`` in phase 9 (a, b), as
 ``recurrentgemma_serve_launches`` and ``xlstm_serve_launches`` in phase 10,
 as ``qwen2_moe_serve_launches``, ``phi35_moe_serve_launches`` and
-``moonshot_serve_launches`` in phase 11, the online shapes' errors, the
+``moonshot_serve_launches`` in phase 11, as ``qwen2_vl_serve_launches``
+and ``musicgen_serve_launches`` in phase 12, the online shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
-recurrentgemma's among both flash rows', qwen2-moe's among the tensor-core
-row's) and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
+recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
+musicgen's among the tensor-core row's) and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
 with a non-zero exit code and no result line. Imports nothing of JAX.
 """
 import contextlib
@@ -418,9 +439,14 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     for hd in (32, 128, 256):
         check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, hd, torch.float32),
                     f"hd {hd} f32", simt)
-    # phase 11 (b)'s float32 route of qwen2-moe's prefill
+    # phase 11 (b)'s float32 route of qwen2-moe's prefill, phase 12 (b)'s
+    # of qwen2-vl's and musicgen's (batch 1)
     check_flash(ops, ref, *qkv(4, 2048, 2048, 16, 16, 128, torch.float32),
                 "qwen2-moe f32 route (4,2048,16,128) f32", simt)
+    check_flash(ops, ref, *qkv(1, 2048, 2048, 64, 8, 128, torch.float32),
+                "qwen2-vl f32 route (1,2048,64/8,128) f32", simt)
+    check_flash(ops, ref, *qkv(1, 1500, 1500, 24, 24, 64, torch.float32),
+                "musicgen f32 route (1,1500,24,64) f32", simt)
     check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, 32), "hd 32 bf16", simt)
     off = tuple(misaligned(t) for t in qkv(1, 200, 200, 4, 1, 256))
     check_flash(ops, ref, *off, "misaligned views hd 256 bf16", simt)
@@ -476,28 +502,39 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
         f"{simt_bf16:.5f} ms")
     del q, k, v, q32, k32, v32
     fast, slow = recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv)
-    rows[sm90]["shapes"] = [fast, qwen2_moe_flash(torch, F, ops, ref, fa_mod,
-                                                  qkv)]
+    rows[sm90]["shapes"] = [fast] + [
+        served_flash(torch, F, ops, ref, fa_mod, qkv, *shape)
+        for shape in SERVED_FLASH]
     rows[simt]["shapes"] = [slow]
     return rows
 
 
-def qwen2_moe_flash(torch, F, ops, ref, fa_mod, qkv):
-    """qwen2-moe-a2.7b's (and moonshot's) attention at phase 11's prefill:
-    q/k/v (4, 2048, 16, 128) bf16, causal, MHA, which ``route`` sends to the
-    tensor-core kernel. Checked as the other shapes (one launch), then timed
-    beside the plain version, one SDPA call and the bound (causal: every
-    (b, h) row i sees i + 1 keys, at the bf16 tensor-core rate). Returns
-    the shape's entry of the tensor-core kernel's row."""
-    b, s, h, hd = 4, 2048, 16, 128
-    q, k, v = qkv(b, s, s, h, h, hd)
+# the served prefills' attention shapes that phase 2 times on the tensor-core
+# kernel: name, b, s, h, kv, hd (causal, L = S)
+SERVED_FLASH = (
+    ("qwen2-moe", 4, 2048, 16, 16, 128),    # phase 11 (a); moonshot's too
+    ("qwen2-vl", 4, 2048, 64, 8, 128),      # phase 12 (a): GQA group 8
+    ("musicgen", 4, 1500, 24, 24, 64),      # phase 12 (c): ragged S
+)
+
+
+def served_flash(torch, F, ops, ref, fa_mod, qkv, label, b, s, h, kv, hd):
+    """A served prefill's attention: q (b, s, h, hd), k/v (b, s, kv, hd)
+    bf16, causal, which ``route`` sends to the tensor-core kernel. Checked
+    as the other shapes (one launch), then timed beside the plain version,
+    one SDPA call (``enable_gqa`` where kv < h) and the bound (causal:
+    every (b, h) row i sees i + 1 keys, at the bf16 tensor-core rate).
+    Returns the shape's entry of the tensor-core kernel's row."""
+    q, k, v = qkv(b, s, s, h, kv, hd)
     if fa_mod.route(q, k, v) != "sm90":
-        raise AssertionError("route did not send qwen2-moe's shape to the "
+        raise AssertionError(f"route did not send {label}'s shape to the "
                              "tensor-core kernel")
-    label = f"qwen2-moe ({b},{s},{h},{hd}) MHA bf16"
+    heads = f"{h}/{kv}" if kv < h else f"{h}"
+    label = f"{label} ({b},{s},{heads},{hd}) " + \
+        ("MHA bf16" if kv == h else f"GQA group {h // kv} bf16")
     err = check_flash(ops, ref, q, k, v, label, "flash_attention_sm90")
     flops = 4 * hd * (b * h * s * (s + 1) // 2)
-    moved = q.element_size() * 4 * q.numel()
+    moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
     b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -506,13 +543,17 @@ def qwen2_moe_flash(torch, F, ops, ref, fa_mod, qkv):
 
     def plain():
         return ref.flash_attention_ref(q, k, v)
-    r = dict(shape=f"q/k/v ({b}, {s}, {h}, {hd}) bf16, causal, MHA",
+    shape = (f"q/k/v ({b}, {s}, {h}, {hd})" if kv == h else
+             f"q ({b}, {s}, {h}, {hd}), k/v ({b}, {s}, {kv}, {hd})")
+    r = dict(shape=f"{shape} bf16, causal, "
+             + ("MHA" if kv == h else f"GQA group {h // kv}"),
              max_abs_err=err, ms=graph_ms(kernel, iters=20, replays=3),
              call_ms=cuda_ms(kernel, iters=50),
              plain_ms=graph_ms(plain, iters=3, replays=3),
              plain_call_ms=cuda_ms(plain, iters=5, warmup=2),
              library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True), iters=10, replays=3),
+                 qt, kt, vt, is_causal=True, enable_gqa=kv < h), iters=10,
+                 replays=3),
              bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved)
     log(f"  flash_attention_sm90 {label}: {flops / 1e9:.1f} GFLOP unmasked, "
         f"{moved / 1e6:.1f} MB; kernel {flops / r['ms'] / 1e9:.1f} TFLOP/s; "
@@ -949,6 +990,88 @@ def moe_reference_phase(torch, ops, dev):
         f"{cfg.n_shared_experts} shared) agrees: prefill max err "
         f"{errs[0]:.3e}, decode max err {max(errs[1:]):.3e} (|logits| <= "
         f"{float(hl.abs().max()):.3f}); flash launches {moved}")
+
+
+def vl_positions(torch, b, n_img, n_txt, grid_w, dev):
+    """Qwen2-VL's (t, h, w) positions (b, n_img + n_txt, 3) for one image
+    of n_img patches in rows of ``grid_w`` followed by n_txt text tokens:
+    patch i at (0, i // grid_w, i % grid_w), text token j at m + j in all
+    three streams, m one past the grid's largest index."""
+    i = torch.arange(n_img, device=dev)
+    img = torch.stack([torch.zeros_like(i), i // grid_w, i % grid_w], -1)
+    start = int(img.max()) + 1
+    txt = (start + torch.arange(n_txt, device=dev))[:, None].expand(n_txt, 3)
+    return torch.cat([img, txt])[None].expand(b, n_img + n_txt, 3)
+
+
+def frontend_prompt(torch, cfg, b, s, g, dev, grid_w=16):
+    """A served prompt of the config's frontend drawn from ``g``: vision
+    min(256, s // 2) bf16 patch embeddings, s - n_img text tokens and the
+    position grid (``vl_positions``); audio (b, s, nq) codes."""
+    if cfg.frontend == "audio_codec":
+        return {"codes": torch.randint(0, cfg.vocab_size,
+                                       (b, s, cfg.n_codebooks), generator=g,
+                                       device=dev)}
+    n_img = min(256, s // 2)
+    return {"embeds": torch.randn((b, n_img, cfg.frontend_dim), generator=g,
+                                  device=dev).bfloat16(),
+            "tokens": torch.randint(0, cfg.vocab_size, (b, s - n_img),
+                                    generator=g, device=dev),
+            "positions": vl_positions(torch, b, n_img, s - n_img, grid_w,
+                                      dev)}
+
+
+def frontend_reference_phase(torch, ops, dev):
+    """Phase 3, the frontends: the smoke qwen2-vl (2 layers, d_model 256,
+    GQA 4/2, M-RoPE (8, 12, 12), 128-wide patch embeddings; 20 patches in
+    rows of 4 and 20 text tokens, so the three position streams differ)
+    and the smoke musicgen (2 layers, 2 codebooks of 512; 40 frames) in
+    float32 (TF32 off), the same parameters and prompt on the card (the
+    CUDA-core flash kernel once a layer) and on the host (plain versions),
+    prefill then 8 teacher-forced decode steps, logits within 1e-3
+    absolute (phase 3's f32 bound)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    for arch in ("qwen2-vl-72b", "musicgen-medium"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        model = build_model(cfg)
+        host_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+        card_p = tree_map(lambda a: a.to(dev), host_p)
+        g = torch.Generator().manual_seed(1)
+        prompt = frontend_prompt(torch, cfg, 2, 40, g, "cpu", grid_w=4)
+        if cfg.frontend == "audio_codec":
+            steps = [{"codes": torch.randint(0, cfg.vocab_size,
+                                             (2, 1, cfg.n_codebooks),
+                                             generator=g)} for _ in range(8)]
+        else:
+            steps = [{"token": torch.randint(0, cfg.vocab_size, (2, 1),
+                                             generator=g)} for _ in range(8)]
+        hl, hc = model.prefill(host_p, prompt, max_len=48)
+        before = {n: k.launches for n, k in ops.KERNELS.items()}
+        cl, cc = model.prefill(card_p, {k: v.to(dev) for k, v in
+                                        prompt.items()}, max_len=48,
+                               use_flash=True)
+        moved = {n: k.launches - before[n] for n, k in ops.KERNELS.items()}
+        want = {n: (cfg.n_layers if n == "flash_attention" else 0)
+                for n in moved}
+        if moved != want:
+            raise AssertionError(f"small {arch} prefill launched {moved}, "
+                                 f"expected {want}")
+        errs = [float((cl.cpu() - hl).abs().max())]
+        for step in steps:
+            hl, hc = model.decode(host_p, hc, step)
+            cl, cc = model.decode(card_p, cc,
+                                  {k: v.to(dev) for k, v in step.items()})
+            errs.append(float((cl.cpu() - hl).abs().max()))
+        if max(errs) > 1e-3:
+            raise AssertionError(f"small {arch} float32: logits differ by "
+                                 f"{errs} (tol 1e-3)")
+        log(f"  small {arch} float32 ({cfg.n_layers} layers, logits "
+            f"{tuple(hl.shape)}) agrees: prefill max err {errs[0]:.3e}, "
+            f"decode max err {max(errs[1:]):.3e} (|logits| <= "
+            f"{float(hl.abs().max()):.3f}); flash launches {moved}")
 
 
 def device_profile(torch, label, fn, top=6):
@@ -2263,7 +2386,8 @@ RECURRENT_SERVES = (
     ("xlstm-125m", 4, 2048, 32, None, 0))
 
 
-def _routes_against_f32(torch, ops, model, params, tokens, lk, lp, n_flash):
+def _routes_against_f32(torch, ops, model, params, batch, lk, lp, n_flash,
+                        rows=None, by="max"):
     """The served prefill's kernel route held to its plain route at full
     width. In bf16 the two differ by more than the kernel does: its output
     agrees with the plain (chunked, f32) route's to a bf16 rounding (phase
@@ -2272,28 +2396,41 @@ def _routes_against_f32(torch, ops, model, params, tokens, lk, lp, n_flash):
     more with float32 activations through both routes, which must agree
     within 1e-3 (phase 5's f32 bound: the routes differ only in the order
     of f32 sums), and against those f32 plain logits the bf16 kernel route
-    may be at most 3e-2 farther than the bf16 plain route. Returns the
-    checks; prints the errors."""
+    may be at most 3e-2 farther than the bf16 plain route: by the largest
+    error (``by="max"``) or by the root mean square over the logits
+    (``by="rms"``, phase 12: on a wider model one logit of the chaotic
+    bf16 amplification decides the largest error, see PERF.md). Both are
+    printed. ``batch`` is the prefill batch of the bf16 logits lk (kernel)
+    and lp (plain); with ``rows`` the f32 prefills take its first ``rows``
+    rows (the f32 route at batch 1, as phase 5 serves it) and are held to
+    those rows of lk and lp. Returns the checks; prints the errors."""
     import dataclasses
     from repro_torch.models.registry import build_model
     m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    if rows is not None:
+        batch = {k: v[:rows] for k, v in batch.items()}
+        lk, lp = lk[:rows], lp[:rows]
     before = ops.KERNELS["flash_attention"].launches
-    lk32, _ = m32.prefill(params, {"tokens": tokens}, use_flash=True)
+    lk32, _ = m32.prefill(params, batch, use_flash=True)
     launched = ops.KERNELS["flash_attention"].launches - before
-    lp32, _ = m32.prefill(params, {"tokens": tokens}, use_flash=False)
+    lp32, _ = m32.prefill(params, batch, use_flash=False)
     err32 = float((lk32 - lp32).abs().max())
-    err_k = float((lk - lp32).abs().max())
-    err_p = float((lp - lp32).abs().max())
+    err = {route: (float((lb - lp32).abs().max()),
+                   float((lb - lp32).square().mean().sqrt()))
+           for route, lb in (("kernel", lk), ("plain", lp))}
     log(f"  {model.cfg.name} f32 prefill, kernel vs plain route: max err "
         f"{err32:.3e} ({launched} flash_attention launches); bf16 routes "
-        f"against the f32 plain logits: kernel {err_k:.3e}, plain "
-        f"{err_p:.3e}")
+        f"against the f32 plain logits: kernel max {err['kernel'][0]:.3e} "
+        f"rms {err['kernel'][1]:.3e}, plain max {err['plain'][0]:.3e} rms "
+        f"{err['plain'][1]:.3e}")
+    i = 0 if by == "max" else 1
     return {
         f"f32 prefill launched flash_attention {n_flash} times":
             launched == n_flash,
         "f32 prefill: kernel route vs plain route within 1e-3": err32 <= 1e-3,
-        "bf16 prefill: kernel route at most 3e-2 farther from the f32 plain "
-        "logits than the bf16 plain route": err_k <= err_p + 3e-2,
+        f"bf16 prefill: kernel route at most 3e-2 farther ({by}) from the f32 "
+        "plain logits than the bf16 plain route":
+            err["kernel"][i] <= err["plain"][i] + 3e-2,
     }
 
 
@@ -2351,7 +2488,8 @@ def recurrent_serve_phase(torch, ops, dev):
         }
         if n_flash:
             checks.update(_routes_against_f32(torch, ops, model, params,
-                                              tokens, res.logits, lp, n_flash))
+                                              {"tokens": tokens}, res.logits,
+                                              lp, n_flash))
         steps = gen - 1
         step_ms = res.decode_s * 1e3 / steps
         log(f"  {arch} prefill {batch}x{prompt}: {res.prefill_s * 1e3:.2f} "
@@ -2402,7 +2540,7 @@ def _release(torch):
     torch.cuda.empty_cache()
 
 
-def _draw_moe(torch, model, dev):
+def _draw(torch, model, dev):
     """The model's weights drawn from seed 0 on the card, with the draw's
     seconds and peak (each leaf is scaled in place: the peak is the
     weights); returns (params, the generator, now past the draws)."""
@@ -2419,44 +2557,61 @@ def _draw_moe(torch, model, dev):
     return params, g
 
 
-def _moe_serve(torch, ops, model, params, g, dev, batch, prompt, gen):
-    """A warm-up serve of 256-token prompts, then the serve of ``batch`` x
-    ``prompt`` + ``gen`` tokens with every launch count set to 0 just
-    before it and read just after; prints prefill ms, tokens/s, decode ms
-    a step and the peak. Returns (result, tokens, launches, checks)."""
+def _timed_serve(torch, ops, model, params, g, dev, prompt, warm, gen):
+    """A warm-up serve of ``warm``, then the serve of ``prompt`` (a (B, S)
+    token tensor or a frontend's prefill batch) + ``gen`` tokens with every
+    launch count set to 0 just before it and read just after; prints
+    prefill ms, tokens/s, decode ms a step and the peak. Checks that the
+    tensor-core flash kernel launched once per layer and nothing else did,
+    and the tokens' and logits' shapes (an audio model's carry the
+    codebook axis). Returns (result, launches, checks)."""
     from repro_torch.launch.serve import serve
     cfg = model.cfg
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
-                           device=dev)
-    serve(model, params, tokens[:, :256], 2, generator=g, device=dev)
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    b = next(iter(batch.values())).shape[0]
+    s = sum(batch[k].shape[1] for k in ("embeds", "tokens", "codes")
+            if k in batch)
+    serve(model, params, warm, 2, generator=g, device=dev)
     base = reset_peak(torch, f"{cfg.name} serve")
     for k in ops.KERNELS.values():
         k.launches = 0
-    res = serve(model, params, tokens, gen, temperature=1.0, generator=g,
+    res = serve(model, params, prompt, gen, temperature=1.0, generator=g,
                 device=dev)
     launches = {name: k.launches for name, k in ops.KERNELS.items()}
     peak = peak_text(torch, base)
     steps = gen - 1
-    log(f"  {cfg.name} prefill {batch}x{prompt}: {res.prefill_s * 1e3:.2f} ms"
-        f" ({batch * prompt / res.prefill_s:.0f} tok/s)")
-    log(f"  {cfg.name} decode {steps} steps x {batch} seqs: "
-        f"{res.decode_s * 1e3:.2f} ms ({steps * batch / res.decode_s:.0f} "
+    log(f"  {cfg.name} prefill {b}x{s}: {res.prefill_s * 1e3:.2f} ms"
+        f" ({b * s / res.prefill_s:.0f} tok/s)")
+    log(f"  {cfg.name} decode {steps} steps x {b} seqs: "
+        f"{res.decode_s * 1e3:.2f} ms ({steps * b / res.decode_s:.0f} "
         f"tok/s, {res.decode_s * 1e3 / steps:.3f} ms per step)")
     log(f"  {cfg.name} serve: {peak}")
     log(f"  {cfg.name} sampled tokens[0][:8] {res.tokens[0, :8].tolist()}; "
         f"launches {launches}")
     toks = res.tokens
+    nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     checks = {
         f"flash_attention_sm90 launched {cfg.n_layers} times (once per "
         "layer of the prefill), no other kernel":
             launches == {n: (cfg.n_layers if n == "flash_attention_sm90"
                              else 0) for n in launches},
-        f"tokens ({batch}, {gen}) in [0, vocab)":
-            tuple(toks.shape) == (batch, gen)
+        f"tokens {(b, gen) + nq} in [0, vocab)":
+            tuple(toks.shape) == (b, gen) + nq
             and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
         "prefill logits finite": bool(torch.isfinite(res.logits).all())
-            and tuple(res.logits.shape) == (batch, 1, cfg.vocab_size),
+            and tuple(res.logits.shape) == (b, 1) + nq + (cfg.vocab_size,),
     }
+    return res, launches, checks
+
+
+def _moe_serve(torch, ops, model, params, g, dev, batch, prompt, gen):
+    """``_timed_serve`` of ``batch`` x ``prompt`` tokens drawn from ``g``,
+    warmed up on their first 256. Returns (result, tokens, launches,
+    checks)."""
+    tokens = torch.randint(0, model.cfg.vocab_size, (batch, prompt),
+                           generator=g, device=dev)
+    res, launches, checks = _timed_serve(torch, ops, model, params, g, dev,
+                                         tokens, tokens[:, :256], gen)
     return res, tokens, launches, checks
 
 
@@ -2660,7 +2815,7 @@ def moe_serve_phase(torch, ops, dev):
     out = {}
     cfg = get_config("qwen2-moe-a2.7b")
     model = build_model(cfg)
-    params, g = _draw_moe(torch, model, dev)
+    params, g = _draw(torch, model, dev)
     batch, prompt, gen = 4, 2048, 32
     res, tokens, launches, checks = _moe_serve(torch, ops, model, params, g,
                                                dev, batch, prompt, gen)
@@ -2703,7 +2858,7 @@ def moe_serve_phase(torch, ops, dev):
         model = build_model(dataclasses.replace(full, n_layers=layers))
         log(f"  {arch}: {layers} of its {full.n_layers} layers "
             f"({build_model(full).n_params():,} parameters at full depth)")
-        params, g = _draw_moe(torch, model, dev)
+        params, g = _draw(torch, model, dev)
         _, _, launches, checks = _moe_serve(torch, ops, model, params, g, dev,
                                             4, 2048, 8)
         failed = [k_ for k_, ok in checks.items() if not ok]
@@ -2711,6 +2866,91 @@ def moe_serve_phase(torch, ops, dev):
             raise AssertionError(f"{arch} serving checks failed: {failed}")
         out[arch] = launches
         del params
+        _release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the vision-stub and audio-codec families served at full width
+# ---------------------------------------------------------------------------
+
+# arch, the layers served of its config's (qwen2-vl-72b's 80 layers are
+# 72,715,870,208 float32 parameters, 270.89 GiB; 8 are 35.48 GiB), batch,
+# prompt, generated tokens, and its parameter count at full depth (JAX's)
+FRONTEND_SERVES = (
+    ("qwen2-vl-72b", 8, 4, 2048, 32, 72_715_870_208),
+    ("musicgen-medium", 48, 4, 1500, 32, 1_837_254_144))
+
+
+def frontend_serve_phase(torch, ops, dev):
+    """Phase 12: (a) qwen2-vl-72b at full width cut to 8 of its 80 layers
+    and (c) musicgen-medium at full depth and width, weights drawn from
+    seed 0, served through ``launch.serve.serve`` at batch 4 with 32
+    sampled tokens: qwen2-vl on 2,048-token prompts of 256 bf16 patch
+    embeddings (width 1,280) and 1,792 text tokens with Qwen2-VL's
+    position grid (patch i at (0, i // 16, i % 16), text token j at 16 + j
+    in all three streams), decode continuing at ``pos`` in all three as
+    the JAX package does; musicgen on 1,500 frames of 4 codebooks (30 s of
+    50 Hz EnCodec codes), each step sampling all four. Each prefill must
+    launch ``flash_attention_sm90`` once a layer, a decode step nothing;
+    a profiled prefill and decode step. (b) The routes as
+    ``_routes_against_f32`` holds them, the f32 prefills at batch 1.
+    Returns {arch: the serve's launch counts}."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    _release(torch)
+    out = {}
+    for arch, layers, batch, prompt, gen, n_full in FRONTEND_SERVES:
+        full = get_config(arch)
+        model = build_model(dataclasses.replace(full, n_layers=layers))
+        log(f"  {arch}: {layers} of its {full.n_layers} layers "
+            f"({build_model(full).n_params():,} parameters at full depth)")
+        params, g = _draw(torch, model, dev)
+        cfg = model.cfg
+        batch_in = frontend_prompt(torch, cfg, batch, prompt, g, dev)
+        warm = frontend_prompt(torch, cfg, batch, 256, g, dev)
+        res, launches, checks = _timed_serve(torch, ops, model, params, g,
+                                             dev, batch_in, warm, gen)
+        checks["n_params at full depth equals JAX's"] = \
+            build_model(full).n_params() == n_full
+        if "positions" in batch_in:
+            p = batch_in["positions"]
+            checks["the three position streams differ"] = bool(
+                (p[..., 1] != p[..., 2]).any() and (p[..., 0] != p[..., 1])
+                .any())
+        step_ms = res.decode_s * 1e3 / (gen - 1)
+        (lk, cache), busy = device_profile(
+            torch, f"{arch} prefill {batch}x{prompt}", lambda: model.prefill(
+                params, batch_in, max_len=prompt + gen, use_flash=True))
+        if busy is not None:
+            log(f"  {arch} prefill device idle share "
+                f"{1 - busy / (res.prefill_s * 1e3):.3f} of the unprofiled "
+                f"prefill's {res.prefill_s * 1e3:.2f} ms")
+        feed = "codes" if cfg.frontend == "audio_codec" else "token"
+        n0 = {n: k.launches for n, k in ops.KERNELS.items()}
+        _, busy = device_profile(torch, f"{arch} one decode step",
+                                 lambda: model.decode(
+                                     params, cache,
+                                     {feed: res.tokens[:, :1]})[0])
+        checks["a decode step launched no kernel"] = \
+            n0 == {n: k.launches for n, k in ops.KERNELS.items()}
+        if busy is not None:
+            log(f"  {arch} decode device idle share {1 - busy / step_ms:.3f}"
+                f" of the unprofiled serve loop's {step_ms:.3f} ms per step")
+        del cache
+        lp = model.prefill(params, batch_in, use_flash=False)[0]
+        err = float((lk - lp).abs().max())
+        log(f"  {arch} bf16 prefill, kernel vs plain route: max err "
+            f"{err:.3e} (|logits| <= {float(lp.abs().max()):.3f})")
+        checks.update(_routes_against_f32(torch, ops, model, params,
+                                          batch_in, lk, lp, layers, rows=1,
+                                          by="rms"))
+        failed = [k_ for k_, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{arch} serving checks failed: {failed}")
+        out[arch] = launches
+        del params, res, lk, lp
         _release(torch)
     return out
 
@@ -2765,6 +3005,7 @@ def main() -> int:
     transformer_reference_phase(torch, ops, dev)
     recurrent_reference_phase(torch, ops, dev)
     moe_reference_phase(torch, ops, dev)
+    frontend_reference_phase(torch, ops, dev)
 
     log("== phase 4: smart-exchange main path at full width")
     launches = main_path(torch, ops, dev)
@@ -2805,6 +3046,12 @@ def main() -> int:
 
     log("== phase 11: serving the MoE family at full width")
     moe_served = moe_serve_phase(torch, ops, dev)
+
+    log("== phase 12: serving qwen2-vl-72b (8 layers) and musicgen-medium "
+        "at full width")
+    t12 = time.perf_counter()
+    frontends = frontend_serve_phase(torch, ops, dev)
+    log(f"  phase 12 {time.perf_counter() - t12:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -2824,6 +3071,8 @@ def main() -> int:
             moe_served["phi3.5-moe-42b-a6.6b"][name]
         row["moonshot_serve_launches"] = \
             moe_served["moonshot-v1-16b-a3b"][name]
+        row["qwen2_vl_serve_launches"] = frontends["qwen2-vl-72b"][name]
+        row["musicgen_serve_launches"] = frontends["musicgen-medium"][name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -2835,6 +3084,7 @@ def main() -> int:
             "traced_scan_launches", "recurrentgemma_serve_launches",
             "xlstm_serve_launches", "qwen2_moe_serve_launches",
             "phi35_moe_serve_launches", "moonshot_serve_launches",
+            "qwen2_vl_serve_launches", "musicgen_serve_launches",
             "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",

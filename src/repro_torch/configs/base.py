@@ -6,12 +6,13 @@ Every ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 (the exact full-size config) and ``smoke_config()`` (the reduced variant used
 by CPU tests: <= 2 layers, d_model <= 512).
 
-Only the fields the ported families read are here (the dense transformer,
-MoE, xLSTM and the RG-LRU hybrid), plus the switches that select an
-unported feature (``frontend``, ``mrope_sections``, ``act_seq_shard``): the
-model raises ``NotImplementedError`` naming ROADMAP when one of those is
-set. The other families' knobs come with their blocks (ROADMAP Queue 1,
-item 10).
+Holds the fields the ported families read: the dense transformer, MoE,
+xLSTM, the RG-LRU hybrid, the vision stub (``frontend="vision_stub"``,
+``frontend_dim``, M-RoPE's ``mrope_sections``) and the audio codec frontend
+(``frontend="audio_codec"``, ``n_codebooks``). ``act_seq_shard`` selects a
+feature the port lacks: the model raises ``NotImplementedError`` naming
+ROADMAP when it is set. ``scan_unroll`` (a lowering switch of the JAX
+package's roofline pass) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ class ModelConfig:
     attention: str = "causal"      # "causal" | "sliding"
     window: int = 4096             # sliding-window width
     rope_theta: float = 10_000.0
-    mrope_sections: Tuple[int, ...] = ()   # Qwen2-VL M-RoPE (unported)
+    mrope_sections: Tuple[int, ...] = ()   # Qwen2-VL M-RoPE (t, h, w) splits
     long_context_mode: str = "sliding_window"  # how long_500k is served
 
     # --- layer pattern (ssm / hybrid) ---
@@ -61,8 +62,10 @@ class ModelConfig:
     xlstm_proj_factor: float = 2.0  # mLSTM up-projection
     xlstm_conv_width: int = 4
 
-    # --- modality frontend (unported: anything but "none" raises) ---
-    frontend: str = "none"
+    # --- modality frontend (stubbed, as in the JAX package) ---
+    frontend: str = "none"         # "none" | "vision_stub" | "audio_codec"
+    frontend_dim: int = 0          # stub embedding dim (vision patches)
+    n_codebooks: int = 0           # musicgen EnCodec codebooks
 
     # --- numerics ---
     dtype: str = "bfloat16"        # activation dtype
@@ -111,6 +114,7 @@ class ModelConfig:
             head_dim=64,
             window=128,
             local_window=64,
+            frontend_dim=min(self.frontend_dim, 128) if self.frontend_dim else 0,
         )
         if self.is_moe:
             base.update(

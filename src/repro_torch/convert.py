@@ -32,7 +32,10 @@ def lm_params(tree, device="cpu") -> dict:
     (...), "final_norm", "head"}), attention and recurrent blocks alike;
     the layouts match, so this is a copy. An MoE block's ``moe`` sub-tree
     (router, the stacked experts' wi_gate / wi_up / wo, and ``shared``)
-    comes across the same way."""
+    comes across the same way, and so do the frontends' leaves: the vision
+    stub's projector ``embed.proj`` (frontend_dim, D) and the audio
+    codec's stacked codebook table ``embed.tok`` (nq, V, D) with its head
+    (D, nq * V)."""
     return tree_map(lambda a: _tensor(a, device), tree)
 
 

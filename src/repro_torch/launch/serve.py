@@ -4,14 +4,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-``--arch`` takes every ported config: the Llama family, the MoE family
+``--arch`` takes every config: the Llama family, the MoE family
 (``qwen2-moe-a2.7b``, ``phi3.5-moe-42b-a6.6b``, ``moonshot-v1-16b-a3b``),
-``xlstm-125m`` and ``recurrentgemma-2b``. The prefill runs attention through
-the flash kernel (``use_flash=True``): on the card the hand-written kernel,
-on the host its plain version. xLSTM has no attention; the MoE family's
-attention (bf16, head_dim 128) and recurrentgemma's local attention (bf16,
-head_dim 256) take the tensor-core flash kernel, their float32 variants the
-CUDA-core one.
+``xlstm-125m``, ``recurrentgemma-2b``, the vision stub ``qwen2-vl-72b`` and
+the audio codec ``musicgen-medium``. The prefill runs attention through the
+flash kernel (``use_flash=True``): on the card the hand-written kernel, on
+the host its plain version. xLSTM has no attention; the other families'
+bf16 attention (head_dim 64, 128 or 256) takes the tensor-core flash
+kernel, their float32 variants the CUDA-core one.
+
+For qwen2-vl, ``main`` builds the prefill batch its ``prefill`` takes:
+min(256, S // 2) random bf16 patch embeddings of width ``frontend_dim``,
+then S - n_img text tokens, all drawn from the run's generator (the JAX
+launcher feeds every non-audio family ``{"tokens"}`` alone, which its
+vision model cannot take). For musicgen it draws (B, S, nq) codes; each
+step samples every codebook, so its tokens are (B, gen, nq).
 """
 from __future__ import annotations
 
@@ -26,13 +33,16 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models.registry import Model, build_model
 
+VLM_IMG_TOKENS = 256  # patch embeddings ahead of the text in main's batch
+
 
 @dataclasses.dataclass
 class ServeResult:
-    tokens: torch.Tensor     # (B, gen) sampled token ids
+    tokens: torch.Tensor     # (B, gen) sampled token ids; audio (B, gen, nq)
     prefill_s: float         # prefill, host clock ending in a device sync
     decode_s: float          # gen - 1 decode steps with their sampling
-    logits: torch.Tensor     # (B, 1, V) the prefill's last-token logits
+    logits: torch.Tensor     # (B, 1, V) the prefill's last-token logits;
+                             # audio (B, 1, nq, V)
 
 
 def gumbel_noise(generator: torch.Generator, shape) -> torch.Tensor:
@@ -43,7 +53,8 @@ def gumbel_noise(generator: torch.Generator, shape) -> torch.Tensor:
 
 
 def sample(logits, temperature: float, noise):
-    """Categorical draw by the Gumbel-max trick: what
+    """Categorical draw by the Gumbel-max trick over the last axis (an
+    audio model's (B, 1, nq, V) logits: one draw per codebook): what
     ``jax.random.categorical(key, logits / T)`` computes from the Gumbel
     draws of that key."""
     return torch.argmax(logits / max(temperature, 1e-4) + noise, dim=-1)
@@ -54,20 +65,29 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(model: Model, params, tokens, gen: int, *, temperature=1.0,
+def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
           gumbel: Optional[torch.Tensor] = None,
           generator: Optional[torch.Generator] = None,
           device="cuda") -> ServeResult:
-    """Prefill ``tokens`` (B, S) into a cache of capacity S + gen, then
-    sample ``gen`` tokens, one decode step per token after the first.
+    """Prefill ``prompt`` into a cache of capacity S + gen, then sample
+    ``gen`` tokens, one decode step per token after the first.
 
-    ``gumbel`` (gen, B, 1, V) is the sampling noise, step by step (the JAX
-    launcher's draws from ``key`` for the first token, then from
-    ``fold_in(key, i)``); without it the noise is drawn from ``generator``
-    (seeded 0 on the device when not given)."""
+    ``prompt`` is a (B, S) token tensor or the batch ``model.prefill``
+    takes: {"embeds" (B, S_img, F), "tokens" (B, S - S_img)[, "positions"
+    (B, S, 3)]} for the vision stub, {"codes" (B, S, nq)} for the audio
+    codec. Decode is fed each sampled token as the JAX launcher feeds it:
+    {"codes": (B, 1, nq)} for audio, else {"token": (B, 1)}.
+
+    ``gumbel`` (gen, B, 1, V), audio (gen, B, 1, nq, V), is the sampling
+    noise, step by step (the JAX launcher's draws from ``key`` for the
+    first token, then from ``fold_in(key, i)``); without it the noise is
+    drawn from ``generator`` (seeded 0 on the device when not given)."""
     dev = resolve_device(device)
-    tokens = torch.as_tensor(tokens, device=dev)
-    b, s = tokens.shape
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    s = sum(batch[k].shape[1] for k in ("embeds", "tokens", "codes")
+            if k in batch)
+    feed = "codes" if model.cfg.frontend == "audio_codec" else "token"
     if gumbel is None and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
@@ -77,7 +97,7 @@ def serve(model: Model, params, tokens, gen: int, *, temperature=1.0,
         return gumbel_noise(generator, shape).to(dev)
 
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len=s + gen,
+    logits, cache = model.prefill(params, batch, max_len=s + gen,
                                   use_flash=True)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -86,7 +106,7 @@ def serve(model: Model, params, tokens, gen: int, *, temperature=1.0,
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = model.decode(params, cache, {"token": tok})
+        logits, cache = model.decode(params, cache, {feed: tok})
         tok = sample(logits, temperature, noise(i + 1, logits.shape))
         out.append(tok)
     _sync(dev)
@@ -111,9 +131,22 @@ def main(argv=None):
     generator = torch.Generator(device=dev).manual_seed(0)
     params = model.init(generator, device=dev)
     b, s = args.batch, args.prompt_len
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
-                           device=dev)
-    res = serve(model, params, tokens, args.gen,
+    if cfg.frontend == "audio_codec":
+        prompt = {"codes": torch.randint(0, cfg.vocab_size,
+                                         (b, s, cfg.n_codebooks),
+                                         generator=generator, device=dev)}
+    elif cfg.frontend == "vision_stub":
+        n_img = min(VLM_IMG_TOKENS, s // 2)
+        prompt = {
+            "embeds": torch.randn((b, n_img, cfg.frontend_dim),
+                                  generator=generator, device=dev
+                                  ).to(torch.bfloat16),
+            "tokens": torch.randint(0, cfg.vocab_size, (b, s - n_img),
+                                    generator=generator, device=dev)}
+    else:
+        prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
+                               device=dev)
+    res = serve(model, params, prompt, args.gen,
                 temperature=args.temperature, generator=generator, device=dev)
     print(f"prefill {b}x{s}: {res.prefill_s*1e3:.1f} ms "
           f"({b*s/res.prefill_s:.0f} tok/s)")

@@ -32,13 +32,26 @@ class TrainResult:
 
 
 def synth_batch(cfg, generator: torch.Generator, b: int, s: int) -> dict:
-    """A (b, s) batch of uniform token ids, its own labels, drawn on the
-    generator's device."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"not ported yet: ROADMAP Queue 1, item 10 "
-                                  f"(the {cfg.frontend} frontend)")
-    t = torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
-                      device=generator.device)
+    """A batch of sequence length s drawn on the generator's device, in the
+    reference's shapes and dtypes: (b, s) uniform token ids as their own
+    labels; audio (b, s, nq) codes as their own labels; vision min(64,
+    s // 2) standard normal bf16 patch embeddings, s - n_img text tokens
+    and (b, s) uniform labels."""
+    dev = generator.device
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=generator,
+                             device=dev)
+    if cfg.frontend == "audio_codec":
+        c = ids(b, s, cfg.n_codebooks)
+        return {"codes": c, "labels": c}
+    if cfg.frontend == "vision_stub":
+        n_img = min(64, s // 2)
+        return {"embeds": torch.randn((b, n_img, cfg.frontend_dim),
+                                      generator=generator, device=dev
+                                      ).to(torch.bfloat16),
+                "tokens": ids(b, s - n_img), "labels": ids(b, s)}
+    t = ids(b, s)
     return {"tokens": t, "labels": t}
 
 

@@ -1,5 +1,6 @@
-"""Decoder backbone: the dense-attention, MoE, xLSTM and RG-LRU hybrid
-families (mirrors ``repro.models.transformer``).
+"""Decoder backbone: the dense-attention, MoE, xLSTM, RG-LRU hybrid,
+vision-stub and audio-codec families (mirrors
+``repro.models.transformer``).
 
 Layer stacking: layers are grouped into *units* of ``len(block_pattern)``
 layers, and each unit's parameters are stacked along a leading n_units axis,
@@ -31,8 +32,17 @@ residual branch; each adds its router loss times ``cfg.router_aux_weight``
 to ``aux``, which the blocks pass along and ``forward_train`` adds to the
 loss (prefill and decode drop it, as the reference does).
 
-The vision and audio frontends, M-RoPE and ``act_seq_shard`` are not
-ported yet and raise ``NotImplementedError`` (ROADMAP Queue 1).
+The modality frontends are stubs, as in the JAX package. The vision stub
+(``frontend="vision_stub"``) takes ``{"embeds": (B, S_img, frontend_dim),
+"tokens": (B, S_txt)}``: a linear projector ``embed.proj`` maps the patch
+embeddings into d_model ahead of the text tokens' embeddings, and M-RoPE
+rotates by (B, S, 3) (t, h, w) positions (each stream at the token index
+when the batch gives none; a decode step puts all three at its position).
+The audio codec (``frontend="audio_codec"``) takes ``{"codes": (B, S,
+nq)}``: ``embed.tok`` is (nq, V, D), the codebooks' embeddings are summed
+in order in the activation dtype, and the head's nq * V columns reshape to
+logits (B, S, nq, V), codebook-major. ``act_seq_shard`` is not ported yet
+and raises ``NotImplementedError`` (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 _LATER = "not ported yet: ROADMAP Queue 1, item {}"
 
@@ -99,14 +109,19 @@ def block_specs(cfg, kind: str):
 
 def model_specs(cfg):
     """Full parameter Spec tree. Stacked units + unrolled tail."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(_LATER.format(
-            f"10: the {cfg.frontend} frontend (qwen2-vl, musicgen)"))
     period = len(cfg.block_pattern)
     n_units, n_tail = divmod(cfg.n_layers, period)
-    specs: dict[str, Any] = {
-        "embed": {"tok": cm.Spec((cfg.vocab_size, cfg.d_model),
-                                 ("vocab", "d_model"))}}
+    emb: dict[str, Any] = {}
+    if cfg.frontend == "audio_codec":
+        emb["tok"] = cm.Spec((cfg.n_codebooks, cfg.vocab_size, cfg.d_model),
+                             (None, "vocab", "d_model"))
+    else:
+        emb["tok"] = cm.Spec((cfg.vocab_size, cfg.d_model),
+                             ("vocab", "d_model"))
+    if cfg.frontend == "vision_stub":
+        emb["proj"] = cm.Spec((cfg.frontend_dim, cfg.d_model),
+                              (None, "d_model"))
+    specs: dict[str, Any] = {"embed": emb}
     specs["scan"] = tuple(
         cm.stack_specs(block_specs(cfg, kind), n_units)
         for kind in cfg.block_pattern
@@ -116,7 +131,8 @@ def model_specs(cfg):
         for i in range(n_tail)
     )
     specs["final_norm"] = cm.Spec((cfg.d_model,), ("d_model",), "zeros")
-    specs["head"] = cm.Spec((cfg.d_model, cfg.vocab_size), ("d_model", "vocab"))
+    out_v = cfg.vocab_size * max(cfg.n_codebooks, 1)
+    specs["head"] = cm.Spec((cfg.d_model, out_v), ("d_model", "vocab"))
     return specs
 
 
@@ -199,7 +215,8 @@ def _project_qkv(p, x, cfg):
 
 def _apply_rope(q, k, positions, cfg):
     if cfg.mrope_sections:
-        raise NotImplementedError(_LATER.format("10: M-RoPE (the vision family)"))
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -222,7 +239,8 @@ def _ffn(p, x, cfg, aux):
 
 def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
                    use_flash=False):
-    """Train/prefill attention block; returns (x, aux). positions: (B,S).
+    """Train/prefill attention block; returns (x, aux). positions: (B,S),
+    or (B,S,3) under M-RoPE.
     A prefill passes ``cache`` ({"k", "v"} ring buffers from
     :func:`init_cache`) and the block writes its K/V there."""
     window = None
@@ -249,10 +267,12 @@ def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
 
 def attn_block_step(p, cache, x, cfg, pos: int, aux):
     """Single-token decode; returns (x, aux). x: (B,1,D); pos: absolute
-    position. Writes the token's K/V into ``cache`` in place."""
+    position (under M-RoPE every stream at ``pos``). Writes the token's K/V
+    into ``cache`` in place."""
     q, k, v = _project_qkv(p, cm.rms_norm(x, p["ln1"]), cfg)
     b = x.shape[0]
-    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    posb = torch.full((b, 1, 3) if cfg.mrope_sections else (b, 1), pos,
+                      dtype=torch.int64, device=x.device)
     q, k = _apply_rope(q, k, posb, cfg)
     w = cache["k"].shape[1]
     kc, vc = attn.cache_write(cache["k"], cache["v"], k, v, pos, w)
@@ -311,26 +331,50 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos, aux,
 # embedding / head
 # ---------------------------------------------------------------------------
 
+def _embed_codes(codes, table, dtype):
+    """The codebooks' embeddings of codes (..., nq), summed in codebook
+    order in ``dtype`` from an exact first term, as the reference's Python
+    ``sum`` adds them."""
+    x = cm.embed_lookup(codes[..., 0], table[0], dtype)
+    for qi in range(1, table.shape[0]):
+        x = x + cm.embed_lookup(codes[..., qi], table[qi], dtype)
+    return x
+
+
 def embed_inputs(params, batch, cfg):
-    """Returns (x: (B,S,D), positions, labels or None)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(_LATER.format(f"10: the {cfg.frontend} frontend"))
-    tokens = batch["tokens"]
-    x = cm.embed_lookup(tokens, params["embed"]["tok"], cfg.act_dtype)
-    b, s = tokens.shape
+    """Returns (x: (B,S,D), positions, labels or None). The batch is
+    {"tokens"}, {"embeds", "tokens"} (vision: the projected patches first)
+    or {"codes"} (audio), each with optional "positions" and "labels"."""
+    emb = params["embed"]
+    dtype = cfg.act_dtype
+    if cfg.frontend == "audio_codec":
+        x = _embed_codes(batch["codes"], emb["tok"], dtype)   # codes (B,S,nq)
+    elif cfg.frontend == "vision_stub":
+        ximg = torch.matmul(batch["embeds"].to(dtype), emb["proj"].to(dtype))
+        xtxt = cm.embed_lookup(batch["tokens"], emb["tok"], dtype)
+        x = torch.cat([ximg, xtxt], dim=1)
+    else:
+        x = cm.embed_lookup(batch["tokens"], emb["tok"], dtype)
+    b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if cfg.mrope_sections:
+            positions = positions[..., None].expand(b, s, 3)
     return x, positions, batch.get("labels")
 
 
 def logits_from_hidden(params, x, cfg):
     """Final norm and LM head: x's dtype operands, ``cfg.logits_dtype``
     products and sums (float32 by default, so bf16 logits are not rounded
-    to bf16)."""
+    to bf16). An audio config's logits are (B, S, nq, V)."""
     x = cm.rms_norm(x, params["final_norm"])
-    return cm.dense(x, params["head"].to(x.dtype),
-                    getattr(torch, cfg.logits_dtype))
+    logits = cm.dense(x, params["head"].to(x.dtype),
+                      getattr(torch, cfg.logits_dtype))
+    if cfg.n_codebooks:
+        logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks,
+                                cfg.vocab_size)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -413,9 +457,14 @@ def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False):
 
 
 def forward_decode(params, cache, batch, cfg):
-    """One new token. batch: {"token": (B,1)}. Returns (logits, cache): the
-    cache's buffers are updated in place and its position advanced."""
+    """One new token. batch: {"token": (B,1)} or, audio, {"codes": (B,1,nq)}.
+    Returns (logits, cache): the cache's buffers are updated in place and
+    its position advanced."""
     pos = cache["pos"]
-    x = cm.embed_lookup(batch["token"], params["embed"]["tok"], cfg.act_dtype)
+    if cfg.frontend == "audio_codec":
+        x = _embed_codes(batch["codes"], params["embed"]["tok"], cfg.act_dtype)
+    else:
+        x = cm.embed_lookup(batch["token"], params["embed"]["tok"],
+                            cfg.act_dtype)
     x, _ = _run_stack(params, cache, x, cfg, None, mode="decode", pos=pos)
     return logits_from_hidden(params, x, cfg), dict(cache, pos=pos + 1)

@@ -64,6 +64,7 @@ def test_port_has_the_slice_modules():
                 "configs/xlstm_125m.py", "configs/recurrentgemma_2b.py",
                 "models/moe.py", "configs/qwen2_moe_a27b.py",
                 "configs/phi35_moe_42b.py", "configs/moonshot_v1_16b.py",
+                "configs/qwen2_vl_72b.py", "configs/musicgen_medium.py",
                 "launch/serve.py", "dynamics/__init__.py",
                 "dynamics/scenarios.py", "dynamics/environment.py",
                 "dynamics/metrics.py", "dynamics/runstate.py",

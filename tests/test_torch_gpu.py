@@ -224,6 +224,8 @@ SM90_CASES = [  # b, s, lk, h, kv, hd, causal, window, q_offset
     (1, 130, 130, 2, 2, 256, True, None, 0),    # ragged S = L
     (1, 64, 200, 4, 1, 256, True, None, 136),   # chunked prefill
     (2, 256, 256, 4, 1, 256, False, None, 0),   # non-causal
+    (1, 300, 300, 16, 2, 128, True, None, 0),   # GQA group 8 (qwen2-vl's)
+    (1, 1500, 1500, 24, 24, 64, True, None, 0),  # musicgen's MHA, ragged
 ]
 
 
@@ -400,3 +402,48 @@ def test_small_moe_card_matches_host(dev, dispatch):
     k = cfg.experts_per_token
     assert float((top[..., k - 1] - top[..., k]).min()) > 1e-5
     assert torch.equal(r_host.keep, r_card.keep.cpu())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-medium"])
+def test_small_frontends_card_matches_host(dev, arch):
+    """The smoke qwen2-vl (patch embeddings and text, with Qwen2-VL's
+    position grid so that M-RoPE's three streams differ) and the smoke
+    musicgen (2 codebooks) in float32 on the card and on the host from the
+    same weights and prompt: prefill (the CUDA-core flash kernel once a
+    layer) and 8 decode steps, logits within 1e-3 absolute (phase 3's
+    bound)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(dev), host)
+    g = torch.Generator().manual_seed(1)
+    if cfg.frontend == "audio_codec":
+        codes = torch.randint(0, cfg.vocab_size, (2, 48, cfg.n_codebooks),
+                              generator=g)
+        prompt = {"codes": codes[:, :40]}
+        steps = [{"codes": codes[:, t:t + 1]} for t in range(40, 48)]
+    else:
+        i = torch.arange(20)
+        img = torch.stack([torch.zeros_like(i), i // 4, i % 4], -1)
+        txt = (5 + torch.arange(20))[:, None].expand(20, 3)
+        toks = torch.randint(0, cfg.vocab_size, (2, 28), generator=g)
+        prompt = {"embeds": torch.randn((2, 20, cfg.frontend_dim),
+                                        generator=g).bfloat16(),
+                  "tokens": toks[:, :20],
+                  "positions": torch.cat([img, txt])[None].expand(2, 40, 3)}
+        steps = [{"token": toks[:, t:t + 1]} for t in range(20, 28)]
+    hl, hc = model.prefill(host, prompt, max_len=48)
+    before = ops.KERNELS["flash_attention"].launches
+    cl, cc = model.prefill(card, {k: v.to(dev) for k, v in prompt.items()},
+                           max_len=48, use_flash=True)
+    assert ops.KERNELS["flash_attention"].launches == before + cfg.n_layers
+    torch.testing.assert_close(cl.cpu(), hl, rtol=0, atol=1e-3)
+    for step in steps:
+        hl, hc = model.decode(host, hc, step)
+        cl, cc = model.decode(card, cc, {k: v.to(dev) for k, v in
+                                         step.items()})
+        torch.testing.assert_close(cl.cpu(), hl, rtol=0, atol=1e-3)

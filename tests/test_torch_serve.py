@@ -25,17 +25,24 @@ from repro_torch.models.registry import build_model
 MARGIN = 1e-4
 
 
-def _jax_serve(jm, params, tokens, gen, temperature, key):
+def _jax_serve(jm, params, prompt, gen, temperature, key):
     """The JAX launcher's loop (repro/launch/serve.py), returning its tokens,
-    the Gumbel draws of each step's key and each step's top-two margin."""
-    b, s = tokens.shape
-    prefill = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t},
-                                              max_len=s + gen))
-    decode = jax.jit(lambda p, c, t: jm.decode(p, c, {"token": t}))
+    the Gumbel draws of each step's key and each step's top-two margin.
+
+    ``prompt`` is a (B, S) token array or a prefill batch ({"embeds",
+    "tokens"[, "positions"]} for the vision stub, {"codes"} for the audio
+    codec); decode is fed as the launcher's ``tok_of`` feeds it. An audio
+    model samples every codebook: tokens and margins are (B, gen, nq)."""
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    s = sum(batch[k].shape[1] for k in ("embeds", "tokens", "codes")
+            if k in batch)
+    feed = "codes" if jm.cfg.frontend == "audio_codec" else "token"
+    prefill = jax.jit(lambda p, bt: jm.prefill(p, bt, max_len=s + gen))
+    decode = jax.jit(lambda p, c, t: jm.decode(p, c, {feed: t}))
     step = jax.jit(lambda lg, kk: (
         jax.random.categorical(kk, lg / max(temperature, 1e-4), axis=-1),
         jax.random.gumbel(kk, lg.shape)))
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, batch)
     first = logits
     keys = [key] + [jax.random.fold_in(key, i) for i in range(gen - 1)]
     toks, noise, margins = [], [], []

@@ -219,6 +219,9 @@ def test_configs_and_entry_points_match_jax():
     assert mm.n_active_params() == jbuild(jmoe).n_active_params() < \
         mm.n_params()
     vis = dataclasses.replace(get_smoke_config("llama3.2-1b"),
-                              frontend="vision_stub")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlaunch.synth_batch(vis, torch.Generator(), 1, 4)
+                              frontend="vision_stub", frontend_dim=8)
+    batch = tlaunch.synth_batch(vis, torch.Generator(), 1, 4)
+    assert {k: tuple(v.shape) for k, v in batch.items()} == \
+        {"embeds": (1, 2, 8), "tokens": (1, 2), "labels": (1, 4)}
+    assert batch["embeds"].dtype == torch.bfloat16
+    assert get_config("qwen2-vl-72b").frontend == "vision_stub"

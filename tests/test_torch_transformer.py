@@ -82,7 +82,9 @@ def test_specs_and_param_counts_match_jax(arch):
             "recurrentgemma-2b": 3_549_934_080,
             "qwen2-moe-a2.7b": 14_315_587_584,
             "phi3.5-moe-42b-a6.6b": 41_872_527_360,
-            "moonshot-v1-16b-a3b": 28_888_467_456}
+            "moonshot-v1-16b-a3b": 28_888_467_456,
+            "qwen2-vl-72b": 72_715_870_208,
+            "musicgen-medium": 1_837_254_144}
     if arch in want:
         assert m.n_params() == want[arch]
 
@@ -164,9 +166,10 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    """The frontends and M-RoPE raise, naming their ROADMAP item; MoE and
-    the recurrent kinds (rglru, mlstm, slstm) build, MoE with JAX's
-    parameter counts."""
+    """``act_seq_shard`` raises, naming its ROADMAP item; MoE, the
+    recurrent kinds (rglru, mlstm, slstm), the vision stub with M-RoPE and
+    the audio codec build, MoE and the frontends with JAX's parameter
+    counts."""
     moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4,
                               experts_per_token=2, moe_d_ff=256)
     jmoe = dataclasses.replace(jget_smoke("llama3.2-1b"), n_experts=4,
@@ -179,16 +182,30 @@ def test_unported_families_raise_naming_the_roadmap():
         cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                                   block_pattern=(kind,))
         assert build_model(cfg).n_params() > 0
-    vlm = dataclasses.replace(get_smoke_config("llama3.2-1b"),
-                              frontend="vision_stub")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        build_model(vlm)
+    over = {"vision_stub": dict(frontend="vision_stub", frontend_dim=128,
+                                mrope_sections=(8, 12, 12)),
+            "audio_codec": dict(frontend="audio_codec", n_codebooks=2)}
+    for kw in over.values():
+        m = build_model(dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                                            **kw))
+        jm = jbuild(dataclasses.replace(jget_smoke("llama3.2-1b"), **kw))
+        assert m.n_params() == jm.n_params()
+    assert "proj" in build_model(dataclasses.replace(
+        get_smoke_config("llama3.2-1b"), **over["vision_stub"])).specs["embed"]
+    q = torch.randn(1, 5, 4, 64)
+    pos3 = torch.arange(5)[None, :, None].expand(1, 5, 3)
     mrope = dataclasses.replace(get_smoke_config("llama3.2-1b"),
-                                mrope_sections=(16, 8, 8))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tf._apply_rope(None, None, None, mrope)
-    with pytest.raises(KeyError, match="unported"):
-        get_config("qwen2-vl-72b")
+                                mrope_sections=(8, 12, 12))
+    rq, rk = tf._apply_rope(q, q, pos3, mrope)
+    assert rq.shape == q.shape and torch.equal(rq, rk)
+    assert get_config("qwen2-vl-72b").mrope_sections == (16, 24, 24)
+    assert get_config("musicgen-medium").n_codebooks == 4
+    seq = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              act_seq_shard=True)
+    sm = build_model(seq)
+    params = sm.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        sm.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
 
 
 def test_tree_helpers_walk_tuples_in_jax_order():

@@ -48,10 +48,12 @@
    unchanged, weights drawn from seed 0) through ``launch.train.main``:
    AdamW at 3e-4, 2 warmup steps, block remat; 10 steps at 4 x 2,048
    tokens (the plain attention route), then 3 at 2 x 4,096 (the chunked
-   route), printing every step (loss, grad norm, lr, seconds) and per
-   shape the median step seconds after the first, tokens/s, the model
-   FLOPs' share of 989 TFLOP/s and the peak; no hand kernel may launch,
-   as training follows the JAX package's routes; (b)
+   route), each step writing the parameters and moments in place,
+   printing every step (loss, grad norm, lr, seconds) and per shape the
+   median step seconds after the first, tokens/s, the model FLOPs' share
+   of 989 TFLOP/s and the peak; the lr must rise over the warmup and no
+   hand kernel may launch, as training follows the JAX package's routes;
+   (b)
    ``examples.federated_llm`` at the example's size, which must launch
    ``kmeans_assign`` 25 times, then the kernel against its plain version
    at that run's shape (6, 64, 16) x (6, 2, 16), and both timed there;
@@ -145,13 +147,34 @@
    the CUDA-core kernel at their float32 batch-1 shapes; phase 3 runs the
    smoke qwen2-vl (distinct position streams) and the smoke musicgen in
    float32, card against host.
+13. Trains the MoE, vision, audio and recurrent families: (a) 3 float32
+   AdamW steps with block remat of each smoke config (qwen2-moe's einsum
+   dispatch with every router call's top-2 margin above 1e-5 on both
+   sides, qwen2-vl on Qwen2-VL's grid, musicgen, xlstm over 300 positions,
+   recurrentgemma cut to 4 layers past its window) on the card and on the
+   host from the same weights and batches, losses and grad norms within
+   1e-5 relative; (b) at full width with bf16 activations and float32
+   parameters, AdamW with the parameters and moments written in place, a
+   warm-up step and 3 timed steps each: qwen2-moe-a2.7b cut to 4 of 24
+   layers at 2 x 2,048, qwen2-vl-72b cut to 1 of 80 layers at 1 x 2,048
+   (64 patches on an 8 x 8 grid, 1,984 text tokens), and recurrentgemma-2b
+   at 1 x 2,048 and musicgen-medium at 4 x 1,500 frames at full depth
+   through ``launch.train.main``: each step's loss, grad norm, lr and
+   seconds, the median step, tokens/s, the model FLOPs' share of 989
+   TFLOP/s, the peak and a profiled step; finite losses, a rising lr and
+   no hand-kernel launch asserted (phase 7 (a)'s reporter; the depths:
+   ``FAMILY_FULL``); (c) ``examples.train_e2e --quick --steps
+   100`` (full xlstm-125m), whose own rule (the last 10 steps' mean loss
+   below the first 10's) must hold, with its seconds, tokens/s and peak.
 
-Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11 and 12 set
-every kernel's launch count to 0 just before each run they drive (the main
-path, the bf16 serve, the f32 serve, the two online runs, the two training
-runs, the federated-LLM run, the eager and scan runs, the CIFAR-like main
-path, the clustering loop on the card, the traced online and scan runs, the
-two recurrent serves, the three MoE serves, the vision and audio serves) and read the counts just after. Before the main path,
+Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12 and 13
+(b, c) set every kernel's launch count to 0 just before each run they drive
+(the main path, the bf16 serve, the f32 serve, the two online runs, the two
+training runs, the federated-LLM run, the eager and scan runs, the
+CIFAR-like main path, the clustering loop on the card, the traced online
+and scan runs, the two recurrent serves, the three MoE serves, the vision
+and audio serves, the four family training runs and train_e2e) and read the
+counts just after. Before the main path,
 each serve, each online run and each training run they reset the
 peak-memory counter and print what is allocated then; each peak is printed
 absolute and above that allocation.
@@ -165,7 +188,9 @@ each kernel's launches on the main path and, as ``online_launches``, on the
 ``recurrentgemma_serve_launches`` and ``xlstm_serve_launches`` in phase 10,
 as ``qwen2_moe_serve_launches``, ``phi35_moe_serve_launches`` and
 ``moonshot_serve_launches`` in phase 11, as ``qwen2_vl_serve_launches``
-and ``musicgen_serve_launches`` in phase 12, the online shapes' errors, the
+and ``musicgen_serve_launches`` in phase 12, as ``family_train_launches``
+(per arch, train_e2e's under xlstm-125m) in phase 13, the online shapes'
+errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
 recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
@@ -177,6 +202,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1578,11 +1604,12 @@ def orchestrator_resume(torch, dev):
 def train_flops(cfg, n_params, n_block_params, b, s):
     """Model FLOPs of one training step at batch b x s tokens: 6 N per token
     (forward and backward), one more forward of the blocks (block remat),
-    and attention's two products over the full S x L scores (the plain and
-    chunked routes compute every entry), forward, backward and the remat
-    forward."""
+    and each attention layer's two products over the full S x L scores
+    (the plain and chunked routes compute every entry), forward, backward
+    and the remat forward."""
     tokens = b * s
-    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_kinds)
+    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * n_attn
     return 6 * n_params * tokens + 2 * n_block_params * tokens + 4 * attn
 
 
@@ -1598,7 +1625,7 @@ def profile_train_step(torch, model, b, s, dev, step_s):
     params = model.init(g, device=dev)
     state = optim.init_opt_state(params, "adamw")
     step = make_train_step(model, TrainConfig(total_steps=10,
-                                              warmup_steps=2))
+                                              warmup_steps=2), donate=True)
     batch = synth_batch(model.cfg, g, b, s)
     params, state, _ = step(params, state, batch)
     _, busy = device_profile(torch, f"train step {b} x {s:,}",
@@ -1608,59 +1635,46 @@ def profile_train_step(torch, model, b, s, dev, step_s):
             f" of the unprofiled median step's {step_s * 1e3:.2f} ms")
 
 
+def launch_train(torch, ops, dev, model, label, steps, b, s, profile=True):
+    """``launch.train.main`` on ``model``'s full config: ``steps`` steps of
+    b x s, the first a warm-up, with every launch count set to 0 and the
+    peak counter reset before it; ``_report_steps``; then, if ``profile``,
+    one more step profiled (``profile_train_step``). Returns the launch
+    counts."""
+    from repro_torch.launch import train
+    base = reset_peak(torch, label)
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    res = train.main(["--arch", model.cfg.name, "--steps", str(steps),
+                      "--batch", str(b), "--seq", str(s), "--log-every",
+                      str(steps), "--device", str(dev)])
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    med = _report_steps(label, model, b, s,
+                        list(zip(res.loss, res.grad_norm, res.lr,
+                                 res.seconds)),
+                        launches, peak_text(torch, base))
+    _release(torch)
+    if profile:
+        profile_train_step(torch, model, b, s, dev, med)
+        _release(torch)
+    return launches
+
+
 def train_full(torch, ops, dev):
     """Phase 7 (a): Llama-3.2-1B trained at full width through
-    ``launch.train.main``: 10 steps at 4 x 2,048 tokens (the plain
-    attention route), then 3 at 2 x 4,096 (the chunked route, the
-    sequence length of ``INPUT_SHAPES["train_4k"]``). Prints each step and,
-    per shape, the median step seconds after the first, tokens/s, the model
-    FLOPs' share of 989 TFLOP/s and the peak. Returns the launch counts,
-    summed over both runs (every hand kernel must stay at 0)."""
+    ``launch.train.main`` (``launch_train``): 10 steps at 4 x 2,048 tokens
+    (the plain attention route, one more step profiled), then 3 at 2 x
+    4,096 (the chunked route, the sequence length of
+    ``INPUT_SHAPES["train_4k"]``). Returns the launch counts, summed over
+    both runs (every hand kernel must stay at 0)."""
     from repro_torch.configs import INPUT_SHAPES, get_config
-    from repro_torch.launch import train
-    from repro_torch.models.common import tree_leaves
     from repro_torch.models.registry import build_model
-    cfg = get_config("llama3.2-1b")
-    model = build_model(cfg)
-    n_params = model.n_params()
-    n_block = sum(math.prod(sp.shape)
-                  for sp in tree_leaves(model.specs["scan"]))
+    model = build_model(get_config("llama3.2-1b"))
     total = {name: 0 for name in ops.KERNELS}
     for steps, b, s in ((10, 4, 2048),
                         (3, 2, INPUT_SHAPES["train_4k"].seq_len)):
-        label = f"train {b} x {s:,}"
-        base = reset_peak(torch, label)
-        for k in ops.KERNELS.values():
-            k.launches = 0
-        res = train.main(["--arch", cfg.name, "--steps", str(steps),
-                          "--batch", str(b), "--seq", str(s),
-                          "--log-every", str(steps), "--device", "cuda"])
-        launches = {name: k.launches for name, k in ops.KERNELS.items()}
-        peak = peak_text(torch, base)
-        for i in range(steps):
-            log(f"  {label} step {i}: loss {res.loss[i]:.4f}, grad norm "
-                f"{res.grad_norm[i]:.4f}, lr {res.lr[i]:.3e}, "
-                f"{res.seconds[i]:.4f} s")
-        later = sorted(res.seconds[1:])
-        med = (later[(len(later) - 1) // 2] + later[len(later) // 2]) / 2
-        flops = train_flops(cfg, n_params, n_block, b, s)
-        log(f"  {label}: median step {med:.4f} s after the first (first "
-            f"{res.seconds[0]:.4f} s), {b * s / med:.0f} tokens/s, "
-            f"{flops / 1e12:.2f} TFLOP a step = {flops / med / 1e12:.1f} "
-            f"TFLOP/s, {flops / med / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s "
-            f"(bound {flops / BF16_FLOPS_PER_S:.4f} s); {peak}")
-        log(f"  {label} launches {launches}")
-        if s == 2048:
-            profile_train_step(torch, model, b, s, dev, med)
-        checks = {
-            "every loss and grad norm finite":
-                all(map(math.isfinite, res.loss + res.grad_norm)),
-            "no hand kernel launched": all(v == 0 for v in launches.values()),
-            "lr follows the warmup": res.lr[0] < res.lr[1],
-        }
-        failed = [k for k, ok in checks.items() if not ok]
-        if failed:
-            raise AssertionError(f"{label} checks failed: {failed}")
+        launches = launch_train(torch, ops, dev, model, f"train {b} x {s:,}",
+                                steps, b, s, profile=s == 2048)
         for name, v in launches.items():
             total[name] += v
     return total
@@ -2955,6 +2969,249 @@ def frontend_serve_phase(torch, ops, dev):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: training the MoE, vision, audio and recurrent families
+# ---------------------------------------------------------------------------
+
+# arch, config overrides and batch x positions of phase 13 (a)'s smoke runs
+# (card against host): qwen2-moe's einsum dispatch at its default capacity,
+# qwen2-vl on Qwen2-VL's grid (16 patches in rows of 4, 16 text tokens),
+# musicgen's 2 codebooks, xlstm over an mLSTM chunk and a ragged one,
+# recurrentgemma cut to 4 layers past its 64-token window
+FAMILY_SMOKE = (("qwen2-moe-a2.7b", {}, 2, 32),
+                ("qwen2-vl-72b", {}, 2, 32),
+                ("musicgen-medium", {}, 2, 32),
+                ("xlstm-125m", {}, 2, 300),
+                ("recurrentgemma-2b", {"n_layers": 4}, 2, 72))
+
+# phase 13 (b): arch, layers trained of its config's, batch, positions.
+# The launcher's step writes the parameters and moments in place
+# (``donate=True``), so AdamW holds 16 bytes a float32 parameter and the
+# largest leaf's temporaries at the update: qwen2-moe's 4 layers 43.28 GiB
+# of state, qwen2-vl's one layer 50.36 (its untied embedding and head are
+# 2.49 of its 3.38 B parameters; 4.64 GiB a leaf), recurrentgemma's 26
+# 52.90, musicgen's 48 27.38. Depths are the ones that fit one 80 GB card;
+# widths are the configs'.
+FAMILY_FULL = (("qwen2-moe-a2.7b", 4, 2, 2048),
+               ("qwen2-vl-72b", 1, 1, 2048),
+               ("recurrentgemma-2b", 26, 1, 2048),
+               ("musicgen-medium", 48, 4, 1500))
+
+
+def _family_batch(torch, cfg, b, s, g, dev, grid_w):
+    """``launch.train.synth_batch`` drawn from ``g``; a vision batch also
+    carries Qwen2-VL's position grid (``vl_positions``), so M-RoPE's three
+    streams differ."""
+    from repro_torch.launch.train import synth_batch
+    batch = synth_batch(cfg, g, b, s)
+    if cfg.frontend == "vision_stub":
+        n_img = batch["embeds"].shape[1]
+        batch["positions"] = vl_positions(torch, b, n_img, s - n_img, grid_w,
+                                          dev)
+    return batch
+
+
+def _min_margin(torch, tape, k):
+    return min(float((top[..., k - 1] - top[..., k]).min()) for top in (
+        torch.sort(p.detach(), dim=-1, descending=True).values for p in tape))
+
+
+def family_train_reference(torch, dev):
+    """Phase 13 (a): 3 float32 training steps (AdamW, block remat) of each
+    family's smoke config on the card and on the host, from the same
+    weights and batches (``FAMILY_SMOKE``): losses and grad norms within
+    1e-5 relative (phase 7 (c)'s rule). For qwen2-moe every router call of
+    every step (forward and remat recompute) on both sides has its top-2
+    margin above 1e-5, so both sides route alike."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model, make_train_step
+    for arch, over, b, s in FAMILY_SMOKE:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  **over)
+        model = build_model(cfg)
+        step = make_train_step(model, TrainConfig(total_steps=10,
+                                                  warmup_steps=2))
+        host = model.init(torch.Generator().manual_seed(0), device="cpu")
+        card = tree_map(lambda a: a.to(dev), host)
+        hs, cs = (optim.init_opt_state(p, "adamw") for p in (host, card))
+        g = torch.Generator().manual_seed(1)
+        rows, margins = [], []
+        for _ in range(3):
+            batch = _family_batch(torch, cfg, b, s, g, "cpu", grid_w=4)
+            with router_tape(moe) as tape:
+                host, hs, hm = step(host, hs, batch)
+                if cfg.is_moe:
+                    margins.append(_min_margin(torch, tape,
+                                               cfg.experts_per_token))
+            with router_tape(moe) as tape:
+                card, cs, cm_ = step(card, cs, {k: v.to(dev) for k, v in
+                                                batch.items()})
+                if cfg.is_moe:
+                    margins.append(_min_margin(torch, tape,
+                                               cfg.experts_per_token))
+            rows.append([(float(hm[k]), float(cm_[k]))
+                         for k in ("loss", "grad_norm")])
+        worst = max(abs(c - h) / abs(h) for r in rows for h, c in r)
+        routed = (f"; smallest top-{cfg.experts_per_token} margin "
+                  f"{min(margins):.3e}" if margins else "")
+        if worst > 1e-5 or (margins and min(margins) <= 1e-5):
+            raise AssertionError(f"{arch} train step card vs host: {rows}"
+                                 f"{routed}")
+        log(f"  small {arch} float32 train step ({cfg.n_layers} layers, "
+            f"{b} x {s}) agrees over 3 steps: loss "
+            f"{[round(r[0][0], 6) for r in rows]}, grad norm "
+            f"{[round(r[1][0], 6) for r in rows]}; worst relative "
+            f"difference {worst:.3e}{routed}")
+
+
+def _report_steps(label, model, b, s, rows, launches, peak):
+    """Prints each step's (loss, grad norm, lr, seconds) of ``rows`` (the
+    first a warm-up), the median step after it, tokens/s, the model FLOPs'
+    share of 989 TFLOP/s, the peak and the launch counts; asserts finite
+    losses and grad norms, an lr rising over the warmup and no hand-kernel
+    launch. Returns the median."""
+    for i, (loss, gnorm, lr, secs) in enumerate(rows):
+        log(f"  {label} step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{loss:.4f}, grad norm {gnorm:.4f}, lr {lr:.3e}, {secs:.4f} s")
+    med = statistics.median(r[3] for r in rows[1:])
+    flops = family_flops(model, b, s)[1]
+    log(f"  {label}: median step {med:.4f} s after the warm-up, "
+        f"{b * s / med:.0f} tokens/s, {flops / 1e12:.2f} TFLOP a step = "
+        f"{flops / med / 1e12:.1f} TFLOP/s, "
+        f"{flops / med / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s (bound "
+        f"{flops / BF16_FLOPS_PER_S:.4f} s); {peak}")
+    log(f"  {label} launches {launches}")
+    checks = {
+        "every loss and grad norm finite": all(
+            math.isfinite(v) for r in rows for v in r[:2]),
+        "no hand kernel launched": all(v == 0 for v in launches.values()),
+        "lr follows the warmup": rows[0][2] < rows[1][2],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{label} checks failed: {failed}")
+    return med
+
+
+def _timed_steps(torch, ops, model, tc, batches, b, s, dev, label):
+    """Weights drawn from seed 0 on the card, then one donated step per
+    batch of ``batches`` (the first a warm-up), with every launch count set
+    to 0
+    and the peak counter reset before the first; ``_report_steps``, then
+    one more step profiled. Returns the launch counts."""
+    from repro_torch import optim
+    from repro_torch.models.registry import make_train_step
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g, device=dev)
+    state = optim.init_opt_state(params, tc.optimizer)
+    step = make_train_step(model, tc, donate=True)
+    base = reset_peak(torch, label)
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    rows = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        torch.cuda.synchronize(dev)
+        rows.append((float(met["loss"]), float(met["grad_norm"]),
+                     float(met["lr"]), time.perf_counter() - t0))
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    med = _report_steps(label, model, b, s, rows, launches,
+                        peak_text(torch, base))
+    _, busy = device_profile(torch, f"{label} one step",
+                             lambda: step(params, state, batches[-1]),
+                             top=10)
+    if busy is not None:
+        log(f"  {label} device idle share {1 - busy / (med * 1e3):.3f} of "
+            f"the unprofiled median step's {med * 1e3:.2f} ms")
+    del params, state
+    _release(torch)
+    return launches
+
+
+def family_flops(model, b, s):
+    """(active parameters, model FLOPs of one training step at b x s
+    positions) by ``train_flops``: an MoE config counts its active
+    parameters (k of E experts a token), and only attention layers add
+    the S x L score products."""
+    from repro_torch.models.common import tree_leaves
+    cfg = model.cfg
+    n = model.n_active_params()
+    outer = sum(math.prod(sp.shape) for sp in tree_leaves(
+        (model.specs["embed"], model.specs["head"],
+         model.specs["final_norm"])))
+    return n, train_flops(cfg, n, n - outer, b, s)
+
+
+def family_train_full(torch, ops, dev):
+    """Phase 13 (b): each family at full width (``FAMILY_FULL``), weights
+    drawn from seed 0 on the card, float32 parameters and the config's
+    bfloat16 activations, AdamW with block remat: a warm-up step and 3
+    timed steps. A full-depth run goes through ``launch.train.main``
+    (``launch_train``); a depth-cut run builds its model from the cut
+    config and drives ``make_train_step`` and ``synth_batch`` itself
+    (``_timed_steps``). No hand kernel may launch (training takes the plain
+    attention route, as the JAX package's does). Returns {arch: launch
+    counts}."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models.registry import build_model
+    _release(torch)
+    out = {}
+    for arch, layers, b, s in FAMILY_FULL:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        model = build_model(cfg)
+        label = f"train {arch} ({layers} of {full.n_layers} layers) " \
+            f"{b} x {s:,}"
+        n_active, flops = family_flops(model, b, s)
+        log(f"  {label}: {model.n_params():,} parameters, {n_active:,} "
+            f"active a token, {flops / 1e12:.2f} model TFLOP a step")
+        if layers == full.n_layers:
+            launches = launch_train(torch, ops, dev, model, label, 4, b, s)
+        else:
+            g = torch.Generator(device=dev).manual_seed(1)
+            batches = [_family_batch(torch, cfg, b, s, g, dev, grid_w=8)
+                       for _ in range(4)]
+            tc = TrainConfig(total_steps=10, warmup_steps=2)
+            launches = _timed_steps(torch, ops, model, tc, batches, b, s,
+                                    dev, label)
+        out[arch] = launches
+    return out
+
+
+def train_e2e_phase(torch, ops, dev):
+    """Phase 13 (c): ``examples.train_e2e --quick --steps 100`` on the card
+    (full xlstm-125m, 2 x 64 tokens a step, checkpoint under ``build/``):
+    its own rule (the mean loss of the last 10 steps below the first 10's)
+    must hold. Prints the run's seconds, tokens/s and peak. Returns the
+    launch counts."""
+    from repro_torch.examples import train_e2e
+    ckpt = os.path.join(ROOT, "build", "train_e2e", "xlstm125m_torch.npz")
+    base = reset_peak(torch, "train_e2e")
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    losses = train_e2e.main(["--quick", "--steps", "100", "--device",
+                             str(dev), "--ckpt", ckpt])
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    log(f"  train_e2e --quick --steps 100: {secs:.3f} s, "
+        f"{100 * 2 * 64 / secs:.0f} tokens/s ({secs / 100:.4f} s a step); "
+        f"mean loss first 10 {sum(losses[:10]) / 10:.4f}, last 10 "
+        f"{sum(losses[-10:]) / 10:.4f}; {peak_text(torch, base)}; "
+        f"launches {launches}")
+    if not all(map(math.isfinite, losses)) or any(launches.values()):
+        raise AssertionError("train_e2e checks failed")
+    _release(torch)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3052,6 +3309,14 @@ def main() -> int:
     t12 = time.perf_counter()
     frontends = frontend_serve_phase(torch, ops, dev)
     log(f"  phase 12 {time.perf_counter() - t12:.1f} s")
+
+    log("== phase 13: training the MoE, vision, audio and recurrent "
+        "families")
+    t13 = time.perf_counter()
+    family_train_reference(torch, dev)
+    family_trained = family_train_full(torch, ops, dev)
+    family_trained["xlstm-125m"] = train_e2e_phase(torch, ops, dev)
+    log(f"  phase 13 {time.perf_counter() - t13:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -3073,6 +3338,8 @@ def main() -> int:
             moe_served["moonshot-v1-16b-a3b"][name]
         row["qwen2_vl_serve_launches"] = frontends["qwen2-vl-72b"][name]
         row["musicgen_serve_launches"] = frontends["musicgen-medium"][name]
+        row["family_train_launches"] = {arch: v[name] for arch, v in
+                                        family_trained.items()}
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -3085,7 +3352,7 @@ def main() -> int:
             "xlstm_serve_launches", "qwen2_moe_serve_launches",
             "phi35_moe_serve_launches", "moonshot_serve_launches",
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
-            "max_abs_err",
+            "family_train_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
             "shapes")

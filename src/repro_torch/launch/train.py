@@ -5,9 +5,11 @@
 
 Runs real steps of ``make_train_step`` (AdamW, cosine warmup, global-norm
 clipping, block remat) on synthetic token batches drawn from a generator on
-the run's device. --smoke selects the reduced config; the full config is for
-the card. Each step ends in a device sync, so the printed seconds are the
-device's. ``main`` returns a :class:`TrainResult`.
+the run's device, each step writing the parameters and moments in place
+(``donate=True``, as the reference jits its step with
+``donate_argnums``). --smoke selects the reduced config; the full config is
+for the card. Each step ends in a device sync, so the printed seconds are
+the device's. ``main`` returns a :class:`TrainResult`.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def main(argv=None) -> TrainResult:
     gen = torch.Generator(device=dev).manual_seed(tc.seed)
     params = model.init(gen, device=dev)
     opt_state = optim.init_opt_state(params, tc.optimizer)
-    step = make_train_step(model, tc)
+    step = make_train_step(model, tc, donate=True)
 
     print(f"arch={cfg.name} params={model.n_params():,} "
           f"active={model.n_active_params():,} device={dev}")

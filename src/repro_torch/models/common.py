@@ -46,17 +46,20 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` holding ``leaves`` in :func:`tree_leaves`
     order."""
-    it = iter(leaves)
+    return _unflatten(tree, iter(leaves))
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, tuple) and not isinstance(t, Spec):
-            return tuple(walk(x) for x in t)
-        if t is None:
-            return None
-        return next(it)
-    return walk(tree)
+
+def _unflatten(t, it):
+    # a module-level function, not a closure over ``it``: a nested walker
+    # refers to itself, and that cycle would keep ``leaves`` (a train step's
+    # unclipped gradients) alive until the cyclic garbage collector runs
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and not isinstance(t, Spec):
+        return tuple(_unflatten(x, it) for x in t)
+    if t is None:
+        return None
+    return next(it)
 
 
 def value_and_grad(fn, params, *args):

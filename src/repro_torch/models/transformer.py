@@ -49,6 +49,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+# checkpoint() imports torch._dynamo on its first call, and that import
+# leaves the frames then on the stack (a train step's, with its logits and
+# gradients) in a reference cycle that only the cyclic collector frees;
+# imported here, it runs before any training frame exists
+import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 

@@ -4,8 +4,13 @@ Each update is a plain function over the port's parameter trees (nested
 dicts and tuples, ``models.common.tree_map``) that returns new tensors and
 never writes into its inputs: callers may hold one tree in several places
 (the federated-LLM example starts every client from the same global tree), as
-the reference's immutable arrays allow. States mirror the parameter tree;
-``OptState.step`` counts the updates made, as an int32 tensor.
+the reference's immutable arrays allow. With ``donate=True`` it writes each
+new leaf into the leaf it replaces instead, as it is made, and returns the
+given trees: the counterpart of the reference's ``donate_argnums``, for a
+caller that holds the trees nowhere else (the training launchers). Both
+modes compute the same expressions, so their results are bit for bit equal.
+States mirror the parameter tree; ``OptState.step`` counts the updates made,
+as an int32 tensor.
 """
 from __future__ import annotations
 
@@ -38,6 +43,19 @@ def init_opt_state(params, kind: str) -> OptState:
     raise ValueError(kind)
 
 
+def _update(fn, tree, *rest, donate: bool):
+    """The tree of ``fn(x, *ys, out=o)`` over the leaves of ``tree`` and
+    ``rest``, ``fn`` writing its result into ``o``: a new tensor like ``x``,
+    or with ``donate`` ``x`` itself, so that only one leaf's temporaries
+    are alive at a time."""
+    if donate:
+        for x, *ys in zip(tree_leaves(tree), *map(tree_leaves, rest)):
+            fn(x, *ys, out=x)
+        return tree
+    return tree_map(lambda x, *ys: fn(x, *ys, out=torch.empty_like(x)),
+                    tree, *rest)
+
+
 def global_norm(tree):
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
     sq = [torch.sum(torch.square(x.to(torch.float32)))
@@ -46,56 +64,67 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
     """Returns (grads scaled so their global norm is at most ``max_norm``,
     the norm before scaling)."""
     norm = global_norm(grads)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    return _update(lambda g, out: torch.mul(g, scale, out=out), grads,
+                   donate=donate), norm
 
 
 @torch.no_grad()
-def sgd(params, grads, state: OptState, lr):
-    new_params = tree_map(lambda p, g: p - lr * g.to(p.dtype), params, grads)
+def sgd(params, grads, state: OptState, lr, *, donate=False):
+    new_params = _update(
+        lambda p, g, out: torch.sub(p, lr * g.to(p.dtype), out=out), params,
+        grads, donate=donate)
     return new_params, OptState(state.step + 1, (), ())
 
 
 @torch.no_grad()
-def sgd_momentum(params, grads, state: OptState, lr, beta: float = 0.9):
-    mu = tree_map(lambda m, g: beta * m + g.to(m.dtype), state.mu, grads)
-    new_params = tree_map(lambda p, m: p - lr * m.to(p.dtype), params, mu)
+def sgd_momentum(params, grads, state: OptState, lr, beta: float = 0.9, *,
+                 donate=False):
+    mu = _update(lambda m, g, out: torch.add(beta * m, g.to(m.dtype), out=out),
+                 state.mu, grads, donate=donate)
+    new_params = _update(
+        lambda p, m, out: torch.sub(p, lr * m.to(p.dtype), out=out), params,
+        mu, donate=donate)
     return new_params, OptState(state.step + 1, mu, ())
 
 
 @torch.no_grad()
 def adamw(params, grads, state: OptState, lr, *, beta1=0.9, beta2=0.95,
-          eps=1e-8, weight_decay=0.1):
+          eps=1e-8, weight_decay=0.1, donate=False):
     """AdamW with bias correction from the float32 step count after this
     update (``1 - beta ** t`` in float32, as the reference computes it).
-    Leaf by leaf, so the temporaries are one leaf's size."""
+    Leaf by leaf, with at most two temporaries of the leaf's size alive."""
     step = state.step + 1
     t = step.to(torch.float32)
     c1 = 1.0 - torch.pow(beta1, t)
     c2 = 1.0 - torch.pow(beta2, t)
-    mu = tree_map(lambda m, g: beta1 * m + (1 - beta1) * g.to(m.dtype),
-                  state.mu, grads)
-    nu = tree_map(lambda v, g: beta2 * v + (1 - beta2)
-                  * torch.square(g.to(v.dtype)), state.nu, grads)
+    mu = _update(lambda m, g, out: torch.add(
+        beta1 * m, (1 - beta1) * g.to(m.dtype), out=out),
+        state.mu, grads, donate=donate)
+    nu = _update(lambda v, g, out: torch.add(
+        beta2 * v, torch.square(g.to(v.dtype)).mul_(1 - beta2), out=out),
+        state.nu, grads, donate=donate)
 
-    def upd(p, m, v):
-        mh = m / c1
-        vh = v / c2
-        return (p - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * p)
-                ).to(p.dtype)
-    new_params = tree_map(upd, params, mu, nu)
+    def upd(p, m, v, out):
+        # p - lr * (m / c1 / (sqrt(v / c2) + eps) + weight_decay * p), the
+        # same roundings, with the temporaries reused in place
+        u = (m / c1).div_((v / c2).sqrt_().add_(eps))
+        u.add_(weight_decay * p).mul_(lr)
+        return torch.sub(p, u, out=out)
+    new_params = _update(upd, params, mu, nu, donate=donate)
     return new_params, OptState(step, mu, nu)
 
 
-def opt_update(kind: str, params, grads, state: OptState, lr, **kw):
+def opt_update(kind: str, params, grads, state: OptState, lr, *,
+               donate=False, **kw):
     if kind == "sgd":
-        return sgd(params, grads, state, lr)
+        return sgd(params, grads, state, lr, donate=donate)
     if kind == "momentum":
-        return sgd_momentum(params, grads, state, lr, **kw)
+        return sgd_momentum(params, grads, state, lr, donate=donate, **kw)
     if kind == "adamw":
-        return adamw(params, grads, state, lr, **kw)
+        return adamw(params, grads, state, lr, donate=donate, **kw)
     raise ValueError(kind)

@@ -5,7 +5,8 @@ M-RoPE sections (8, 12, 12), 128-wide patch embeddings) and smoke musicgen
 (2 layers, d_model 256, 2 codebooks of 512) from JAX's own parameters
 carried across by ``convert.lm_params``: prefill logits and caches, 4
 teacher-forced decode steps from JAX's cache, ``forward_train``'s loss and
-ce, and ``serve`` on JAX's replayed Gumbel draws.
+ce and every leaf of its gradient (remat on; remat off bit for bit), and
+``serve`` on JAX's replayed Gumbel draws.
 
 M-RoPE equals RoPE when its three streams agree, so every M-RoPE check
 that could hide a fault feeds distinct streams: the vision prompts carry
@@ -23,7 +24,11 @@ places). Served tokens are held equal where JAX's top-two margin of
 logits / T + noise exceeds ``MARGIN`` (1e-4), as in
 ``test_torch_serve.py``; an audio step compares all its codebooks, and a
 row's comparison stops at the first step where any codebook's margin is
-smaller.
+smaller. Gradients as ``test_torch_train.py`` holds the dense family's:
+float32 within 1e-5 of each leaf's largest |g| (measured 9.9e-7),
+bfloat16 within 3e-2 of it and 3e-2 in relative norm (measured 1.3e-2
+and 8.8e-3: bf16 products rounded at other places, and the embedding
+rows' gradients summed in another order than XLA's scatter-add).
 """
 import dataclasses
 
@@ -49,6 +54,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.registry import build_model
 from test_torch_draws import one_torch_thread  # noqa: F401
 from test_torch_serve import MARGIN, _jax_serve
+from test_torch_train import _grads, assert_grads_match, assert_remat_bitwise
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -324,6 +330,29 @@ def test_forward_train_matches_jax(lm):
     np.testing.assert_allclose(float(met["ce"]), float(jmet["ce"]), rtol=tol)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=tol)
     assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+
+
+def test_forward_train_grads_match_jax(lm):
+    """Every gradient leaf of ``forward_train`` with remat on against
+    ``jax.value_and_grad`` of the reference's (as ``test_torch_train.py``
+    holds the dense family): the projector ``embed.proj`` from the bf16
+    patch embeddings and the text embeddings under M-RoPE's distinct
+    streams; every codebook's table and the codebook-major head. Then
+    remat off against remat on, bit for bit, in the port."""
+    jl, jg = jax.jit(jax.value_and_grad(lambda p: lm["jm"].loss_fn(
+        p, lm["train"], remat=True)[0]))(lm["jp"])
+    batch = _tb(lm["train"])
+    loss, grads = _grads(lm["m"], lm["tp"], batch, remat=True)
+    dtype = lm["m"].cfg.dtype
+    np.testing.assert_allclose(float(loss), float(jl),
+                               rtol=1e-5 if dtype == "float32" else 1e-3)
+    assert_grads_match(grads, jg, dtype)
+    emb = grads["embed"]
+    if lm["arch"] == AUDIO:     # every codebook's table is reached
+        assert all(float(t.abs().max()) > 0 for t in emb["tok"])
+    else:
+        assert float(emb["proj"].abs().max()) > 0
+    assert_remat_bitwise(lm["m"], lm["tp"], batch)
 
 
 def test_serve_with_replayed_noise_samples_jax_tokens(jparams):

@@ -17,7 +17,10 @@
    flash kernel is also checked and timed at recurrentgemma-2b's local
    attention (q (4, 4096, 10, 256), k/v (4, 4096, 1, 256) bf16, window
    2,048), beside its bound and one SDPA call with the window as a boolean
-   mask, and the CUDA-core kernel is timed there too.
+   mask, and the 3xTF32 kernel is timed there too. The 3xTF32 kernel is
+   checked and timed at the five float32 prefills' shapes of phases 5 and
+   10-12 (``F32_FLASH``) and held to float64 attention where q drawn x 4
+   makes scores reach ~20-25.
 3. Runs the pipeline, then the smoke Llama's prefill and decode, then
    recurrentgemma-2b reduced to 4 layers (a prompt longer than its window)
    and xlstm-125m's smoke config, at a small size on the card and on the
@@ -32,7 +35,7 @@
    unchanged, weights drawn from a seed), batch 4, 2,048-token prompts, 32
    sampled tokens, through ``launch.serve.serve`` (bf16 activations: the
    tensor-core flash kernel); then serves the same weights with float32
-   activations (the CUDA-core flash kernel) and holds that prefill's kernel
+   activations (the 3xTF32 flash kernel) and holds that prefill's kernel
    route against its plain route.
 6. Drives the online orchestrator: (a) ``run_orchestrator`` at full width
    on phase 4's world, scenario ``burst-outage``, 5 segments of 20 FL
@@ -111,7 +114,7 @@
    kernel once a layer and decode nothing; the draw's and the serve's
    peaks, a profiled prefill and decode step, and the share of layer 0's
    (token, expert) choices the capacity dropped; (b) that prefill in
-   float32 (the CUDA-core kernel) and in bf16 through the kernel route and
+   float32 (the 3xTF32 kernel) and in bf16 through the kernel route and
    the plain route, and the plain route again with its routing pinned to
    the kernel route's: pinned, the f32 routes within 1e-3 and the bf16
    ones within 0.3; as served, their distance and the routing flips
@@ -139,12 +142,12 @@
    layer (8, 48) and a decode step nothing; prefill ms, decode ms a step,
    the draw's and the serve's peaks, a profiled prefill and decode step;
    (b) each prefill's bf16 kernel route against its plain route (printed),
-   and the f32 routes at batch 1 (the CUDA-core kernel) within 1e-3, the
+   and the f32 routes at batch 1 (the 3xTF32 kernel) within 1e-3, the
    bf16 kernel route at most 3e-2 farther from those f32 logits than the
    bf16 plain route. Phase 2 also checks and times the tensor-core kernel
    at qwen2-vl's attention (q (4, 2048, 64, 128), k/v (4, 2048, 8, 128),
    GQA group 8) and musicgen's (q/k/v (4, 1500, 24, 64), MHA) and checks
-   the CUDA-core kernel at their float32 batch-1 shapes; phase 3 runs the
+   the 3xTF32 kernel at their float32 batch-1 shapes; phase 3 runs the
    smoke qwen2-vl (distinct position streams) and the smoke musicgen in
    float32, card against host.
 13. Trains the MoE, vision, audio and recurrent families: (a) 3 float32
@@ -194,7 +197,9 @@ errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
 recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
-musicgen's among the tensor-core row's) and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
+musicgen's among the tensor-core row's, the float32 prefills' among the
+3xTF32 row's, each with ``launches_in_phase``, the launches its phase
+counted in that prefill) and, as the last line, ``{"ok": true, "device": {...}}``. Any failure ends the run
 with a non-zero exit code and no result line. Imports nothing of JAX.
 """
 import contextlib
@@ -211,6 +216,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12   # H100 SXM tf32 tensor cores, dense
 
 
 def log(*args):
@@ -382,7 +388,7 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     the served prefills' shapes and at edge shapes, each check asserting the
     kernel that ``route`` picked; then each kernel timed at the shape of the
     prefill that launches it in phase 5 (the tensor-core one at batch 4 in
-    bf16, the CUDA-core one at batch 1 in float32) beside its bound and SDPA
+    bf16, the 3xTF32 one at batch 1 in float32) beside its bound and SDPA
     as a yardstick. Returns the two kernels' rows."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(2)
@@ -403,10 +409,11 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
     q32, k32, v32 = (t.float() for t in (q, k, v))
     err = check_flash(ops, ref, q, k, v, "served (4,2048,32,64) bf16", sm90)
     check_flash(ops, ref, q32, k32, v32, "served (4,2048,32,64) f32", simt)
-    # the f32 serve's prefill: batch 1
+    # the f32 serve's prefill: batch 1. Each f32 prefill's inputs and error
+    # are kept for ``f32_flash``, which times them.
     q32, k32, v32 = (t[:1] for t in (q32, k32, v32))
-    err32 = check_flash(ops, ref, q32, k32, v32,
-                        "f32 served (1,2048,32,64) f32", simt)
+    f32_checked = {"llama3.2-1b": (q32, k32, v32, check_flash(
+        ops, ref, q32, k32, v32, "f32 served (1,2048,32,64) f32", simt))}
 
     # the tensor-core kernel's edges: bf16, head_dim 64 and 128
     check_flash(ops, ref, *qkv(1, 2048, 2048, 24, 8, 128),
@@ -452,7 +459,7 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
                 fused[:, :, 11:],
                 "strided fused-qkv view (H 10, Kv 1) hd 256 bf16", sm90)
 
-    # the CUDA-core kernel: float32, and bf16 that TMA or wgmma cannot take
+    # the 3xTF32 kernel: float32, and bf16 that TMA or wgmma cannot take
     check_flash(ops, ref, *qkv(1, 100, 100, 4, 2, 64, torch.float32),
                 "ragged S = L = 100 f32", simt)
     check_flash(ops, ref, *qkv(2, 128, 128, 8, 1, 64, torch.float32),
@@ -467,12 +474,15 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
                     f"hd {hd} f32", simt)
     # phase 11 (b)'s float32 route of qwen2-moe's prefill, phase 12 (b)'s
     # of qwen2-vl's and musicgen's (batch 1)
-    check_flash(ops, ref, *qkv(4, 2048, 2048, 16, 16, 128, torch.float32),
-                "qwen2-moe f32 route (4,2048,16,128) f32", simt)
-    check_flash(ops, ref, *qkv(1, 2048, 2048, 64, 8, 128, torch.float32),
-                "qwen2-vl f32 route (1,2048,64/8,128) f32", simt)
-    check_flash(ops, ref, *qkv(1, 1500, 1500, 24, 24, 64, torch.float32),
-                "musicgen f32 route (1,1500,24,64) f32", simt)
+    for model, label, shape in (
+            ("qwen2-moe-a2.7b", "qwen2-moe f32 route (4,2048,16,128) f32",
+             (4, 2048, 2048, 16, 16, 128)),
+            ("qwen2-vl-72b", "qwen2-vl f32 route (1,2048,64/8,128) f32",
+             (1, 2048, 2048, 64, 8, 128)),
+            ("musicgen-medium", "musicgen f32 route (1,1500,24,64) f32",
+             (1, 1500, 1500, 24, 24, 64))):
+        t = qkv(*shape, torch.float32)
+        f32_checked[model] = (*t, check_flash(ops, ref, *t, label, simt))
     check_flash(ops, ref, *qkv(1, 200, 200, 4, 2, 32), "hd 32 bf16", simt)
     off = tuple(misaligned(t) for t in qkv(1, 200, 200, 4, 1, 256))
     check_flash(ops, ref, *off, "misaligned views hd 256 bf16", simt)
@@ -487,51 +497,56 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
                     simt)
 
     rows = {}
-    for name, src, args, fn, peak, e in (
-            (sm90, "flash_attention_sm90.cu", (q, k, v),
-             fa_mod.flash_attention_sm90, BF16_FLOPS_PER_S, err),
-            (simt, "flash_attention.cu", (q32, k32, v32),
-             fa_mod.flash_attention_cuda, F32_FLOPS_PER_S, err32)):
-        b, s, h, hd = args[0].shape
-        # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys
-        flops = 4 * hd * (b * h * s * (s + 1) // 2)
-        # q, k, v read once, out written once
-        moved = args[0].element_size() * (2 * args[0].numel()
-                                          + 2 * args[1].numel())
-        b_ms, b_by = bound(moved, flops, peak)
-        fast = name == sm90
-        qt, kt, vt = (t.transpose(1, 2) for t in args)
-        rows[name] = r = dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
-            replaces="src/repro/kernels/flash_attention.py:91",
-            max_abs_err=e,
-            ms=graph_ms(lambda: fn(*args), iters=20 if fast else 5,
-                        replays=3),
-            plain_ms=graph_ms(lambda: ref.flash_attention_ref(*args),
-                              iters=3, replays=3),
-            call_ms=cuda_ms(lambda: fn(*args), iters=50 if fast else 10),
-            plain_call_ms=cuda_ms(lambda: ref.flash_attention_ref(*args),
-                                  iters=5, warmup=2),
-            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-                iters=10 if fast else 5, replays=3),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"  {name} {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: "
-            f"{flops / 1e9:.1f} GFLOP unmasked, kernel "
-            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s; SDPA (yardstick, never "
-            f"called by the port) {r['library_ms']:.5f} ms")
-    # the CUDA-core kernel on the bf16 served inputs, beside the tensor-core
-    # one in the same run
+    b, s, h, hd = q.shape
+    # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys
+    flops = 4 * hd * (b * h * s * (s + 1) // 2)
+    # q, k, v read once, out written once
+    moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows[sm90] = r = dict(
+        name=sm90, route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces="src/repro/kernels/flash_attention.py:91", max_abs_err=err,
+        ms=graph_ms(lambda: fa_mod.flash_attention_sm90(q, k, v), iters=20,
+                    replays=3),
+        plain_ms=graph_ms(lambda: ref.flash_attention_ref(q, k, v), iters=3,
+                          replays=3),
+        call_ms=cuda_ms(lambda: fa_mod.flash_attention_sm90(q, k, v),
+                        iters=50),
+        plain_call_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+                              iters=5, warmup=2),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10,
+            replays=3),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"  {sm90} {tuple(q.shape)} bf16: {flops / 1e9:.1f} GFLOP unmasked, "
+        f"kernel {flops / r['ms'] / 1e9:.1f} TFLOP/s; SDPA (yardstick, never "
+        f"called by the port) {r['library_ms']:.5f} ms")
+    # the 3xTF32 kernel on the bf16 served inputs, beside the
+    # tensor-core one in the same run
     simt_bf16 = graph_ms(lambda: fa_mod.flash_attention_cuda(q, k, v),
                          iters=5, replays=3)
-    log(f"  flash_attention (CUDA cores) {tuple(q.shape)} bf16: device "
+    log(f"  flash_attention (3xTF32 route) {tuple(q.shape)} bf16: device "
         f"{simt_bf16:.5f} ms")
-    del q, k, v, q32, k32, v32
+    del q, k, v, q32, k32, v32, qt, kt, vt
     fast, slow = recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv)
     rows[sm90]["shapes"] = [fast] + [
         served_flash(torch, F, ops, ref, fa_mod, qkv, *shape)
         for shape in SERVED_FLASH]
-    rows[simt]["shapes"] = [slow]
+    f32 = [f32_flash(torch, F, ops, ref, fa_mod, qkv, f32_checked, *shape)
+           for shape in F32_FLASH]
+    del f32_checked
+    large_score_flash(torch, ops, ref, qkv)
+    llama = f32[0]
+    rows[simt] = dict(
+        {k_: llama[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "call_ms",
+                                  "plain_call_ms", "library_ms", "bound_ms",
+                                  "bound_by")},
+        name=simt, route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91",
+        shapes=f32 + [slow])
     return rows
 
 
@@ -589,17 +604,155 @@ def served_flash(torch, F, ops, ref, fa_mod, qkv, label, b, s, h, kv, hd):
     return r
 
 
+# the float32 prefills' attention shapes, which ``route`` sends to the
+# 3xTF32 kernel: label, the model whose f32 prefill launches it (phases 5,
+# 10-12 count those launches), b, s, h, kv, hd, window (causal, L = S)
+F32_FLASH = (
+    ("Llama-3.2-1B f32 serve (phase 5)", "llama3.2-1b",
+     1, 2048, 32, 8, 64, None),
+    ("musicgen f32 route (phase 12)", "musicgen-medium",
+     1, 1500, 24, 24, 64, None),
+    ("qwen2-moe f32 route (phase 11)", "qwen2-moe-a2.7b",
+     4, 2048, 16, 16, 128, None),
+    ("qwen2-vl f32 route (phase 12)", "qwen2-vl-72b",
+     1, 2048, 64, 8, 128, None),
+    ("recurrentgemma f32 prefill (phase 10)", "recurrentgemma-2b",
+     4, 4096, 10, 1, 256, 2048),
+)
+
+
+def flash_work(b, s, h, kv, hd, window, itemsize):
+    """Causal attention with L = S: the flops of the keys each query sees
+    (min(i + 1, window)) and the bytes of q, k, v read once and out written
+    once."""
+    visible = sum(i + 1 if window is None else min(i + 1, window)
+                  for i in range(s))
+    return 4 * hd * b * h * visible, itemsize * 2 * b * s * (h + kv) * hd
+
+
+def f32_flash(torch, F, ops, ref, fa_mod, qkv, checked, label, model, b, s, h,
+              kv, hd, window):
+    """A float32 prefill's attention: q (b, s, h, hd), k/v (b, s, kv, hd),
+    causal (and windowed), which ``route`` sends to ``flash_attention.cu``.
+    The inputs and error of phase 2's check of this shape where ``checked``
+    holds them under ``model``, else drawn and checked against the plain
+    version (one launch, 2e-5). Timed beside the plain version, one float32
+    SDPA call (``enable_gqa``; the window as a boolean mask) and two bounds
+    over the keys each query sees: 3xTF32 (3 x flops at the tf32
+    tensor-core rate; the row's ``bound_ms``) and the CUDA cores' f32 rate
+    (printed). Returns the shape's entry of the kernel's row."""
+    heads = f"{h}/{kv}" if kv < h else f"{h}"
+    tag = f"{label} ({b},{s},{heads},{hd})" + \
+        (f" window {window}" if window else "") + " f32"
+    if model in checked:
+        q, k, v, err = checked[model]
+    else:
+        q, k, v = qkv(b, s, s, h, kv, hd, torch.float32)
+        err = check_flash(ops, ref, q, k, v, tag, "flash_attention",
+                          window=window)
+    if fa_mod.route(q, k, v) != "simt" or q.shape != (b, s, h, hd):
+        raise AssertionError(f"route did not send {label}'s shape to "
+                             "flash_attention.cu")
+    flops, moved = flash_work(b, s, h, kv, hd, window, q.element_size())
+    b_ms, b_by = bound(moved, 3 * flops, TF32_FLOPS_PER_S)
+    f32_ms, _ = bound(moved, flops, F32_FLOPS_PER_S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        sdpa = dict(is_causal=True)
+    else:
+        pos = torch.arange(s, device=q.device)
+        sdpa = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+    slow = hd == 256
+
+    def kernel():
+        return fa_mod.flash_attention_cuda(q, k, v, window=window)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, window=window)
+    shape = (f"q/k/v ({b}, {s}, {h}, {hd})" if kv == h else
+             f"q ({b}, {s}, {h}, {hd}), k/v ({b}, {s}, {kv}, {hd})")
+    r = dict(shape=f"{shape} f32, causal"
+             + (f", window {window}" if window else "")
+             + (", MHA" if kv == h else f", GQA group {h // kv}"),
+             model=model, max_abs_err=err,
+             ms=graph_ms(kernel, iters=3 if slow else 10, replays=2),
+             call_ms=cuda_ms(kernel, iters=5 if slow else 20, warmup=2),
+             plain_ms=graph_ms(plain, iters=2, replays=2),
+             plain_call_ms=cuda_ms(plain, iters=2, warmup=1),
+             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, enable_gqa=kv < h, **sdpa),
+                 iters=2 if slow else 5, replays=2),
+             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved)
+    log(f"  flash_attention {tag}: {flops / 1e9:.2f} GFLOP of visible keys, "
+        f"{moved / 1e6:.1f} MB; kernel {flops / r['ms'] / 1e9:.1f} TFLOP/s; "
+        f"device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms; per call "
+        f"{r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms; bound "
+        f"{b_ms:.5f} ms ({b_by}, 3xTF32), {f32_ms:.5f} ms on the CUDA cores; "
+        f"SDPA f32 {r['library_ms']:.5f} ms")
+    return r
+
+
+def attention_f64(q, k, v, window=None):
+    """Causal attention in float64 (q (B, S, H, hd), k/v (B, S, Kv, hd)):
+    the truth that float32 routes are held to where their own error grows
+    with the scores. Returns (out, the largest |score|)."""
+    import torch
+    q, k, v = (t.double() for t in (q, k, v))
+    h, n_kv = q.shape[2], k.shape[2]
+    k, v = (t.repeat_interleave(h // n_kv, dim=2) for t in (k, v))
+    sc = torch.einsum("bshd,blhd->bhsl", q, k) * q.shape[-1] ** -0.5
+    pos = torch.arange(q.shape[1], device=q.device)
+    ok = pos[:, None] >= pos[None, :]
+    if window is not None:
+        ok &= pos[:, None] - pos[None, :] < window
+    sc = torch.where(ok, sc, -torch.inf)
+    top = float(sc.abs().where(ok, 0).max())
+    return torch.einsum("bhsl,blhd->bshd", torch.softmax(sc, -1), v), top
+
+
+def large_score_flash(torch, ops, ref, qkv):
+    """The 3xTF32 kernel where scores reach ~20-25 (q drawn x 4): the tensor
+    cores cut each mma's sum toward zero, a drift that grows with |S|. At
+    head_dim 256 (recurrentgemma's f32 prefill at batch 1, window 2,048)
+    and 128 (GQA group 4), one launch each must stay within 2e-5 + 2e-5 *
+    |want| of float64 attention; the plain f32 version's distance from it
+    is printed beside (its own error grows with the scores too)."""
+    for b, s, h, kv, hd, window in ((1, 4096, 10, 1, 256, 2048),
+                                    (1, 2048, 8, 2, 128, None)):
+        q, k, v = qkv(b, s, s, h, kv, hd, torch.float32)
+        q = q * 4
+        before = ops.KERNELS["flash_attention"].launches
+        out = ops.flash_attention(q, k, v, window=window)
+        if ops.KERNELS["flash_attention"].launches != before + 1:
+            raise AssertionError("flash_attention did not launch once")
+        truth, top = attention_f64(q, k, v, window)
+        plain = ref.flash_attention_ref(q, k, v, window=window)
+        err = (out.double() - truth).abs()
+        label = (f"({b},{s},{h}/{kv},{hd})"
+                 + (f" window {window}" if window else "")
+                 + f" f32, q x 4 (|scores| <= {top:.1f})")
+        log(f"  flash_attention {label}: max err against float64 "
+            f"{float(err.max()):.3e} (plain f32 version "
+            f"{float((plain.double() - truth).abs().max()):.3e})")
+        if not bool((err <= 2e-5 + 2e-5 * truth.abs()).all()):
+            raise AssertionError(f"flash_attention {label}: max err "
+                                 f"{float(err.max())} against float64")
+        del q, k, v, out, truth, plain
+
+
 def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
     """recurrentgemma-2b's local attention at phase 10's prefill: q (4,
     4096, 10, 256), k/v (4, 4096, 1, 256) bf16, causal, window 2,048, which
     ``route`` sends to the tensor-core kernel. Checked as the other shapes,
-    then timed as the table times them; the CUDA-core kernel, this shape's
-    route before head_dim 256 reached the tensor cores, is held to the same
-    plain version and timed beside it through ``flash_attention_cuda``. The
+    then timed as the table times them; ``flash_attention.cu``, this
+    shape's route before head_dim 256 reached the wgmma kernel, is held to
+    the same plain version and timed beside it through
+    ``flash_attention_cuda`` (bf16 values: two TF32 passes a product). The
     library call is one SDPA with the window as a boolean mask and
     ``enable_gqa``. The bound counts the keys each query sees, min(i + 1,
     2,048), at the bf16 tensor-core rate. Returns the shape's entries of
-    the tensor-core and the CUDA-core kernel's rows."""
+    the tensor-core and the 3xTF32 kernel's rows."""
     b, s, h, kv, hd, window = 4, 4096, 10, 1, 256, 2048
     q, k, v = qkv(b, s, s, h, kv, hd)
     if fa_mod.route(q, k, v) != "sm90":
@@ -616,7 +769,7 @@ def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
     err_slow = float(diff.max())
     if not bool((diff <= 1e-3 + 8e-3 * want.abs()).all()):
         raise AssertionError(f"flash_attention {label}: max err {err_slow}")
-    log(f"  flash_attention (CUDA cores) {label}: max err {err_slow:.3e}")
+    log(f"  flash_attention (3xTF32 route) {label}: max err {err_slow:.3e}")
     del want, got, diff
     visible = sum(min(i + 1, window) for i in range(s))
     flops = 4 * hd * b * h * visible
@@ -640,7 +793,7 @@ def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
     out = []
     for name, fn, e, iters in (
             ("flash_attention_sm90", fa_mod.flash_attention_sm90, err, 10),
-            ("flash_attention (CUDA cores)", fa_mod.flash_attention_cuda,
+            ("flash_attention (3xTF32 route)", fa_mod.flash_attention_cuda,
              err_slow, 3)):
         def kernel():
             return fn(q, k, v, window=window)
@@ -979,7 +1132,7 @@ def recurrent_reference_phase(torch, ops, dev):
 def moe_reference_phase(torch, ops, dev):
     """Phase 3, the MoE family: the smoke qwen2-moe (2 layers, d_model 256,
     4 experts top-2, one shared expert) in float32 (TF32 off) with the same
-    parameters and tokens on the card (the CUDA-core flash kernel once a
+    parameters and tokens on the card (the 3xTF32 flash kernel once a
     layer) and on the host (plain versions), prefill then 8 teacher-forced
     decode steps, logits within 1e-3 absolute (f32 sums in other orders;
     a routing flip would show far above it)."""
@@ -1161,7 +1314,7 @@ def serve_phase(torch, ops, dev):
     peak = peak_text(torch, base)
 
     # the same weights served with float32 activations, batch 1: the
-    # CUDA-core flash kernel
+    # 3xTF32 flash kernel
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     m32 = build_model(cfg32)
     serve(m32, params, tokens[:1], 2, generator=g, device=dev)   # warm-up
@@ -2401,7 +2554,7 @@ RECURRENT_SERVES = (
 
 
 def _routes_against_f32(torch, ops, model, params, batch, lk, lp, n_flash,
-                        rows=None, by="max"):
+                        f32_launches, rows=None, by="max"):
     """The served prefill's kernel route held to its plain route at full
     width. In bf16 the two differ by more than the kernel does: its output
     agrees with the plain (chunked, f32) route's to a bf16 rounding (phase
@@ -2417,7 +2570,9 @@ def _routes_against_f32(torch, ops, model, params, batch, lk, lp, n_flash,
     printed. ``batch`` is the prefill batch of the bf16 logits lk (kernel)
     and lp (plain); with ``rows`` the f32 prefills take its first ``rows``
     rows (the f32 route at batch 1, as phase 5 serves it) and are held to
-    those rows of lk and lp. Returns the checks; prints the errors."""
+    those rows of lk and lp. The f32 kernel route's ``flash_attention``
+    launches go into ``f32_launches`` under the model's name. Returns the
+    checks; prints the errors."""
     import dataclasses
     from repro_torch.models.registry import build_model
     m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
@@ -2427,6 +2582,7 @@ def _routes_against_f32(torch, ops, model, params, batch, lk, lp, n_flash,
     before = ops.KERNELS["flash_attention"].launches
     lk32, _ = m32.prefill(params, batch, use_flash=True)
     launched = ops.KERNELS["flash_attention"].launches - before
+    f32_launches[model.cfg.name] = launched
     lp32, _ = m32.prefill(params, batch, use_flash=False)
     err32 = float((lk32 - lp32).abs().max())
     err = {route: (float((lb - lp32).abs().max()),
@@ -2448,7 +2604,7 @@ def _routes_against_f32(torch, ops, model, params, batch, lk, lp, n_flash,
     }
 
 
-def recurrent_serve_phase(torch, ops, dev):
+def recurrent_serve_phase(torch, ops, dev, f32_launches):
     """Phase 10: recurrentgemma-2b and xlstm-125m (their configs unchanged,
     weights drawn from seed 0) served through ``launch.serve.serve`` at
     batch 4 (a 4,096- and a 2,048-token prompt, 32 sampled tokens each);
@@ -2503,7 +2659,7 @@ def recurrent_serve_phase(torch, ops, dev):
         if n_flash:
             checks.update(_routes_against_f32(torch, ops, model, params,
                                               {"tokens": tokens}, res.logits,
-                                              lp, n_flash))
+                                              lp, n_flash, f32_launches))
         steps = gen - 1
         step_ms = res.decode_s * 1e3 / steps
         log(f"  {arch} prefill {batch}x{prompt}: {res.prefill_s * 1e3:.2f} "
@@ -2702,9 +2858,9 @@ def _flips(moe, cfg, tape_a, tape_b, groups):
     return tokens, choices, first
 
 
-def qwen2_moe_routes(torch, ops, model, params, tokens):
+def qwen2_moe_routes(torch, ops, model, params, tokens, f32_launches):
     """The served prefill's kernel route held to its plain route at full
-    width, in float32 activations (the CUDA-core flash kernel, 24
+    width, in float32 activations (the 3xTF32 flash kernel, 24
     launches) and in bf16 (the tensor-core one). Routing is discontinuous:
     the two routes' f32 sums in other orders move a router probability by
     ~1e-7, layer 0's closest top-4 margin is ~3e-7 (phase 11 (a) prints
@@ -2717,8 +2873,10 @@ def qwen2_moe_routes(torch, ops, model, params, tokens):
     between them (``_flips``) are printed as a reading, and so are both
     served bf16 routes' distances from the f32 plain logits. The served
     bf16 kernel route also gives layer 0's routing
-    (``_first_layer_routing``) and its MoE parameters and input. Returns
-    (the checks, those parameters, that input)."""
+    (``_first_layer_routing``) and its MoE parameters and input; the f32
+    kernel route's ``flash_attention`` launches go into ``f32_launches``
+    under the model's name. Returns (the checks, those parameters, that
+    input)."""
     import dataclasses
     from repro_torch.models import moe
     from repro_torch.models.registry import build_model
@@ -2751,6 +2909,7 @@ def qwen2_moe_routes(torch, ops, model, params, tokens):
             f"{flips[1]} capacity keeps, first in layer {flips[2]}; "
             f"launches {launched}")
     f32, bf16 = got["f32"], got["bf16"]
+    f32_launches[cfg.name] = f32["launched"]["flash_attention"]
     err_k = float((bf16["kernel"] - f32["plain"]).abs().max())
     err_p = float((bf16["plain"] - f32["plain"]).abs().max())
     log(f"  {cfg.name} bf16 routes against the f32 plain logits: kernel "
@@ -2810,7 +2969,7 @@ def moe_dispatch_phase(torch, moe_p, xin, cfg):
     }
 
 
-def moe_serve_phase(torch, ops, dev):
+def moe_serve_phase(torch, ops, dev, f32_launches):
     """Phase 11: (a) qwen2-moe-a2.7b (its config unchanged: 24 layers,
     d_model 2,048, 60 experts top-4, 4 shared, capacity factor 1.25, the
     einsum dispatch; weights drawn from seed 0) served through
@@ -2854,7 +3013,8 @@ def moe_serve_phase(torch, ops, dev):
         log(f"  {cfg.name} decode device idle share {1 - busy / step_ms:.3f}"
             f" of the unprofiled serve loop's {step_ms:.3f} ms per step")
     del cache
-    routes, moe_p, xin = qwen2_moe_routes(torch, ops, model, params, tokens)
+    routes, moe_p, xin = qwen2_moe_routes(torch, ops, model, params, tokens,
+                                          f32_launches)
     checks.update(routes)
     moe_p = tree_map(lambda a: a.clone(), moe_p)
     out[cfg.name] = launches
@@ -2896,7 +3056,7 @@ FRONTEND_SERVES = (
     ("musicgen-medium", 48, 4, 1500, 32, 1_837_254_144))
 
 
-def frontend_serve_phase(torch, ops, dev):
+def frontend_serve_phase(torch, ops, dev, f32_launches):
     """Phase 12: (a) qwen2-vl-72b at full width cut to 8 of its 80 layers
     and (c) musicgen-medium at full depth and width, weights drawn from
     seed 0, served through ``launch.serve.serve`` at batch 4 with 32
@@ -2958,8 +3118,8 @@ def frontend_serve_phase(torch, ops, dev):
         log(f"  {arch} bf16 prefill, kernel vs plain route: max err "
             f"{err:.3e} (|logits| <= {float(lp.abs().max()):.3f})")
         checks.update(_routes_against_f32(torch, ops, model, params,
-                                          batch_in, lk, lp, layers, rows=1,
-                                          by="rms"))
+                                          batch_in, lk, lp, layers,
+                                          f32_launches, rows=1, by="rms"))
         failed = [k_ for k_, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"{arch} serving checks failed: {failed}")
@@ -3269,6 +3429,8 @@ def main() -> int:
 
     log("== phase 5: serving Llama-3.2-1B at full width")
     served, served32 = serve_phase(torch, ops, dev)
+    # each f32 prefill's flash_attention launches, by model (phases 5, 10-12)
+    f32_launches = {"llama3.2-1b": served32["flash_attention"]}
     launches["flash_attention_sm90"] = served["flash_attention_sm90"]
     launches["flash_attention"] = served32["flash_attention"]
 
@@ -3299,15 +3461,15 @@ def main() -> int:
     disabled_span_cost(n_spans, on_secs)
 
     log("== phase 10: serving recurrentgemma-2b and xlstm-125m at full width")
-    recurrent = recurrent_serve_phase(torch, ops, dev)
+    recurrent = recurrent_serve_phase(torch, ops, dev, f32_launches)
 
     log("== phase 11: serving the MoE family at full width")
-    moe_served = moe_serve_phase(torch, ops, dev)
+    moe_served = moe_serve_phase(torch, ops, dev, f32_launches)
 
     log("== phase 12: serving qwen2-vl-72b (8 layers) and musicgen-medium "
         "at full width")
     t12 = time.perf_counter()
-    frontends = frontend_serve_phase(torch, ops, dev)
+    frontends = frontend_serve_phase(torch, ops, dev, f32_launches)
     log(f"  phase 12 {time.perf_counter() - t12:.1f} s")
 
     log("== phase 13: training the MoE, vision, audio and recurrent "
@@ -3345,6 +3507,9 @@ def main() -> int:
     rows["kmeans_assign"]["shapes"].append(fed_shape)
     rows["kmeans_assign"]["shapes"].append(loop_shape)
     rows["recon_gate"]["shapes"] = [cifar_shape]
+    for shape in rows["flash_attention"]["shapes"]:
+        if "model" in shape:
+            shape["launches_in_phase"] = f32_launches[shape["model"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "online_launches", "train_launches", "federated_llm_launches",
             "scan_launches", "cifar_launches", "traced_online_launches",
@@ -3354,8 +3519,8 @@ def main() -> int:
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
             "family_train_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "cold_ms", "floor_ms",
-            "shapes")
+            "bound_ms", "bound_by", "library_ms", "cold_ms",
+            "floor_ms", "shapes")
     log(smi)
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rows.values()]}))

@@ -61,7 +61,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
 
     On the card, ``flash_attention.route`` picks the kernel: the tensor-core
     one (``flash_attention_sm90``) for bf16 with head_dim 64, 128 or 256
-    whose views TMA can address, the CUDA-core one (``flash_attention``)
+    whose views TMA can address, the 3xTF32 one (``flash_attention``)
     for float32, bf16 at head_dim 32 and other views. Non-causal attention
     whose KV length is not a multiple of the JAX wrapper's KV block raises
     ``NotImplementedError``, as there: that wrapper pads KV and cannot mask

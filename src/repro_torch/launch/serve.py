@@ -11,7 +11,7 @@ the audio codec ``musicgen-medium``. The prefill runs attention through the
 flash kernel (``use_flash=True``): on the card the hand-written kernel, on
 the host its plain version. xLSTM has no attention; the other families'
 bf16 attention (head_dim 64, 128 or 256) takes the tensor-core flash
-kernel, their float32 variants the CUDA-core one.
+kernel, their float32 variants the 3xTF32 one.
 
 For qwen2-vl, ``main`` builds the prefill batch its ``prefill`` takes:
 min(256, S // 2) random bf16 patch embeddings of width ``frontend_dim``,

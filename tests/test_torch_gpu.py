@@ -115,6 +115,7 @@ FLASH_CASES = [  # b, s, lk, h, kv, hd, window, q_offset
     (1, 32, 128, 4, 4, 32, None, 96),      # chunked prefill
     (1, 200, 200, 4, 2, 128, None, 0),
     (1, 130, 130, 2, 1, 256, None, 0),
+    (2, 300, 300, 10, 1, 256, 100, 0),     # recurrentgemma's: MQA, window
     (2, 300, 300, 32, 8, 64, None, 0),     # the served model's heads
 ]
 
@@ -248,7 +249,7 @@ def test_flash_attention_sm90_matches_plain(dev, case):
 def test_flash_attention_sm90_strided_views(dev):
     """q, k and v sliced out of one fused (B, S, H + 2 Kv, hd) buffer reach
     the tensor-core kernel through their strides; a view whose head stride
-    is not a multiple of 16 bytes goes to the CUDA-core kernel."""
+    is not a multiple of 16 bytes goes to the 3xTF32 kernel."""
     buf = torch.randn((2, 300, 8 + 2 + 2, 64), device=dev).bfloat16()
     q, k, v = buf[:, :, :8], buf[:, :, 8:10], buf[:, :, 10:]
     with _launched("flash_attention_sm90"):
@@ -368,7 +369,7 @@ def test_train_step_card_matches_host(dev):
 def test_small_moe_card_matches_host(dev, dispatch):
     """The smoke qwen2-moe (2 layers, d_model 256, 4 experts top-2, one
     shared expert) in float32 on the card and on the host from the same
-    weights and tokens: prefill (the CUDA-core flash kernel once a layer)
+    weights and tokens: prefill (the 3xTF32 flash kernel once a layer)
     and 8 decode steps, logits within 1e-3 absolute (phase 3's bound), the
     routing decisions of the first layer equal."""
     import dataclasses
@@ -409,7 +410,7 @@ def test_small_frontends_card_matches_host(dev, arch):
     """The smoke qwen2-vl (patch embeddings and text, with Qwen2-VL's
     position grid so that M-RoPE's three streams differ) and the smoke
     musicgen (2 codebooks) in float32 on the card and on the host from the
-    same weights and prompt: prefill (the CUDA-core flash kernel once a
+    same weights and prompt: prefill (the 3xTF32 flash kernel once a
     layer) and 8 decode steps, logits within 1e-3 absolute (phase 3's
     bound)."""
     import dataclasses

@@ -169,16 +169,30 @@
    ``FAMILY_FULL``); (c) ``examples.train_e2e --quick --steps
    100`` (full xlstm-125m), whose own rule (the last 10 steps' mean loss
    below the first 10's) must hold, with its seconds, tokens/s and peak.
+14. Drives the last entry points: (a) ``examples.quickstart`` at its full
+   size on the card, through ``kmeans_assign`` (50 launches) and
+   ``recon_gate`` (2), held to the same quickstart on the host from the
+   same draws (``quickstart_phase``), with its seconds, peak and the three
+   signs of a healthy run; (b) moonshot-v1-16b-a3b at full width and all
+   48 layers with bf16 parameters (the ``bf16_params`` variant) served at
+   4 x 2,048 + 8 tokens (48 ``flash_attention_sm90`` launches a prefill),
+   and on an 8-layer cut its bf16-parameter logits held to the
+   f32-parameter ones within one bf16 ulp with the routing pinned; (c)
+   ``launch.dryrun``'s count of the steps the smoke times (phase 5's
+   prefill, phase 7's 4 x 2,048 train step, (b)'s prefill) at their own
+   shapes, each roofline bound beside the measured time, and the train
+   step's counted peak held to the card's within 5%.
 
-Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12 and 13
-(b, c) set every kernel's launch count to 0 just before each run they drive
+Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12, 13
+(b, c) and 14 (a, b) set every kernel's launch count to 0 just before each
+run they drive
 (the main path, the bf16 serve, the f32 serve, the two online runs, the two
 training runs, the federated-LLM run, the eager and scan runs, the
 CIFAR-like main path, the clustering loop on the card, the traced online
 and scan runs, the two recurrent serves, the three MoE serves, the vision
-and audio serves, the four family training runs and train_e2e) and read the
-counts just after. Before the main path,
-each serve, each online run and each training run they reset the
+and audio serves, the four family training runs, train_e2e, the quickstart
+and the full-depth moonshot serve) and read the counts just after. Before
+the main path, each serve, each online run and each training run they reset the
 peak-memory counter and print what is allocated then; each peak is printed
 absolute and above that allocation.
 
@@ -192,8 +206,9 @@ each kernel's launches on the main path and, as ``online_launches``, on the
 as ``qwen2_moe_serve_launches``, ``phi35_moe_serve_launches`` and
 ``moonshot_serve_launches`` in phase 11, as ``qwen2_vl_serve_launches``
 and ``musicgen_serve_launches`` in phase 12, as ``family_train_launches``
-(per arch, train_e2e's under xlstm-125m) in phase 13, the online shapes'
-errors, the
+(per arch, train_e2e's under xlstm-125m) in phase 13, as
+``quickstart_launches`` and ``moonshot_full_serve_launches`` in phase 14,
+the online shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
 recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
@@ -213,10 +228,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS_PER_S = 495e12   # H100 SXM tf32 tensor cores, dense
 
 
 def log(*args):
@@ -266,10 +277,12 @@ def graph_ms(fn, iters=50, replays=5):
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def bound(bytes_moved, flops, flops_per_s=F32_FLOPS_PER_S):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(bytes_moved, flops, dtype="float32"):
+    """(ms, "bytes" or "operations"): ``repro_torch.roofline.bound_ms``, the
+    H100 SXM datasheet's rates (3.35 TB/s; 67 TFLOP/s float32, 989 bf16,
+    495 tf32, a third of that for 3xTF32)."""
+    from repro_torch import roofline
+    return roofline.bound_ms(bytes_moved, flops, dtype)
 
 
 def reset_peak(torch, label):
@@ -498,11 +511,11 @@ def flash_phase(torch, ops, ref, fa_mod, dev):
 
     rows = {}
     b, s, h, hd = q.shape
-    # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys
-    flops = 4 * hd * (b * h * s * (s + 1) // 2)
-    # q, k, v read once, out written once
-    moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    # causal, q_offset 0, S = L: every (b, h) row i sees i + 1 keys; q, k,
+    # v read once, out written once
+    flops, moved = flash_work(b, s, h, k.shape[2], hd, None,
+                              q.element_size())
+    b_ms, b_by = bound(moved, flops, "bfloat16")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rows[sm90] = r = dict(
         name=sm90, route="cuda",
@@ -576,7 +589,7 @@ def served_flash(torch, F, ops, ref, fa_mod, qkv, label, b, s, h, kv, hd):
     err = check_flash(ops, ref, q, k, v, label, "flash_attention_sm90")
     flops = 4 * hd * (b * h * s * (s + 1) // 2)
     moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    b_ms, b_by = bound(moved, flops, "bfloat16")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def kernel():
@@ -624,10 +637,10 @@ F32_FLASH = (
 def flash_work(b, s, h, kv, hd, window, itemsize):
     """Causal attention with L = S: the flops of the keys each query sees
     (min(i + 1, window)) and the bytes of q, k, v read once and out written
-    once."""
-    visible = sum(i + 1 if window is None else min(i + 1, window)
-                  for i in range(s))
-    return 4 * hd * b * h * visible, itemsize * 2 * b * s * (h + kv) * hd
+    once (``repro_torch.roofline.flash_attention_work``)."""
+    from repro_torch import roofline
+    return roofline.flash_attention_work(b, s, s, h, kv, hd, window=window,
+                                         itemsize=itemsize)
 
 
 def f32_flash(torch, F, ops, ref, fa_mod, qkv, checked, label, model, b, s, h,
@@ -654,8 +667,8 @@ def f32_flash(torch, F, ops, ref, fa_mod, qkv, checked, label, model, b, s, h,
         raise AssertionError(f"route did not send {label}'s shape to "
                              "flash_attention.cu")
     flops, moved = flash_work(b, s, h, kv, hd, window, q.element_size())
-    b_ms, b_by = bound(moved, 3 * flops, TF32_FLOPS_PER_S)
-    f32_ms, _ = bound(moved, flops, F32_FLOPS_PER_S)
+    b_ms, b_by = bound(moved, flops, "3xtf32")
+    f32_ms, _ = bound(moved, flops)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window is None:
         sdpa = dict(is_causal=True)
@@ -771,10 +784,8 @@ def recurrentgemma_flash(torch, F, ops, ref, fa_mod, qkv):
         raise AssertionError(f"flash_attention {label}: max err {err_slow}")
     log(f"  flash_attention (3xTF32 route) {label}: max err {err_slow:.3e}")
     del want, got, diff
-    visible = sum(min(i + 1, window) for i in range(s))
-    flops = 4 * hd * b * h * visible
-    moved = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    flops, moved = flash_work(b, s, h, kv, hd, window, q.element_size())
+    b_ms, b_by = bound(moved, flops, "bfloat16")
     pos = torch.arange(s, device=q.device)
     mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
                                              < window)
@@ -1287,7 +1298,8 @@ def device_profile(torch, label, fn, top=6):
 
 def serve_phase(torch, ops, dev):
     """Phase 5: Llama-3.2-1B served at full width; returns the launch counts
-    of the bf16 serve and of the f32 serve."""
+    of the bf16 serve and of the f32 serve, and the bf16 prefill's
+    seconds."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -1387,7 +1399,7 @@ def serve_phase(torch, ops, dev):
         step = res.decode_s * 1e3 / steps
         log(f"  decode device idle share {1 - busy / step:.3f} of the "
             f"unprofiled serve loop's {step:.3f} ms per step")
-    return launches, launches32
+    return launches, launches32, res.prefill_s
 
 
 def full_world(torch, dev):
@@ -1754,18 +1766,6 @@ def orchestrator_resume(torch, dev):
         f"determinism setting needed: {setting}")
 
 
-def train_flops(cfg, n_params, n_block_params, b, s):
-    """Model FLOPs of one training step at batch b x s tokens: 6 N per token
-    (forward and backward), one more forward of the blocks (block remat),
-    and each attention layer's two products over the full S x L scores
-    (the plain and chunked routes compute every entry), forward, backward
-    and the remat forward."""
-    tokens = b * s
-    n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_kinds)
-    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * n_attn
-    return 6 * n_params * tokens + 2 * n_block_params * tokens + 4 * attn
-
-
 def profile_train_step(torch, model, b, s, dev, step_s):
     """One training step (after a warm-up step) under ``device_profile``:
     where its device time goes, and the device's idle share of the
@@ -1792,8 +1792,8 @@ def launch_train(torch, ops, dev, model, label, steps, b, s, profile=True):
     """``launch.train.main`` on ``model``'s full config: ``steps`` steps of
     b x s, the first a warm-up, with every launch count set to 0 and the
     peak counter reset before it; ``_report_steps``; then, if ``profile``,
-    one more step profiled (``profile_train_step``). Returns the launch
-    counts."""
+    one more step profiled (``profile_train_step``). Returns (the launch
+    counts, the median step seconds, the peak bytes above the reset)."""
     from repro_torch.launch import train
     base = reset_peak(torch, label)
     for k in ops.KERNELS.values():
@@ -1806,11 +1806,12 @@ def launch_train(torch, ops, dev, model, label, steps, b, s, profile=True):
                         list(zip(res.loss, res.grad_norm, res.lr,
                                  res.seconds)),
                         launches, peak_text(torch, base))
+    peak = torch.cuda.max_memory_allocated() - base
     _release(torch)
     if profile:
         profile_train_step(torch, model, b, s, dev, med)
         _release(torch)
-    return launches
+    return launches, med, peak
 
 
 def train_full(torch, ops, dev):
@@ -1819,18 +1820,22 @@ def train_full(torch, ops, dev):
     (the plain attention route, one more step profiled), then 3 at 2 x
     4,096 (the chunked route, the sequence length of
     ``INPUT_SHAPES["train_4k"]``). Returns the launch counts, summed over
-    both runs (every hand kernel must stay at 0)."""
+    both runs (every hand kernel must stay at 0), and {(b, s): (median step
+    seconds, peak bytes above the reset)}."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.models.registry import build_model
     model = build_model(get_config("llama3.2-1b"))
     total = {name: 0 for name in ops.KERNELS}
+    steps_at = {}
     for steps, b, s in ((10, 4, 2048),
                         (3, 2, INPUT_SHAPES["train_4k"].seq_len)):
-        launches = launch_train(torch, ops, dev, model, f"train {b} x {s:,}",
-                                steps, b, s, profile=s == 2048)
+        launches, med, peak = launch_train(torch, ops, dev, model,
+                                           f"train {b} x {s:,}", steps, b, s,
+                                           profile=s == 2048)
+        steps_at[b, s] = med, peak
         for name, v in launches.items():
             total[name] += v
-    return total
+    return total, steps_at
 
 
 def federated_llm_phase(torch, ops, ref, km_mod, dev):
@@ -2693,7 +2698,8 @@ def recurrent_serve_phase(torch, ops, dev, f32_launches):
 # qwen2-moe-a2.7b's parameters and active parameters a token (JAX's counts)
 QWEN2_MOE_COUNTS = (14_315_587_584, 2_688_976_896)
 # arch, the layers served of its config's: full depth does not fit one
-# 80 GB card in float32 (phi3.5-moe 155.99 GiB, moonshot 107.62 GiB)
+# 80 GB card in float32 (phi3.5-moe 155.99 GiB, moonshot 107.62 GiB);
+# phase 14 (b) serves moonshot's 48 layers with bf16 parameters (53.81 GiB)
 MOE_CUT = (("phi3.5-moe-42b-a6.6b", 8), ("moonshot-v1-16b-a3b", 8))
 # bf16 kernel route vs plain route with the routing pinned: twice the
 # 0.147 an H100 showed (the two routes round attention at other places,
@@ -3238,13 +3244,15 @@ def _report_steps(label, model, b, s, rows, launches, peak):
     for i, (loss, gnorm, lr, secs) in enumerate(rows):
         log(f"  {label} step {i}{' (warm-up)' if i == 0 else ''}: loss "
             f"{loss:.4f}, grad norm {gnorm:.4f}, lr {lr:.3e}, {secs:.4f} s")
+    from repro_torch import roofline
     med = statistics.median(r[3] for r in rows[1:])
-    flops = family_flops(model, b, s)[1]
+    flops = roofline.train_step_flops(model, b, s)[1]
+    peak_bf16 = roofline.PEAK_FLOPS["bfloat16"]
     log(f"  {label}: median step {med:.4f} s after the warm-up, "
         f"{b * s / med:.0f} tokens/s, {flops / 1e12:.2f} TFLOP a step = "
         f"{flops / med / 1e12:.1f} TFLOP/s, "
-        f"{flops / med / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s (bound "
-        f"{flops / BF16_FLOPS_PER_S:.4f} s); {peak}")
+        f"{flops / med / peak_bf16:.4f} of 989 TFLOP/s (bound "
+        f"{flops / peak_bf16:.4f} s); {peak}")
     log(f"  {label} launches {launches}")
     checks = {
         "every loss and grad norm finite": all(
@@ -3294,20 +3302,6 @@ def _timed_steps(torch, ops, model, tc, batches, b, s, dev, label):
     return launches
 
 
-def family_flops(model, b, s):
-    """(active parameters, model FLOPs of one training step at b x s
-    positions) by ``train_flops``: an MoE config counts its active
-    parameters (k of E experts a token), and only attention layers add
-    the S x L score products."""
-    from repro_torch.models.common import tree_leaves
-    cfg = model.cfg
-    n = model.n_active_params()
-    outer = sum(math.prod(sp.shape) for sp in tree_leaves(
-        (model.specs["embed"], model.specs["head"],
-         model.specs["final_norm"])))
-    return n, train_flops(cfg, n, n - outer, b, s)
-
-
 def family_train_full(torch, ops, dev):
     """Phase 13 (b): each family at full width (``FAMILY_FULL``), weights
     drawn from seed 0 on the card, float32 parameters and the config's
@@ -3319,6 +3313,7 @@ def family_train_full(torch, ops, dev):
     attention route, as the JAX package's does). Returns {arch: launch
     counts}."""
     import dataclasses
+    from repro_torch import roofline
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.models.registry import build_model
     _release(torch)
@@ -3329,11 +3324,12 @@ def family_train_full(torch, ops, dev):
         model = build_model(cfg)
         label = f"train {arch} ({layers} of {full.n_layers} layers) " \
             f"{b} x {s:,}"
-        n_active, flops = family_flops(model, b, s)
+        n_active, flops = roofline.train_step_flops(model, b, s)
         log(f"  {label}: {model.n_params():,} parameters, {n_active:,} "
             f"active a token, {flops / 1e12:.2f} model TFLOP a step")
         if layers == full.n_layers:
-            launches = launch_train(torch, ops, dev, model, label, 4, b, s)
+            launches = launch_train(torch, ops, dev, model, label, 4, b,
+                                    s)[0]
         else:
             g = torch.Generator(device=dev).manual_seed(1)
             batches = [_family_batch(torch, cfg, b, s, g, dev, grid_w=8)
@@ -3370,6 +3366,246 @@ def train_e2e_phase(torch, ops, dev):
         raise AssertionError("train_e2e checks failed")
     _release(torch)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the quickstart, moonshot at full depth in bf16, the dry run
+# ---------------------------------------------------------------------------
+
+# the quickstart's card run against its host run (same draws): eval losses
+# after 200 Adam steps on convolution gradients summed in other orders
+# (phase 3 holds 20 steps to 1e-3), and linear-evaluation accuracies on 100
+# test images, two of which may land on the other side
+QUICKSTART_EVAL_RTOL = 1e-2
+QUICKSTART_ACC_ATOL = 0.02
+# the dry run's peak (arguments + live bytes) against the card's
+# max_memory_allocated above the reset, for Llama's train step: the
+# caching allocator rounds each block up to 512 bytes, and the cuBLAS
+# workspace and any scratch an op allocates inside its kernel are not
+# tensors the count sees
+PEAK_BAND = 0.05
+
+
+def _gate_margins_ok(res, rel=1e-4):
+    """Whether every gate decision of a pipeline run has its candidate
+    score more than ``rel`` relative away from the receiver's base score
+    (ROADMAP, "Gate decisions"): then the card's decisions must equal the
+    host's."""
+    ex = res.exchange
+    base = ex.base.float().cpu()[:, None]
+    scores = ex.scores.float().cpu()
+    return bool(((scores - base).abs() > rel * base.abs()).all())
+
+
+def quickstart_phase(torch, ops, dev):
+    """Phase 14 (a): ``examples.quickstart`` at its full size on the card
+    (8 clients, 100 training images a class, 400 RL episodes, 200 FedAvg
+    iterations on raw and exchanged data, linear evaluation of both), every
+    launch count set to 0 and the peak reset just before it: it must launch
+    ``kmeans_assign`` 50 times (25 Lloyd steps before and after the
+    exchange) and ``recon_gate`` twice. Then the same seed on the host
+    (the same draws, from one host generator): ``in_edge`` equal, the
+    datapoints received equal where every gate margin exceeds 1e-4
+    relative, mean λ before and after within 1e-6 relative, P_D within
+    1e-6, the eval losses within ``QUICKSTART_EVAL_RTOL`` relative and the
+    accuracies within ``QUICKSTART_ACC_ATOL``. Prints the card run's wall
+    seconds (ending in a sync), its peak, the host run's seconds and the
+    three signs of a healthy run (the verify skill's): datapoints received,
+    mean λ falling, smart-D2D eval loss at most the non-i.i.d. one at the
+    later iterations. Returns the launch counts."""
+    from repro_torch.examples import quickstart
+    base = reset_peak(torch, "quickstart")
+    for k in ops.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    card = quickstart.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    peak = peak_text(torch, base)
+    t0 = time.perf_counter()
+    host = quickstart.main(["--device", "cpu"])
+    host_s = time.perf_counter() - t0
+    margins_ok = (_gate_margins_ok(card["pipeline"])
+                  and _gate_margins_ok(host["pipeline"]))
+    eval_err = max(abs(c - h) / abs(h) for rc, rh in
+                   zip(card["eval"], host["eval"])
+                   for c, h in zip(rc[1:], rh[1:]))
+    acc_err = max(abs(card[k] - host[k]) for k in ("acc_non_iid",
+                                                   "acc_smart"))
+    later = card["eval"][len(card["eval"]) // 2:]
+    log(f"  quickstart on the card: {secs:.3f} s, {peak}; on the host "
+        f"{host_s:.3f} s; launches {launches}")
+    log(f"  card against host: in_edge {card['in_edge']} / "
+        f"{host['in_edge']}; moved {card['moved']} / {host['moved']} (every "
+        f"gate margin above 1e-4: {margins_ok}); mean lambda "
+        f"{card['lam_before']:.6f} -> {card['lam_after']:.6f} / "
+        f"{host['lam_before']:.6f} -> {host['lam_after']:.6f}; P_D chosen "
+        f"{card['pd_chosen']:.6f} / {host['pd_chosen']:.6f}; eval losses "
+        f"max rel err {eval_err:.3e}; accuracies {card['acc_non_iid']:.3f}, "
+        f"{card['acc_smart']:.3f} / {host['acc_non_iid']:.3f}, "
+        f"{host['acc_smart']:.3f}")
+    log(f"  healthy-run signs: datapoints received {card['moved']} (total "
+        f"{sum(card['moved'])}); mean lambda {card['lam_before']:.3f} -> "
+        f"{card['lam_after']:.3f} (falls: "
+        f"{card['lam_after'] < card['lam_before']}); smart-D2D <= non-iid "
+        f"eval loss at iters {[r[0] for r in later]}: "
+        f"{[r[2] <= r[1] for r in later]}")
+    checks = {
+        "kmeans_assign launched 50 times, recon_gate twice, nothing else":
+            launches == {n: {"kmeans_assign": 50, "recon_gate": 2}.get(n, 0)
+                         for n in launches},
+        "in_edge equal": card["in_edge"] == host["in_edge"],
+        "datapoints received equal (margins above 1e-4)":
+            not margins_ok or card["moved"] == host["moved"],
+        "mean lambda before and after within 1e-6 relative": all(
+            abs(card[k] - host[k]) <= 1e-6 * abs(host[k])
+            for k in ("lam_before", "lam_after")),
+        "P_D within 1e-6": all(abs(card[k] - host[k]) <= 1e-6
+                               for k in ("pd_chosen", "pd_all")),
+        "eval iterations equal": [r[0] for r in card["eval"]]
+            == [r[0] for r in host["eval"]],
+        f"eval losses within {QUICKSTART_EVAL_RTOL} relative":
+            eval_err <= QUICKSTART_EVAL_RTOL,
+        f"accuracies within {QUICKSTART_ACC_ATOL}":
+            acc_err <= QUICKSTART_ACC_ATOL,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"quickstart checks failed: {failed}")
+    return launches
+
+
+def moonshot_full_phase(torch, ops, dev):
+    """Phase 14 (b): moonshot-v1-16b-a3b at full width and all 48 layers
+    with bf16 parameters (``param_dtype="bfloat16"``, ``launch.perf``'s
+    ``bf16_params``), served through ``launch.serve.serve`` at phase 11's
+    4 x 2,048 + 8 tokens (``_moe_serve``: the tensor-core flash kernel
+    once a layer, 48, nothing else). Then, on a cut to 8 layers that fits
+    in float32, the f32-parameter model's prefill against the same weights
+    rounded to bf16 (bf16 activations: each layer casts its f32 weights to
+    bf16, so only the router's float32 product sees the rounding): with the
+    routing pinned to the f32 route's (``router_tape``) within one bf16 ulp
+    of the largest |logit|; as served, the distance and the routing flips
+    are printed. Returns (the serve's launch counts, its prefill seconds,
+    the config)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, param_dtype="bfloat16")
+    model = build_model(cfg)
+    log(f"  {cfg.name}: {model.n_params():,} parameters, "
+        f"{model.n_params() * 2 / 2**30:.2f} GiB in bf16")
+    params, g = _draw(torch, model, dev)
+    res, _, launches, checks = _moe_serve(torch, ops, model, params, g, dev,
+                                          4, 2048, 8)
+    del params
+    _release(torch)
+
+    cut = dataclasses.replace(full, n_layers=8)
+    m32 = build_model(cut)
+    m16 = build_model(dataclasses.replace(cut, param_dtype="bfloat16"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    p32 = m32.init(g, device=dev)
+    p16 = tree_map(lambda a: a.to(torch.bfloat16), p32)
+    tokens = torch.randint(0, cut.vocab_size, (4, 2048), generator=g,
+                           device=dev)
+    batch = {"tokens": tokens}
+    with router_tape(moe) as tape32:
+        l32, _ = m32.prefill(p32, batch, use_flash=True)
+    with router_tape(moe, replay=tape32):
+        pinned, _ = m16.prefill(p16, batch, use_flash=True)
+    with router_tape(moe) as tape16:
+        served, _ = m16.prefill(p16, batch, use_flash=True)
+    flips = _flips(moe, cut, tape32, tape16, 4)
+    scale = float(l32.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    err_pinned = float((pinned - l32).abs().max())
+    err_served = float((served - l32).abs().max())
+    log(f"  {cut.name} (8 layers) prefill, bf16 parameters against f32 "
+        f"parameters: max err {err_pinned:.3e} with the routing pinned, "
+        f"{err_served:.3e} as served (one bf16 ulp at |logits| <= "
+        f"{scale:.3f} is {ulp:.3e}); routing flips as served: {flips[0]} "
+        f"tokens' top-{cut.experts_per_token} sets, {flips[1]} capacity "
+        f"keeps, first in layer {flips[2]}")
+    checks["8-layer cut, routing pinned: bf16 parameters within one bf16 "
+           "ulp of the f32 parameters' logits"] = err_pinned <= ulp
+    del p32, p16, tape32, tape16, l32, pinned, served
+    _release(torch)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{cfg.name} (48 layers, bf16) checks failed: "
+                             f"{failed}")
+    return launches, res.prefill_s, cfg
+
+
+def dryrun_phase(torch, llama_prefill_s, llama_steps, moonshot_prefill_s,
+                 moonshot_cfg):
+    """Phase 14 (c): ``launch.dryrun``'s count of each step the smoke
+    times, at that step's own shape and depth, beside the measured time:
+    Llama-3.2-1B's 4 x 2,048 prefill (phase 5: a cache of 2,080), its
+    train step at 4 x 2,048 (phase 7 (a); the count's FLOPs also beside
+    ``roofline.train_step_flops``) and (b)'s moonshot prefill (a cache of
+    2,056). Each bound is the larger roofline term from the H100 SXM
+    datasheet's rates. The train step's counted peak (arguments + live
+    bytes) is held to phase 7's ``max_memory_allocated`` above its reset
+    within ``PEAK_BAND``. Returns the checks."""
+    from repro_torch import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import build_model
+    llama = get_config("llama3.2-1b")
+    step_s, peak = llama_steps[4, 2048]
+    rows = (("Llama-3.2-1B prefill 4 x 2,048 (phase 5)", llama,
+             InputShape("prefill", 2048, 4, "prefill"), 2048 + 32,
+             llama_prefill_s),
+            ("Llama-3.2-1B train step 4 x 2,048 (phase 7)", llama,
+             InputShape("train", 2048, 4, "train"), None, step_s),
+            ("moonshot-v1-16b-a3b 48 layers bf16 prefill 4 x 2,048 "
+             "(phase 14 (b))", moonshot_cfg,
+             InputShape("prefill", 2048, 4, "prefill"), 2048 + 8,
+             moonshot_prefill_s))
+    checks = {}
+    for label, cfg, shape, max_len, secs in rows:
+        rec = dryrun.count_step(cfg, shape, max_len=max_len)
+        terms = dryrun.roofline_record(cfg, shape, rec)
+        bound_s = max(terms["t_compute_s"], terms["t_memory_s"])
+        by = {k: f"{v / 1e12:.3f}" for k, v in
+              terms["flops_by_dtype"].items()}
+        log(f"  dry run, {label}: {rec['cost']['flops'] / 1e12:.3f} TFLOP "
+            f"(by dtype {by}), {rec['cost']['bytes'] / 1e9:.2f} GB, "
+            f"kernels {rec['kernels']}, counted in {rec['count_s']:.2f} s; "
+            f"bound {bound_s * 1e3:.3f} ms ({terms['bottleneck']}: compute "
+            f"{terms['t_compute_s'] * 1e3:.3f} ms, memory "
+            f"{terms['t_memory_s'] * 1e3:.3f} ms); measured "
+            f"{secs * 1e3:.3f} ms = {secs / bound_s:.2f} x the bound")
+        if shape.kind == "train":
+            model = build_model(cfg)
+            analytic = roofline.train_step_flops(model, shape.global_batch,
+                                                 shape.seq_len)[1]
+            counted = (rec["memory"]["argument_size_in_bytes"]
+                       + rec["memory"]["temp_size_in_bytes"])
+            log(f"  dry run, {label}: counted FLOPs "
+                f"{rec['cost']['flops'] / analytic:.4f} of "
+                f"train_step_flops' {analytic / 1e12:.3f} TFLOP (that "
+                f"counts the embedding as a product and every remat "
+                f"product); peak {counted / 2**30:.3f} GiB (arguments "
+                f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f}) "
+                f"against the card's {peak / 2**30:.3f} GiB above the "
+                f"reset: {counted / peak:.4f}")
+            checks[f"{label}: counted peak within {PEAK_BAND} of the "
+                   "card's"] = abs(counted / peak - 1) <= PEAK_BAND
+        if shape.kind == "prefill":
+            n_attn = sum(k in ("attn", "local_attn")
+                         for k in cfg.layer_kinds)
+            checks[f"{label}: {n_attn} flash_attention_sm90 launches "
+                   "counted"] = rec["kernels"].get(
+                       "flash_attention_sm90", {}).get("launches") == n_attn
+    return checks
 
 
 def main() -> int:
@@ -3428,7 +3664,7 @@ def main() -> int:
     launches = main_path(torch, ops, dev)
 
     log("== phase 5: serving Llama-3.2-1B at full width")
-    served, served32 = serve_phase(torch, ops, dev)
+    served, served32, llama_prefill_s = serve_phase(torch, ops, dev)
     # each f32 prefill's flash_attention launches, by model (phases 5, 10-12)
     f32_launches = {"llama3.2-1b": served32["flash_attention"]}
     launches["flash_attention_sm90"] = served["flash_attention_sm90"]
@@ -3441,7 +3677,7 @@ def main() -> int:
     orchestrator_resume(torch, dev)
 
     log("== phase 7: training Llama-3.2-1B, and the federated-LLM example")
-    trained = train_full(torch, ops, dev)
+    trained, llama_steps = train_full(torch, ops, dev)
     fed_launches, fed_shape = federated_llm_phase(torch, ops, ref, km_mod,
                                                   dev)
     train_reference(torch, dev)
@@ -3479,6 +3715,19 @@ def main() -> int:
     family_trained = family_train_full(torch, ops, dev)
     family_trained["xlstm-125m"] = train_e2e_phase(torch, ops, dev)
     log(f"  phase 13 {time.perf_counter() - t13:.1f} s")
+
+    log("== phase 14: the quickstart, moonshot-v1-16b-a3b at 48 layers in "
+        "bf16, the dry run against the card")
+    t14 = time.perf_counter()
+    quick = quickstart_phase(torch, ops, dev)
+    moonshot_full, moonshot_prefill_s, moonshot_cfg = moonshot_full_phase(
+        torch, ops, dev)
+    checks = dryrun_phase(torch, llama_prefill_s, llama_steps,
+                          moonshot_prefill_s, moonshot_cfg)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dry run checks failed: {failed}")
+    log(f"  phase 14 {time.perf_counter() - t14:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -3502,6 +3751,8 @@ def main() -> int:
         row["musicgen_serve_launches"] = frontends["musicgen-medium"][name]
         row["family_train_launches"] = {arch: v[name] for arch, v in
                                         family_trained.items()}
+        row["quickstart_launches"] = quick[name]
+        row["moonshot_full_serve_launches"] = moonshot_full[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -3517,7 +3768,8 @@ def main() -> int:
             "xlstm_serve_launches", "qwen2_moe_serve_launches",
             "phi35_moe_serve_launches", "moonshot_serve_launches",
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
-            "family_train_launches", "max_abs_err",
+            "family_train_launches", "quickstart_launches",
+            "moonshot_full_serve_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms",
             "floor_ms", "shapes")

@@ -6,6 +6,9 @@ Dispatch follows the tensor's device and nothing else:
     launch raises, it never falls back to the plain version or to another
     kernel. Flash attention has two kernels on the card, and
     ``flash_attention.route`` alone picks between them.
+  * meta tensor, inside a dry run (``launch.dryrun``) only -> the flash
+    kernel's work reported to the dry run's counter; outside one, an error
+    as for any other device.
 
 The kernels mask their own ragged edges, so no operand is padded here.
 """
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import recon_gate as _rg
@@ -22,6 +26,15 @@ from repro_torch.kernels import ref
 KERNELS = {"kmeans_assign": _km.KERNEL, "recon_gate": _rg.KERNEL,
            "flash_attention": _fa.KERNEL,
            "flash_attention_sm90": _fa.KERNEL_SM90}
+
+# The counters of open dry runs (``launch.dryrun``), innermost last. They
+# count a step on meta tensors by watching the dispatcher, but the card's
+# kernels launch through ctypes outside it, and the plain flash version
+# computes every S x L score where a kernel visits only the keys each query
+# sees. So on meta tensors the flash wrapper hands the innermost counter the
+# kernel's own work, and the counter runs the plain version for its
+# output's shape without counting it.
+DRY_RUN_COUNTERS: list = []
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -68,6 +81,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     the padding without the causal test.
     The kernels have no backward (nor has the Pallas kernel): an input that
     needs a gradient raises on the card rather than dropping it."""
+    if q.device.type == "meta" and DRY_RUN_COUNTERS:
+        sm90 = _fa.route(q, k, v) == "sm90"
+        work = roofline.flash_attention_work(
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], causal=causal, window=window, q_offset=q_offset,
+            itemsize=q.element_size())
+        return DRY_RUN_COUNTERS[-1].kernel(
+            _fa.KERNEL_SM90.name if sm90 else _fa.KERNEL.name,
+            "bfloat16" if sm90 else "3xtf32", *work,
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset))
     if not _on_cuda(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)

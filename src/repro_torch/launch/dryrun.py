@@ -1,0 +1,338 @@
+"""Dry run of every (architecture x input shape) step for one H100 (mirrors
+``repro.launch.dryrun``, which lowers and compiles each step for a
+512-chip TPU v5e mesh).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
+        --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--roofline]
+
+Each step is the one the reference lowers (``build_step``): a train step
+(``make_train_step`` with ``TrainConfig()``, AdamW state from
+``init_opt_state``, parameters and moments written in place: the
+reference's ``donate_argnums``), a prefill (``model.prefill`` on the flash
+route that ``launch.serve`` takes) or a decode step (``model.decode`` on
+``Model.init_cache``). It runs once at the full production shape
+(``INPUT_SHAPES``) on ``meta`` tensors, which hold no memory, under
+:class:`StepCounter`, which records per combination into
+``runs/dryrun_torch/<arch>--<shape>--h100.json``:
+
+  * ``cost``: FLOPs by operand dtype (``torch.utils.flop_counter``'s
+    formulas, the ones ``FlopCounterMode`` applies) and the bytes each op
+    reads and writes (the counterpart of XLA's ``cost_analysis``);
+  * ``memory``: argument, output and aliased-output bytes, and the peak of
+    live bytes above the arguments (each output's storage tracked until its
+    last tensor dies: the counterpart of ``temp_size_in_bytes``);
+  * ``kernels``: the hand kernels' launches and work. The kernels launch
+    outside the dispatcher, so on meta tensors the flash wrapper reports
+    its kernel's own work (the keys each query sees: ``kernels.ops``) in
+    place of the plain version's S x L product;
+  * with ``--roofline`` the three roofline terms (``repro_torch.roofline``).
+
+The count runs the port's Python as a real step does, op by op: the layers,
+the chunked attention's loop and the sLSTM's loop over time, so every
+layer is counted and nothing is extrapolated. It takes seconds a step for
+most combinations; xlstm-125m's sLSTM loop runs 32,768 steps at
+prefill_32k and 4,096 forward and backward at train_4k, op by op, which
+takes tens of minutes, so a sweep skips those two (``SLOW``; the README
+gives the times). The reference's ``--multi-pod``
+and ``--both-meshes`` go with the sharding slice (ROADMAP Queue 1,
+item 11).
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import time
+import traceback
+import weakref
+
+import torch
+from torch.utils import flop_counter
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch import optim
+from repro_torch import roofline as rl
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, TrainConfig, get_config
+from repro_torch.kernels import ops
+from repro_torch.launch import specs as sp
+from repro_torch.models.registry import build_model, make_train_step
+
+# combinations whose count takes tens of minutes: the sLSTM's loop over
+# time runs op by op on meta tensors (32,768 steps at prefill_32k, 4,096
+# forward and backward at train_4k). A sweep skips them with a printed
+# line; naming both --arch and --shape runs one.
+SLOW = {("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")}
+# ops that allocate without writing
+_NO_DATA = {torch.ops.aten.empty, torch.ops.aten.empty_like,
+            torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
+            torch.ops.aten.new_empty_strided}
+# in-place ops that overwrite their target without reading it
+_OVERWRITE = {torch.ops.aten.copy_, torch.ops.aten.fill_,
+              torch.ops.aten.zero_}
+
+
+def _distinct_bytes(t: torch.Tensor) -> int:
+    """The bytes of the elements ``t`` addresses (a broadcast dimension,
+    stride 0, counts once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def _tensors(tree) -> list:
+    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the distinct storages under ``tree``."""
+    seen = {}
+    for t in _tensors(tree):
+        seen[_storage_key(t)] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts one step's work op by op as it runs (on meta tensors at full
+    size): FLOPs by operand dtype, bytes read and written, and the live
+    bytes above the arguments ``args``, whose storages it never counts.
+
+    An op reads its tensor inputs and writes its outputs; an in-place op
+    reads and writes its target (``copy_``, ``fill_`` and ``zero_`` only
+    write it), an ``out=`` op writes ``out``; a view moves nothing. Each
+    output's storage is live from its first tensor until its last tensor
+    dies. ``kernel`` takes the work of a hand kernel from its wrapper."""
+
+    def __init__(self, args):
+        super().__init__()
+        self.arg_keys = {_storage_key(t) for t in _tensors(args)}
+        self.flops_by_dtype = collections.Counter()
+        self.bytes_read = 0
+        self.bytes_written = 0
+        self.kernels = {}
+        self.live = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.n_ops = 0
+        self._paused = False
+
+    def __enter__(self):
+        ops.DRY_RUN_COUNTERS.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        ops.DRY_RUN_COUNTERS.remove(self)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._paused:
+            return out
+        self.n_ops += 1
+        packet = func._overloadpacket
+        formula = flop_counter.flop_registry.get(packet)
+        if formula is not None:
+            first = _tensors(args)[0]
+            self.flops_by_dtype[str(first.dtype).split(".")[-1]] += \
+                formula(*args, **kwargs, out_val=out)
+        if not func.is_view and packet not in _NO_DATA:
+            skip = set()
+            for i, a in enumerate(func._schema.arguments):
+                if a.alias_info is None or not a.alias_info.is_write:
+                    continue
+                val = (kwargs.get(a.name) if a.kwarg_only or i >= len(args)
+                       else args[i])
+                if a.name != "self" or packet in _OVERWRITE:
+                    skip.update(id(t) for t in _tensors(val))
+            self.bytes_read += sum(_distinct_bytes(t) for t in
+                                   _tensors((args, kwargs))
+                                   if id(t) not in skip)
+            self.bytes_written += sum(_distinct_bytes(t)
+                                      for t in _tensors(out))
+        for t in _tensors(out):
+            self.track(t)
+        return out
+
+    def track(self, t: torch.Tensor) -> None:
+        """Counts ``t``'s storage live until its last tensor dies."""
+        key = _storage_key(t)
+        if key in self.arg_keys:
+            return
+        if key in self.live:
+            self.live[key][1] += 1
+        else:
+            nbytes = t.untyped_storage().nbytes()
+            self.live[key] = [nbytes, 1]
+            self.live_bytes += nbytes
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(t, self._release, key)
+
+    def _release(self, key: int) -> None:
+        entry = self.live.get(key)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] == 0:
+            self.live_bytes -= entry[0]
+            del self.live[key]
+
+    def kernel(self, name: str, dtype: str, flops: int, nbytes: int, plain):
+        """A hand kernel's launch on meta tensors: its ``flops`` (on
+        ``dtype`` operands) and ``nbytes`` counted, ``plain()`` run for the
+        output's shape and not counted, the output tracked as the kernel's
+        allocation."""
+        k = self.kernels.setdefault(name, {"launches": 0, "flops": 0,
+                                           "bytes": 0})
+        k["launches"] += 1
+        k["flops"] += flops
+        k["bytes"] += nbytes
+        self.flops_by_dtype[dtype] += flops
+        self.bytes_read += nbytes
+        self._paused = True
+        try:
+            out = plain()
+        finally:
+            self._paused = False
+        self.track(out)
+        return out
+
+
+def build_step(cfg, shape, *, max_len=None):
+    """Returns (fn, args): the step the shape exercises and its arguments
+    as meta tensors. ``max_len`` sets a prefill's cache capacity (the
+    prompt's length by default, as in the reference)."""
+    model = build_model(cfg)
+    params = model.param_shapes()
+    batch = sp.input_specs(cfg, shape)
+    if shape.kind == "train":
+        tc = TrainConfig()
+        state = optim.init_opt_state(params, tc.optimizer)
+        return make_train_step(model, tc, donate=True), (params, state, batch)
+    if shape.kind == "prefill":
+        return (lambda p, b: model.prefill(p, b, max_len=max_len,
+                                           use_flash=True)), (params, batch)
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             device="meta")
+    return model.decode, (params, cache, batch)
+
+
+def count_step(cfg, shape, *, max_len=None) -> dict:
+    """Runs the step once on meta tensors under :class:`StepCounter`;
+    returns its record (``memory``, ``cost``, ``kernels``, ``count_s``)."""
+    fn, args = build_step(cfg, shape, max_len=max_len)
+    arg_bytes = tree_bytes(args)
+    counter = StepCounter(args)
+    t0 = time.perf_counter()
+    with counter:
+        out = fn(*args)
+    secs = time.perf_counter() - t0
+    outs = _tensors(out)
+    arg_keys = counter.arg_keys
+    del out
+    flops = sum(counter.flops_by_dtype.values())
+    return {
+        "memory": {
+            "argument_size_in_bytes": arg_bytes,
+            "output_size_in_bytes": tree_bytes(outs),
+            "alias_size_in_bytes": tree_bytes(
+                [t for t in outs if _storage_key(t) in arg_keys]),
+            "temp_size_in_bytes": counter.peak_bytes,
+        },
+        "cost": {"flops": float(flops),
+                 "bytes": float(counter.bytes_read + counter.bytes_written),
+                 "flops_by_dtype": {k: float(v) for k, v in
+                                    counter.flops_by_dtype.items()}},
+        "kernels": counter.kernels,
+        "ops": counter.n_ops,
+        "count_s": secs,
+    }
+
+
+def roofline_record(cfg, shape, rec: dict) -> dict:
+    """The roofline terms of a :func:`count_step` record: the counted FLOPs
+    and bytes on one card, beside ``model_flops`` (and, for a train step,
+    ``train_step_flops``: the step as it runs, analytically)."""
+    model = build_model(cfg)
+    train = shape.kind == "train"
+    analytic = (rl.train_step_flops(model, shape.global_batch,
+                                    shape.seq_len)[1] if train else 0.0)
+    terms = rl.RooflineTerms(
+        flops=rec["cost"]["flops"], bytes_hbm=rec["cost"]["bytes"],
+        flops_by_dtype=rec["cost"]["flops_by_dtype"], chips=1,
+        model_flops=rl.model_flops(cfg, model.n_active_params(), shape,
+                                   backward=train),
+        flops_analytic=float(analytic))
+    return terms.as_dict()
+
+
+def run_one(arch: str, shape_name: str, out_dir: str,
+            do_roofline: bool) -> dict:
+    shape = INPUT_SHAPES[shape_name]
+    cfg = sp.shape_config(get_config(arch), shape)
+    rec = {"arch": arch, "shape": shape_name, "device": "h100", "chips": 1,
+           "status": "ok"}
+    try:
+        rec.update(count_step(cfg, shape))
+        if do_roofline:
+            rec["roofline"] = roofline_record(cfg, shape, rec)
+    except Exception as e:  # a failure here is a bug in the system
+        rec["status"] = "fail"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{arch}--{shape_name}--h100.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    flag = "OK " if rec["status"] == "ok" else "FAIL"
+    extra = ""
+    if rec["status"] == "ok":
+        extra = (f" flops={rec['cost']['flops']:.4g}"
+                 f" bytes={rec['cost']['bytes']:.4g}"
+                 f" temp={rec['memory']['temp_size_in_bytes']:.4g}B"
+                 f" count={rec['count_s']:.1f}s")
+        if do_roofline:
+            r = rec["roofline"]
+            extra += (f" t_comp={r['t_compute_s']:.4g}s"
+                      f" t_mem={r['t_memory_s']:.4g}s -> {r['bottleneck']}")
+    print(f"[{flag}] {arch:22s} {shape_name:12s} h100{extra}", flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, choices=list(ARCH_IDS))
+    ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--roofline", action="store_true")
+    ap.add_argument("--out", default="runs/dryrun_torch")
+    args = ap.parse_args(argv)
+
+    archs = list(ARCH_IDS) if (args.all or not args.arch) else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or not args.shape) else [args.shape]
+
+    named = bool(args.arch and args.shape and not args.all)
+    n_fail = 0
+    for arch in archs:
+        for shape in shapes:
+            if (arch, shape) in SLOW and not named:
+                print(f"[SKIP] {arch:22s} {shape:12s} h100: the sLSTM loop "
+                      "takes tens of minutes to count; name it with --arch "
+                      "and --shape", flush=True)
+                continue
+            rec = run_one(arch, shape, args.out, args.roofline)
+            n_fail += rec["status"] != "ok"
+    print(f"done; failures: {n_fail}")
+    raise SystemExit(1 if n_fail else 0)
+
+
+if __name__ == "__main__":
+    main()

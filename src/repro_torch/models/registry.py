@@ -4,10 +4,11 @@
 ``build_model(cfg)`` returns a :class:`Model` bundling init and spec trees
 and the train / prefill / decode entry points; ``make_train_step(model,
 tc)`` is the training step the launcher and the federated-LLM example call. The
-JAX package's ``make_prefill_step`` / ``make_decode_step`` wrappers and
-``Model.init_cache`` have no caller here: ``launch.serve`` calls
-``Model.prefill(..., use_flash=True)`` and ``Model.decode`` directly, and the
-prefill allocates its own cache.
+JAX package's ``make_prefill_step`` / ``make_decode_step`` wrappers have no
+caller here: ``launch.serve`` calls ``Model.prefill(..., use_flash=True)``
+and ``Model.decode`` directly, and the prefill allocates its own cache.
+``Model.init_cache`` builds that cache on its own for ``launch.dryrun``'s
+decode step.
 """
 from __future__ import annotations
 
@@ -70,6 +71,12 @@ class Model:
 
     def decode(self, params, cache, batch):
         return tf.forward_decode(params, cache, batch, self.cfg)
+
+    def init_cache(self, batch: int, seq_len: int, device="cuda"):
+        """The empty cache of capacity ``seq_len`` that ``prefill`` fills,
+        on ``device`` (``"meta"``: shapes and dtypes only)."""
+        return tf.init_cache(self.cfg, batch, seq_len, self.cfg.act_dtype,
+                             resolve_device(device))
 
 
 def _spec_paths(tree, path=()):

@@ -1,7 +1,8 @@
-"""The port stands alone: ``src/repro_torch/``, ``chip_smoke.py``,
-``tools/flash_sm90_ablation.py`` and ``tools/kmeans_assign_bench.py`` import
-no JAX and nothing of the JAX package, and the port's entry points run on the card unless asked for the
-CPU."""
+"""The port stands alone: ``src/repro_torch/``, ``chip_smoke.py`` and the
+port's tools (``tools/flash_sm90_ablation.py``,
+``tools/kmeans_assign_bench.py``, ``tools/flash_f32_bench.py``,
+``tools/mma_tf32_probe.py``) import no JAX and nothing of the JAX package,
+and the port's entry points run on the card unless asked for the CPU."""
 import ast
 import pathlib
 
@@ -15,6 +16,7 @@ from repro_torch.core import pipeline as tpl
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.trust import full_trust
 from repro_torch.dynamics import OrchestratorConfig, run_orchestrator
+from repro_torch.examples import quickstart
 from repro_torch.fl import trainer as ttr
 from repro_torch.launch import serve as tsrv
 from repro_torch.models.autoencoder import AEConfig
@@ -23,7 +25,9 @@ from repro_torch.models.registry import build_model
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_ablation.py",
-     ROOT / "tools" / "kmeans_assign_bench.py"]
+     ROOT / "tools" / "kmeans_assign_bench.py",
+     ROOT / "tools" / "flash_f32_bench.py",
+     ROOT / "tools" / "mma_tf32_probe.py"]
 
 
 def _imports(path):
@@ -73,7 +77,8 @@ def test_port_has_the_slice_modules():
                 "faults/retry.py", "checkpoint/__init__.py",
                 "checkpoint/store.py", "obs/__init__.py", "obs/tracer.py",
                 "obs/counters.py", "obs/manifest.py", "obs/profile.py",
-                "obs/report.py"):
+                "obs/report.py", "examples/quickstart.py", "roofline.py",
+                "launch/specs.py", "launch/dryrun.py", "launch/perf.py"):
         assert mod in names
     for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu",
                 "flash_attention_sm90.cu"):
@@ -112,6 +117,10 @@ def test_entry_points_raise_without_a_card():
     model = build_model(get_smoke_config("llama3.2-1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tsrv.serve(model, params, torch.zeros((1, 4), dtype=torch.long), 2)

@@ -1,0 +1,234 @@
+"""``repro_torch.launch.specs``, ``roofline``, ``launch.dryrun``,
+``launch.perf`` and ``Model.init_cache`` against the JAX package on the CPU.
+
+Exact comparisons (pure arithmetic and shapes): the input specs and
+``shape_config`` for every ``ARCH_IDS`` x ``INPUT_SHAPES`` pair,
+``model_flops`` and the active-parameter counts it takes, the dry run's
+argument bytes against the bytes of JAX's ``jax.eval_shape`` of the same
+step's arguments (the six arches of ``tests/test_dryrun_host.py`` at its
+tiny shapes), ``init_cache``'s tree against JAX's and every perf variant
+field for field.
+
+One tolerance: the counted FLOPs of the smoke Llama's train step (B 2, S
+64) against XLA's ``cost_analysis`` of the same step, lowered with
+``scan_unroll=True`` on a one-device host mesh. The dry run counts the
+products only (``torch.utils.flop_counter``'s formulas); XLA also counts
+elementwise work (norms, softmax, SiLU, AdamW's update), and the port's
+remat stops recomputing a unit at its last needed output, which skips
+each unit's final MLP product. So the count sits below XLA's: it must
+land in [0.80, 1.0] of it (measured 0.944).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from repro import optim as joptim
+from repro import roofline as jrl
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import INPUT_SHAPES as J_INPUT_SHAPES
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
+from repro.launch import perf as jperf
+from repro.launch import specs as jsp
+from repro.models.registry import build_model as jbuild
+from repro_torch import roofline as rl
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch import perf
+from repro_torch.launch import specs as sp
+from repro_torch.models import common as cm
+from repro_torch.models.registry import build_model
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+PAIRS = [(a, s) for a in J_ARCH_IDS for s in J_INPUT_SHAPES]
+HOST_ARCHS = ["llama3.2-1b", "phi3.5-moe-42b-a6.6b", "xlstm-125m",
+              "recurrentgemma-2b", "qwen2-vl-72b", "musicgen-medium"]
+
+
+def _dtype(x) -> str:
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).split(".")[-1]
+    return jnp.dtype(x.dtype).name
+
+
+def _same_fields(cfg, jcfg):
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+def _tiny(name):
+    return dataclasses.replace(INPUT_SHAPES[name], seq_len=64,
+                               global_batch=2)
+
+
+def _jtiny(name):
+    return dataclasses.replace(J_INPUT_SHAPES[name], seq_len=64,
+                               global_batch=2)
+
+
+def _jbytes(tree) -> int:
+    return sum(int(np.prod(x.shape)) * jnp.dtype(x.dtype).itemsize
+               for x in jax.tree.leaves(tree))
+
+
+def test_the_port_has_every_arch_and_shape():
+    assert set(ARCH_IDS) == set(J_ARCH_IDS)
+    assert tuple(INPUT_SHAPES) == tuple(J_INPUT_SHAPES)
+
+
+@pytest.mark.parametrize("arch,shape_name", PAIRS)
+def test_input_specs_and_shape_config_equal_the_reference(arch, shape_name):
+    shape, jshape = INPUT_SHAPES[shape_name], J_INPUT_SHAPES[shape_name]
+    cfg = sp.shape_config(get_config(arch), shape)
+    jcfg = jsp.shape_config(jget_config(arch), jshape)
+    _same_fields(cfg, jcfg)
+    specs = sp.input_specs(cfg, shape)
+    jspecs, _ = jsp.input_specs(jcfg, jshape)
+    assert sorted(specs) == sorted(jspecs)
+    for name, t in specs.items():
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(jspecs[name].shape), name
+        assert _dtype(t) == _dtype(jspecs[name]), name
+    # model_flops: the same arithmetic on the same arguments
+    n_act = build_model(cfg).n_active_params()
+    assert n_act == jbuild(jcfg).n_active_params()
+    for backward in (False, True):
+        assert rl.model_flops(cfg, n_act, shape, backward=backward) == \
+            jrl.model_flops(jcfg, n_act, jshape, backward=backward)
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
+                                        "decode_32k"])
+@pytest.mark.parametrize("arch", HOST_ARCHS)
+def test_dry_run_argument_bytes_equal_jax_eval_shape(arch, shape_name):
+    """The dry run runs the step on meta tensors (so the port's step runs
+    at this shape); its argument bytes equal the bytes of JAX's abstract
+    arguments of ``build_lowerable``'s step. JAX's decode cache also holds
+    ``pos`` as an int32 scalar, a Python int in the port."""
+    shape, jshape = _tiny(shape_name), _jtiny(shape_name)
+    cfg = sp.shape_config(get_smoke_config(arch), shape)
+    jcfg = jsp.shape_config(jget_smoke(arch), jshape)
+    rec = dr.count_step(cfg, shape)
+    jm = jbuild(jcfg)
+    p = jm.param_shapes()
+    batch, _ = jsp.input_specs(jcfg, jshape)
+    want = _jbytes(p) + _jbytes(batch)
+    if shape.kind == "train":
+        want += _jbytes(jax.eval_shape(
+            lambda q: joptim.init_opt_state(q, "adamw"), p))
+    elif shape.kind == "decode":
+        want += _jbytes(jax.eval_shape(
+            lambda: jm.init_cache(jshape.global_batch, jshape.seq_len))) - 4
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes"] > 0
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    if shape.kind == "train":   # donated: the parameters and moments
+        assert rec["memory"]["alias_size_in_bytes"] == \
+            want - _jbytes(batch) - 4
+    has_attn = any(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+    launches = rec["kernels"].get("flash_attention_sm90", {}).get("launches")
+    if shape.kind == "prefill" and has_attn:
+        n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+        assert launches == n_attn
+    else:
+        assert launches is None
+
+
+@pytest.mark.parametrize("arch", list(J_ARCH_IDS))
+def test_init_cache_tree_equals_jax(arch):
+    jm = jbuild(jget_smoke(arch))
+    want = jax.eval_shape(lambda: jm.init_cache(2, 48))
+    got = build_model(get_smoke_config(arch)).init_cache(2, 48,
+                                                         device="meta")
+    assert got["pos"] == 0 and want["pos"].dtype == jnp.int32
+    leaves = cm.tree_leaves((got["scan"], got["tail"]))
+    jleaves = jax.tree.leaves((want["scan"], want["tail"]))
+    assert len(leaves) == len(jleaves) > 0
+    for t, w in zip(leaves, jleaves):
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(w.shape)
+        assert _dtype(t) == _dtype(w)
+
+
+def test_counted_flops_against_xla_cost_analysis():
+    from repro.launch.dryrun import lower_and_compile
+    shape, jshape = _tiny("train_4k"), _jtiny("train_4k")
+    cfg = get_smoke_config("llama3.2-1b")
+    jcfg = dataclasses.replace(jget_smoke("llama3.2-1b"), scan_unroll=True)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    jrec, _ = lower_and_compile(jcfg, jshape, mesh)
+    rec = dr.count_step(cfg, shape)
+    ratio = rec["cost"]["flops"] / jrec["cost"]["flops"]
+    assert 0.80 <= ratio <= 1.0, ratio
+    # torch's own FlopCounterMode agrees with the split by dtype
+    fn, args = dr.build_step(cfg, shape)
+    with torch.utils.flop_counter.FlopCounterMode(display=False) as m:
+        fn(*args)
+    assert m.get_total_flops() == rec["cost"]["flops"]
+
+
+def test_flash_work_counts_the_keys_each_query_sees():
+    """A prefill's attention is counted as its kernel's work: the causal
+    triangle (and the window), not the plain version's S x L product."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_layers=1)
+    shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"], seq_len=96,
+                                global_batch=2)
+    rec = dr.count_step(cfg, shape)
+    k = rec["kernels"]["flash_attention_sm90"]
+    flops, nbytes = rl.flash_attention_work(2, 96, 96, cfg.n_heads,
+                                            cfg.n_kv_heads, cfg.head_dim)
+    assert k == {"launches": 1, "flops": flops, "bytes": nbytes}
+    assert flops == 4 * cfg.head_dim * 2 * cfg.n_heads * (96 * 97 // 2)
+    assert rl.flash_attention_work(1, 8, 8, 1, 1, 4, window=3)[0] == \
+        4 * 4 * (1 + 2 + 3 * 6)
+
+
+def test_roofline_terms_on_one_card():
+    t = rl.RooflineTerms(flops=2 * 989e12, bytes_hbm=3.35e12,
+                         flops_by_dtype={"bfloat16": 989e12,
+                                         "float32": 67e12})
+    assert t.t_compute == pytest.approx(2.0)
+    assert t.t_memory == pytest.approx(1.0)
+    assert t.t_collective == 0.0 and t.chips == 1
+    assert t.bottleneck == "compute"
+    keys = set(jrl.RooflineTerms(1.0, 1.0, 0.0, 1).as_dict())
+    assert keys <= set(t.as_dict())
+    assert rl.bound_ms(3.35e9, 1.0) == (pytest.approx(1.0), "bytes")
+    assert rl.bound_ms(0, 495e9 / 3, "3xtf32") == (pytest.approx(1.0),
+                                                  "operations")
+
+
+def test_perf_variants_equal_the_reference():
+    seq = {n for n in jperf.VARIANTS if "seq" in n}
+    assert set(perf.VARIANTS) == set(jperf.VARIANTS) - seq
+    for arch in ("llama3.2-1b", "qwen2-moe-a2.7b"):
+        for name, fn in perf.VARIANTS.items():
+            _same_fields(fn(get_config(arch)),
+                         jperf.VARIANTS[name](jget_config(arch)))
+
+
+def test_perf_reports_the_variant_beside_the_baseline(tmp_path, capsys):
+    recs = perf.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                      "--variant", "bf16_params", "--out", str(tmp_path)])
+    assert set(recs) == {"baseline", "bf16_params"}
+    # bf16 parameters halve the weights a decode step reads
+    assert recs["bf16_params"]["t_memory_s"] < recs["baseline"]["t_memory_s"]
+    out = capsys.readouterr().out
+    assert "t_memory_s:" in out and "against the baseline's" in out
+    assert len(list(tmp_path.iterdir())) == 2
+
+
+def test_dryrun_main_writes_one_record(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        dr.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
+                 "--roofline", "--out", str(tmp_path)])
+    assert e.value.code == 0
+    (path,) = tmp_path.iterdir()
+    assert path.name == "llama3.2-1b--long_500k--h100.json"

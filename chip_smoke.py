@@ -182,10 +182,27 @@
    prefill, phase 7's 4 x 2,048 train step, (b)'s prefill) at their own
    shapes, each roofline bound beside the measured time, and the train
    step's counted peak held to the card's within 5%.
+15. Drives the sharded client plane (``repro_torch.sharding``) on a
+   one-rank NCCL group (a ``HashStore``) and its one-rank "data" mesh:
+   (a) ``meshlab.parity_report`` at the lab size on the card, every digest
+   of the mesh-1 run (pretrain, gate, FL, cluster, the three discovery
+   bursts) equal to ``rules=None``'s, and the lab's clustering and gate
+   launching ``kmeans_assign`` and ``recon_gate`` as often with the rules
+   as without; (b) phase 4's main path with the mesh-1 rules (its
+   ``in_edge``, moved counts, gate decisions and both lambda matrices held
+   to phase 4's, the kernels' launches too; each stage's seconds printed
+   beside a warm unsharded run's and phase 4's; the FL global parameters
+   within 1e-5 of an unsharded FL on the same data with
+   ``cudnn.deterministic``, and of phase 4's unless two unsharded runs in
+   cuDNN's default mode differ by more, both gaps printed); (c) phase
+   6's ``burst-outage`` run with the mesh-1 rules (each segment's
+   ``in_edge`` and moved held to phase 6's, its seconds printed beside
+   them). The kernels get local CUDA tensors, never a DTensor; the phase
+   destroys its process group.
 
 Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12, 13
-(b, c) and 14 (a, b) set every kernel's launch count to 0 just before each
-run they drive
+(b, c), 14 (a, b) and 15 (a, b, c) set every kernel's launch count to 0
+just before each run they drive
 (the main path, the bf16 serve, the f32 serve, the two online runs, the two
 training runs, the federated-LLM run, the eager and scan runs, the
 CIFAR-like main path, the clustering loop on the card, the traced online
@@ -208,7 +225,8 @@ as ``qwen2_moe_serve_launches``, ``phi35_moe_serve_launches`` and
 and ``musicgen_serve_launches`` in phase 12, as ``family_train_launches``
 (per arch, train_e2e's under xlstm-125m) in phase 13, as
 ``quickstart_launches`` and ``moonshot_full_serve_launches`` in phase 14,
-the online shapes' errors, the
+as ``client_plane_launches`` (its lab, main path and online runs) in phase
+15, the online shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
 recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
@@ -1491,14 +1509,32 @@ def main_path(torch, ops, dev):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
-    return launches
+    return launches, main_record(torch, res, fl, t_pipe, t_fl, t_le)
 
 
-def _online_run(torch, ops, dev, world, cfg, scenario):
+def main_record(torch, res, fl, t_pipe, t_fl, t_le):
+    """What phase 15 (b) holds its sharded main path to: the graph, moved
+    counts, gate decisions, lambdas and FL global parameters on the host,
+    and the seconds."""
+    from repro_torch import sharding as sh
+    from repro_torch.models.common import tree_leaves
+    return {"in_edge": res.in_edge.cpu(),
+            "moved": torch.as_tensor(res.moved_counts),
+            "accept": sh.full_tensor(res.exchange.accept).cpu(),
+            "lam_before": res.lam_before.cpu(),
+            "lam_after": res.lam_after.cpu(),
+            "fl_global": torch.cat([p.reshape(-1).cpu() for p in
+                                    tree_leaves(fl.global_params)]),
+            "stages": dict(res.stage_seconds), "run_pipeline": t_pipe,
+            "fl_train": t_fl, "linear_evaluation": t_le}
+
+
+def _online_run(torch, ops, dev, world, cfg, scenario, rules=None):
     """One full-width ``run_orchestrator`` call with the launch counts set
     to 0 just before it and read just after; prints its segments and
     checks what every full-width online run must show. Returns (result,
     launch counts, seconds)."""
+    from repro_torch import sharding as sh
     from repro_torch.dynamics import run_orchestrator
     from repro_torch.models.autoencoder import AEConfig
     xs, ys, ev = world
@@ -1508,7 +1544,7 @@ def _online_run(torch, ops, dev, world, cfg, scenario):
         k.launches = 0
     t0 = time.perf_counter()
     res = run_orchestrator(xs, ys, AEConfig(), cfg, scenario, ev.images,
-                           device=dev)
+                           device=dev, rules=rules)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ops.KERNELS.items()}
@@ -1542,7 +1578,8 @@ def _online_run(torch, ops, dev, world, cfg, scenario):
             and all(math.isfinite(seg.eval_loss) for seg in segs),
         "every segment's in_edge has no self-link":
             all((seg.in_edge != list(range(n))).all() for seg in segs),
-        "data finite": bool(torch.isfinite(res.client_data.data).all()),
+        "data finite": bool(torch.isfinite(
+            sh.full_tensor(res.client_data.data)).all()),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1615,6 +1652,7 @@ def orchestrator_full(torch, ops, ref, dev):
                                       "burst-outage")
     errs = online_kernel_checks(torch, ops, ref, res, cfg, dev)
     segs = res.trace.segments
+    seg_secs = res.segment_seconds
     del res
 
     scn = get_scenario("burst-outage")
@@ -1629,7 +1667,7 @@ def orchestrator_full(torch, ops, ref, dev):
             and res.trace.summary()["total_failed_links"] >= 1):
         raise AssertionError("every link burst: the retry queue saw no "
                              "failed live link, or segment 2 retried none")
-    return launches, errs, segs, secs
+    return launches, errs, segs, (secs, seg_secs)
 
 
 def _online_cfg():
@@ -3608,6 +3646,257 @@ def dryrun_phase(torch, llama_prefill_s, llama_steps, moonshot_prefill_s,
     return checks
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded client plane on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _launch_counts(ops):
+    return {name: k.launches for name, k in ops.KERNELS.items()}
+
+
+def _zero_launches(ops):
+    for k in ops.KERNELS.values():
+        k.launches = 0
+
+
+def lab_parity_phase(torch, ops, dev):
+    """Phase 15 (a): ``meshlab.parity_report`` at the lab size on the card
+    (mesh 1 against ``rules=None``, every digest equal), then the lab's
+    clustering and gate programs once without and once with the rules,
+    launch counts read around each. Returns the rules run's launches.
+
+    cuDNN's default backward algorithms at the lab's shapes are not
+    deterministic run to run: two ``rules=None`` pretrainings differ in a
+    few bias bits (printed). The parity report runs with
+    ``torch.backends.cudnn.deterministic`` on, restored after."""
+    from repro_torch import meshlab
+    from repro_torch.models.common import tree_leaves
+    cfg = meshlab.LabConfig()
+    world = meshlab.build_world(cfg, dev)
+    a, b = (tree_leaves(meshlab.run_pretrain(world, None)) for _ in range(2))
+    gap = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    log("  cuDNN default algorithms: two rules=None lab pretrainings differ "
+        f"by at most {gap:.3e}; the parity report runs with "
+        "cudnn.deterministic on")
+    t0 = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rep = meshlab.parity_report(cfg, 1, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    paths = ("pretrain", "gate", "fl", "cluster", "disc", "disc_ucb",
+             "disc_warm")
+    same = {p: rep[f"{p}_digest_mesh1"] == rep[f"{p}_digest_base"]
+            for p in paths}
+    log(f"  lab parity (N={cfg.n_clients}, {cfg.rl_episodes}-episode "
+        f"bursts) at mesh 1 on the card: {time.perf_counter() - t0:.2f} s; "
+        f"digests equal to rules=None: {same}")
+    counts = {}
+    for tag, rules in (("base", None), ("mesh1", meshlab.make_rules(1, dev))):
+        _zero_launches(ops)
+        meshlab.run_cluster(world, rules)
+        params = meshlab.run_pretrain(world, rules)
+        meshlab.run_gate(world, params, meshlab.gate_operands(world, rules),
+                         rules)
+        torch.cuda.synchronize()
+        counts[tag] = _launch_counts(ops)
+    log(f"  lab clustering + gate launches: rules=None {counts['base']}, "
+        f"mesh 1 {counts['mesh1']}")
+    failed = [p for p, ok in same.items() if not ok]
+    if counts["base"] != counts["mesh1"]:
+        failed.append("launch counts differ")
+    if counts["mesh1"]["kmeans_assign"] < 1 or \
+            counts["mesh1"]["recon_gate"] != 2:
+        failed.append("the lab paths did not launch both kernels")
+    if failed:
+        raise AssertionError(f"phase 15 (a) checks failed: {failed}")
+    return counts["mesh1"]
+
+
+def warm_pipeline(torch, dev, main_rec, gen=None, world=None):
+    """One unsharded ``run_pipeline`` over phase 4's world, warm: its
+    seconds, each stage's, and whether its graph and moved counts are
+    phase 4's. Restores ``gen``'s state after (a fresh world's when
+    none is given)."""
+    from repro_torch.core.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.models.autoencoder import AEConfig
+    xs, ys, ev, gen = world or full_world(torch, dev)
+    start = gen.get_state()
+    t0 = time.perf_counter()
+    res = run_pipeline(xs, ys, AEConfig(), PipelineConfig(), generator=gen,
+                       device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = torch.equal(res.in_edge.cpu(), main_rec["in_edge"]) and \
+        torch.equal(torch.as_tensor(res.moved_counts), main_rec["moved"])
+    gen.set_state(start)
+    return {"run_pipeline": secs, "stages": dict(res.stage_seconds),
+            "same": same}
+
+
+def sharded_main_path(torch, ops, dev, rules, main_rec, before):
+    """Phase 15 (b): phase 4's main path (same world, same generator) with
+    the mesh-1 rules, held to phase 4's record. Returns the launches.
+
+    Phase 4 ran cold (first use of every stage), so ``run_pipeline`` runs
+    once more unsharded here, warm, from the same generator state; the
+    sharded run's seconds are printed beside that run's, beside ``before``
+    (a warm unsharded run made before the process group existed) and
+    beside phase 4's.
+
+    FL: the sharded rounds run as phase 4's did (cuDNN's default
+    algorithms), and their distance to phase 4's parameters is printed
+    beside the distance between two unsharded runs in the same mode on the
+    same data from the same generator state (how far phase 4's own FL
+    repeats on the card). The sharded and unsharded rounds then run once
+    more each with ``cudnn.deterministic`` on and are held within 1e-5;
+    the sharded rounds are held within 1e-5 of phase 4's too unless phase
+    4's own FL does not repeat within 1e-5."""
+    from repro_torch.core.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.fl import FLConfig, fl_train, linear_evaluation
+    from repro_torch.models.autoencoder import AEConfig
+    from repro_torch.models.common import tree_leaves
+    xs, ys, ev, gen = full_world(torch, dev)
+    ae_cfg = AEConfig()
+    warm = warm_pipeline(torch, dev, main_rec, world=(xs, ys, ev, gen))
+    base = reset_peak(torch, "sharded main path")
+    _zero_launches(ops)
+    t0 = time.perf_counter()
+    res = run_pipeline(xs, ys, ae_cfg, PipelineConfig(), generator=gen,
+                       device=dev, rules=rules)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    fl_cfg = FLConfig(total_iters=20, tau_a=10, batch_size=64,
+                      eval_every=10)
+    state = gen.get_state()
+    t0 = time.perf_counter()
+    fl = fl_train(res.client_data, ae_cfg, fl_cfg, ev.images, generator=gen,
+                  device=dev, rules=rules)
+    torch.cuda.synchronize()
+    t_fl = time.perf_counter() - t0
+    after = gen.get_state()
+    t0 = time.perf_counter()
+    half = ev.images.shape[0] // 2
+    acc, _ = linear_evaluation(fl.global_params, ae_cfg, ev.images[:half],
+                               ev.labels[:half], ev.images[half:],
+                               ev.labels[half:], device=dev)
+    t_le = time.perf_counter() - t0
+    launches = _launch_counts(ops)
+    rec = main_record(torch, res, fl, t_pipe, t_fl, t_le)
+
+    whole = res.client_data.whole(rules)
+
+    def fl_params(r, deterministic):
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            gen.set_state(state)
+            out = fl_train(res.client_data if r is not None else whole,
+                           ae_cfg, fl_cfg, ev.images, generator=gen,
+                           device=dev, rules=r)
+            return torch.cat([p.reshape(-1).cpu()
+                              for p in tree_leaves(out.global_params)])
+        finally:
+            torch.backends.cudnn.deterministic = saved
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    plain = [fl_params(None, False) for _ in range(2)]
+    det_err = gap(fl_params(rules, True), fl_params(None, True))
+    gen.set_state(after)
+    fl_err4 = gap(rec["fl_global"], main_rec["fl_global"])
+    repeat = gap(plain[0], plain[1])
+    plain4 = [gap(p, main_rec["fl_global"]) for p in plain]
+    lam_err = max(float((rec[k] - main_rec[k]).abs().max())
+                  for k in ("lam_before", "lam_after"))
+    for name, val in rec["stages"].items():
+        log(f"  stage {name}: {val:.3f} s (warm rules=None "
+            f"{warm['stages'][name]:.3f} s, before the group "
+            f"{before['stages'][name]:.3f} s; phase 4, cold: "
+            f"{main_rec['stages'][name]:.3f} s)")
+    log(f"  run_pipeline {t_pipe:.3f} s (warm rules=None "
+        f"{warm['run_pipeline']:.3f} s, before the group "
+        f"{before['run_pipeline']:.3f} s, graph and moved as phase 4 "
+        f"{warm['same'] and before['same']}; phase 4, cold: "
+        f"{main_rec['run_pipeline']:.3f} s)")
+    for name in ("fl_train", "linear_evaluation"):
+        log(f"  {name} {rec[name]:.3f} s (phase 4: {main_rec[name]:.3f} s)")
+    log(f"  FL global max diff, cuDNN default algorithms: sharded to phase 4 "
+        f"{fl_err4:.3e}; two unsharded runs on the same data {repeat:.3e}, "
+        f"each to phase 4 {plain4[0]:.3e}, {plain4[1]:.3e}; with "
+        f"cudnn.deterministic, sharded to unsharded {det_err:.3e}")
+    log(f"  {peak_text(torch, base)}; accuracy {acc:.4f}; lambda max diff "
+        f"{lam_err:.3e}")
+    log(f"  launches {launches}")
+    checks = {
+        "in_edge as phase 4": torch.equal(rec["in_edge"], main_rec["in_edge"]),
+        "moved as phase 4": torch.equal(rec["moved"], main_rec["moved"]),
+        "gate decisions as phase 4":
+            torch.equal(rec["accept"], main_rec["accept"]),
+        "lambda within 1e-6": lam_err <= 1e-6,
+        "FL global parameters within 1e-5 of rules=None, deterministic":
+            det_err <= 1e-5,
+        "FL global parameters within 1e-5 of phase 4, unless phase 4's "
+        "FL does not repeat within 1e-5": fl_err4 <= 1e-5 or repeat > 1e-5,
+        "kmeans_assign 50 and recon_gate 2 launches":
+            launches["kmeans_assign"] == 50 and launches["recon_gate"] == 2,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15 (b) checks failed: {failed}")
+    return launches
+
+
+def sharded_online(torch, ops, dev, rules, online_segs, online_secs):
+    """Phase 15 (c): phase 6's ``burst-outage`` run with the mesh-1 rules;
+    each segment's graph and moved count held to phase 6's. Returns the
+    launches."""
+    xs, ys, ev, _ = full_world(torch, dev)
+    res, launches, total = _online_run(torch, ops, dev, (xs, ys, ev),
+                                       _online_cfg(), "burst-outage", rules)
+    secs, seg_secs = online_secs
+    for a, b, t, t6 in zip(res.trace.segments, online_segs,
+                           res.segment_seconds, seg_secs):
+        log(f"  segment {a.segment}: {t:.3f} s (phase 6: {t6:.3f} s); "
+            f"in_edge as phase 6 {bool((a.in_edge == b.in_edge).all())}, "
+            f"moved {a.moved} (phase 6: {b.moved})")
+    log(f"  run_orchestrator {total:.3f} s (phase 6: {secs:.3f} s)")
+    checks = {f"segment {a.segment}: in_edge and moved as phase 6":
+              bool((a.in_edge == b.in_edge).all()) and a.moved == b.moved
+              for a, b in zip(res.trace.segments, online_segs)}
+    checks["5 segments"] = len(res.trace.segments) == len(online_segs) == 5
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15 (c) checks failed: {failed}")
+    return launches
+
+
+def client_plane_phase(torch, ops, dev, main_rec, online_segs, online_secs):
+    """Phase 15: (a), (b) and (c) on a one-rank NCCL group made over a
+    ``HashStore`` by ``make_client_mesh(1)``; the group is destroyed
+    after. Returns each run's launch counts."""
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.launch.mesh import make_client_mesh
+    torch.cuda.set_device(0)
+    before = warm_pipeline(torch, dev, main_rec)
+    rules = sh.ShardingRules.default(make_client_mesh(1, device=dev))
+    log(f"  mesh {rules.shape} on backend {dist.get_backend()}, "
+        f"{dist.get_world_size()} rank")
+    try:
+        lab = lab_parity_phase(torch, ops, dev)
+        main = sharded_main_path(torch, ops, dev, rules, main_rec, before)
+        online = sharded_online(torch, ops, dev, rules, online_segs,
+                                online_secs)
+    finally:
+        dist.destroy_process_group()
+    log(f"  launches: lab {lab}, main path {main}, online {online}")
+    return {"lab": lab, "main_path": main, "online": online}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3661,7 +3950,7 @@ def main() -> int:
     frontend_reference_phase(torch, ops, dev)
 
     log("== phase 4: smart-exchange main path at full width")
-    launches = main_path(torch, ops, dev)
+    launches, main_rec = main_path(torch, ops, dev)
 
     log("== phase 5: serving Llama-3.2-1B at full width")
     served, served32, llama_prefill_s = serve_phase(torch, ops, dev)
@@ -3671,8 +3960,8 @@ def main() -> int:
     launches["flash_attention"] = served32["flash_attention"]
 
     log("== phase 6: the online orchestrator")
-    online, online_errs, online_segs, _ = orchestrator_full(torch, ops, ref,
-                                                            dev)
+    online, online_errs, online_segs, online_secs = orchestrator_full(
+        torch, ops, ref, dev)
     orchestrator_reference(torch, dev)
     orchestrator_resume(torch, dev)
 
@@ -3728,6 +4017,12 @@ def main() -> int:
     if failed:
         raise AssertionError(f"dry run checks failed: {failed}")
     log(f"  phase 14 {time.perf_counter() - t14:.1f} s")
+
+    log("== phase 15: the sharded client plane on a one-rank NCCL mesh")
+    t15 = time.perf_counter()
+    plane = client_plane_phase(torch, ops, dev, main_rec, online_segs,
+                               online_secs)
+    log(f"  phase 15 {time.perf_counter() - t15:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -3753,6 +4048,8 @@ def main() -> int:
                                         family_trained.items()}
         row["quickstart_launches"] = quick[name]
         row["moonshot_full_serve_launches"] = moonshot_full[name]
+        row["client_plane_launches"] = {k: v[name] for k, v in
+                                        plane.items()}
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -3769,7 +4066,8 @@ def main() -> int:
             "phi35_moe_serve_launches", "moonshot_serve_launches",
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
             "family_train_launches", "quickstart_launches",
-            "moonshot_full_serve_launches", "max_abs_err",
+            "moonshot_full_serve_launches", "client_plane_launches",
+            "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms",
             "floor_ms", "shapes")

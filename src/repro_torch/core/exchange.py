@@ -32,6 +32,17 @@ never leaves the device).
 Draws (:class:`ExchangeDraws`): the AE init parameters, the reserve seed,
 the (N,) channel uniforms and, for the device selector, the
 (N, k_max, cap) reserve uniforms.
+
+Sharded over the clients (``rules``, batched plane only), pretraining is
+each rank's own clients with no collective. The gate's reserve lookup is
+transmitter-side; a receiver's transmitter may live on another rank, so
+each rank gathers its transmitters' reserve rows, labels and masks in one
+all-gather (the D2D transfer) and indexes that by its receivers' links, at
+global row indices. ``recon_gate`` then launches on each rank's local
+stacks, and the scatter is receiver-local. One more all-gather brings the
+new sizes, moved counts, channel failures and overflow flags, so those,
+the grown cap and ``overflowed`` are whole on every rank. The host selector
+reads every client's cluster ids: sharded, one all-gather brings them.
 """
 from __future__ import annotations
 
@@ -42,8 +53,9 @@ import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.core.batching import ClientData, as_client_data, \
-    client_data_from_lists, stack_pytrees, unstack_pytree
+    client_data_from_lists, stack_pytrees, unstack_pytree, valid_mask
 from repro_torch.kernels import ops
 from repro_torch.models import autoencoder as ae
 from repro_torch.models.common import tree_map, value_and_grad
@@ -126,14 +138,14 @@ class ExchangeResult:
             if isinstance(sel, tuple):
                 # device selector: (sel_idx, sel_mask) tensors, read back to
                 # the ragged layout on first access
-                si, sm = sel[0].cpu().numpy(), sel[1].cpu().numpy()
+                si, sm = (sh.full_tensor(t).cpu().numpy() for t in sel)
                 sel = [[si[j, m][sm[j, m] > 0]
                         for m in range(trust_np[j].shape[1])]
                        for j in range(len(trust_np))]
             self._decisions = _build_decisions(
                 trust_np, sel, in_edge.cpu().numpy(),
-                self.fail.cpu().numpy(), self.accept.cpu().numpy(),
-                apply_channel)
+                self.fail.cpu().numpy(),
+                sh.full_tensor(self.accept).cpu().numpy(), apply_channel)
         return self._decisions
 
     def failed_links(self) -> list:
@@ -176,20 +188,24 @@ def pretrain_autoencoders(init_params, datasets, ae_cfg, cfg: ExchangeConfig):
 
 
 def pretrain_autoencoders_batched(init_params, cd: ClientData, ae_cfg,
-                                  cfg: ExchangeConfig):
+                                  cfg: ExchangeConfig, rules=None):
     """Full-batch GD on each client's masked reconstruction loss, all N
     clients at once. One backward of the summed per-client losses gives each
-    client exactly its own gradient (the stacked AE never mixes clients)."""
-    mask = cd.mask()
+    client exactly its own gradient (the stacked AE never mixes clients).
+    Sharded, each rank trains its own clients (no collective) and the
+    result is placed."""
+    part = sh.ClientSlice(rules, cd.n_clients)
+    data = part.rows(cd.data)
+    mask = valid_mask(part.rows(cd.sizes), cd.cap)
 
     def loss(p):
-        return ae.masked_recon_loss_stacked(p, cd.data, mask, ae_cfg).sum()
+        return ae.masked_recon_loss_stacked(p, data, mask, ae_cfg).sum()
 
-    params = init_params
+    params = part.rows(init_params)
     for _ in range(cfg.pretrain_steps):
         _, grads = value_and_grad(loss, params)
         params = tree_map(lambda p, g: p - cfg.pretrain_lr * g, params, grads)
-    return params
+    return part.place(params)
 
 
 # ---------------------------------------------------------------------------
@@ -318,56 +334,74 @@ def _gate_scores(params, own, own_mask, cand, cand_mask, allowed, fail_u,
 
 def _exchange_device(params, data, sizes, labels, sel_idx, sel_mask, trust_s,
                      fail_u, p_fail, in_edge, ae_cfg, apply_channel: bool,
-                     out_cap: int):
+                     out_cap: Optional[int], rules=None):
     """Gather reserves, score the gate, scatter the accepted subsets.
+    ``out_cap=None`` grows the cap by the largest reserve payload any
+    transmitter offers (read from the gathered masks).
 
-    Returns (new ClientData, moved, base, scores, fail, accept, overflowed).
-    """
+    Client stacks (params, data, labels, sel_idx, sel_mask) come placed or
+    whole; sizes, the draws, trust, P_D and the graph are whole. Returns
+    (new ClientData, moved, base, scores, fail, accept, overflowed), the
+    stacks placed and moved, fail and overflowed whole."""
     n, cap = data.shape[:2]
     k, r = sel_idx.shape[1:3]
+    part = sh.ClientSlice(rules, n)
+    params, data, labels, sel_idx, sel_mask = part.rows(
+        (params, data, labels, sel_idx, sel_mask))
+    sizes = part.rows(sizes)
+    in_rx = part.rows(in_edge)
+    n_l = part.n_local
     dev = data.device
-    rows = torch.arange(n, device=dev)
+    rows = torch.arange(n_l, device=dev)
+    rx_ids = torch.arange(part.lo, part.hi, device=dev)  # global receivers
     own_mask = (torch.arange(cap, device=dev)[None, :]
                 < sizes[:, None]).to(torch.float32)
 
     # transmitter-side row lookup, then the receiver-side gather (the D2D
     # transfer): cand[i] = transmitter in_edge[i]'s reserve rows
-    flat_idx = sel_idx.reshape(n, k * r)
-    cand = data[rows[:, None], flat_idx][in_edge]        # (N, K*R, ...)
-    cand = cand.reshape((n, k, r) + data.shape[2:])
-    cand_mask = sel_mask[in_edge]
+    flat_idx = sel_idx.reshape(n_l, k * r)
+    res = data[rows[:, None], flat_idx]                  # (n_l, K*R, ...)
+    res_lab = None if labels is None else labels[rows[:, None], flat_idx]
+    res, res_lab, mask_all = part.gather((res, res_lab, sel_mask))
+    cand = res[in_rx].reshape((n_l, k, r) + data.shape[2:])
+    cand_mask = mask_all[in_rx]
+    if out_cap is None:
+        out_cap = cap + int(mask_all.sum(dim=(1, 2)).max())
 
     # trust gate, receiver-aligned: allowed[i, m] = T_{in_edge[i]}[i, m]
-    allowed = trust_s[in_edge, rows] != 0                # (N, K)
-    allowed &= (in_edge != rows)[:, None]
+    allowed = trust_s[in_rx, rx_ids] != 0                # (N, K)
+    allowed &= (in_rx != rx_ids)[:, None]
     allowed &= (cand_mask > 0).any(-1)
 
     base, scores, fail, accept = _gate_scores(
-        params, data, own_mask, cand, cand_mask, allowed, fail_u, p_fail,
-        in_edge, ae_cfg, apply_channel)
+        params, data, own_mask, cand, cand_mask, allowed, part.rows(fail_u),
+        part.rows(p_fail), in_rx, ae_cfg, apply_channel)
 
     # capacity-masked scatter: compact kept rows to sizes[i] + offset, with
     # everything that must not land sent to the sink row out_cap
-    keep = (accept[:, :, None] & (cand_mask > 0)).reshape(n, k * r)
+    keep = (accept[:, :, None] & (cand_mask > 0)).reshape(n_l, k * r)
     dest = sizes[:, None] + torch.cumsum(keep.to(torch.int64), dim=1) - 1
     moved_full = torch.sum(keep, dim=1)
     dest_safe = torch.where(keep & (dest < out_cap), dest,
                             torch.full_like(dest, out_cap))
-    buf = data.new_zeros((n, out_cap + 1) + data.shape[2:])
+    buf = data.new_zeros((n_l, out_cap + 1) + data.shape[2:])
     buf[:, :cap] = data
-    buf[rows[:, None], dest_safe] = cand.reshape((n, k * r) + data.shape[2:])
+    buf[rows[:, None], dest_safe] = cand.reshape((n_l, k * r)
+                                                 + data.shape[2:])
     new_labels = None
     if labels is not None:
-        cand_lab = labels[rows[:, None], flat_idx][in_edge]
-        lab = labels.new_zeros((n, out_cap + 1))
+        cand_lab = res_lab[in_rx]
+        lab = labels.new_zeros((n_l, out_cap + 1))
         lab[:, :cap] = labels
         lab[rows[:, None], dest_safe] = cand_lab
         new_labels = lab[:, :out_cap]
     new_sizes = torch.clamp_max(sizes + moved_full, out_cap)
-    moved = new_sizes - sizes
-    overflowed = torch.any(sizes + moved_full > out_cap)
-    return (ClientData(buf[:, :out_cap], new_sizes, new_labels), moved, base,
-            scores, fail, accept, overflowed)
+    new_sizes, moved, fail, over = part.gather(
+        (new_sizes, new_sizes - sizes, fail, sizes + moved_full > out_cap))
+    overflowed = torch.any(over)
+    return (ClientData(part.place(buf[:, :out_cap]), new_sizes,
+                       part.place(new_labels)), moved, part.place(base),
+            part.place(scores), fail, part.place(accept), overflowed)
 
 
 def _trust_list(trust) -> list:
@@ -421,11 +455,12 @@ def _gate_loop(datasets, labels, trust_np, in_edge, sel, fail_u, p_fail,
 
 
 def _gate_batched(cd: ClientData, trust_np, in_edge, sel, fail_u, p_fail,
-                  params, ae_cfg, cfg: ExchangeConfig) -> ExchangeResult:
+                  params, ae_cfg, cfg: ExchangeConfig,
+                  rules=None) -> ExchangeResult:
     """``sel``: the host selector's ragged indices, or the device
-    selector's ``(sel_idx, sel_mask)`` tensors."""
+    selector's ``(sel_idx, sel_mask)`` tensors (placed per ``rules``)."""
     n, cap = cd.n_clients, cd.cap
-    dev = cd.data.device
+    dev = cd.sizes.device
     k_max = max(t.shape[1] for t in trust_np)
     trust_s = _stack_trust_padded(trust_np, n, k_max)
     if isinstance(sel, tuple):
@@ -434,15 +469,14 @@ def _gate_batched(cd: ClientData, trust_np, in_edge, sel, fail_u, p_fail,
         sel_idx, sel_mask = (torch.as_tensor(a, device=dev) for a in
                              _sel_tensors(sel, n, k_max,
                                           cfg.reserve_per_cluster))
-    # "grow": static headroom, the largest reserve payload any transmitter
-    # offers this round (a read of the index mask only, no data)
-    out_cap = cap + int(sel_mask.sum(dim=(1, 2)).max()) \
-        if cfg.overflow == "grow" else cap
+    # "grow" (out_cap None): static headroom, the largest reserve payload
+    # any transmitter offers this round (a read of the index mask only)
     in_edge = torch.as_tensor(in_edge, device=dev).long()
     new_cd, moved, base, scores, fail, accept, overflowed = _exchange_device(
         params, cd.data, cd.sizes, cd.labels, sel_idx, sel_mask,
         torch.as_tensor(trust_s, device=dev), fail_u, p_fail, in_edge,
-        ae_cfg, cfg.apply_channel_failure, out_cap)
+        ae_cfg, cfg.apply_channel_failure,
+        None if cfg.overflow == "grow" else cap, rules)
     if cfg.overflow == "error" and bool(overflowed):
         raise ValueError(
             "exchange overflow: accepted transfers exceed the ClientData "
@@ -457,7 +491,7 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
                  ae_params=None, draws: Optional[ExchangeDraws] = None,
                  generator: Optional[torch.Generator] = None,
                  method: Optional[str] = None,
-                 device="cuda") -> ExchangeResult:
+                 device="cuda", rules=None) -> ExchangeResult:
     """Algorithm 2's data-plane step over the discovered graph.
 
     datasets/labels: ragged lists, or one :class:`ClientData` as
@@ -467,7 +501,8 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
     ``cfg.method``) picks the data plane; the loop plane needs labels.
     ``ae_params`` (stacked or a list) skips pretraining; otherwise the AEs
     start from ``draws.init_params``. Draws missing come from
-    ``generator``."""
+    ``generator``. ``rules`` shards the batched plane over the clients
+    (module docstring); the draws, trust, P_D and graph stay whole."""
     method = (method or cfg.method).lower()
     if cfg.overflow not in OVERFLOW_POLICIES:
         raise ValueError(f"unknown overflow policy {cfg.overflow!r}; "
@@ -487,10 +522,14 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
             "reserve_selector='device' requires the batched plane")
     if method not in METHODS:
         raise ValueError(f"unknown exchange method: {method!r}")
+    if method == "loop" and rules is not None:
+        raise ValueError("the loop plane is the host-side reference and does "
+                         "not shard; use method='batched' with rules")
     with obs.span("exchange", method=method):
         dev = resolve_device(device)
-        cd = as_client_data(datasets, labels, device=dev)
+        cd = as_client_data(datasets, labels, device=dev, rules=rules)
         n = cd.n_clients
+        part = sh.ClientSlice(rules, n)
         trust_np = _trust_list(trust)
         k_max = max(t.shape[1] for t in trust_np)
         device_sel = cfg.reserve_selector == "device"
@@ -499,15 +538,18 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
                 raise ValueError("run_exchange needs draws or a generator")
             draws = draw_exchange(generator, n, ae_cfg,
                                   (k_max, cd.cap) if device_sel else None)
-        assignments = torch.as_tensor(assignments, device=dev)
+        if not sh.is_dtensor(assignments):
+            assignments = torch.as_tensor(assignments, device=dev)
         if device_sel:
             if draws.sel_u is None:
                 raise ValueError("reserve_selector='device' needs "
                                  "ExchangeDraws.sel_u")
-            sel = select_reserves_device(draws.sel_u.to(dev), assignments,
-                                         cd.sizes, k_max,
-                                         cfg.reserve_per_cluster)
+            sel = part.place(select_reserves_device(
+                part.rows(draws.sel_u.to(dev)), part.rows(assignments),
+                part.rows(cd.sizes), k_max, cfg.reserve_per_cluster))
         else:
+            # the seeded subsets follow every client's ids in order
+            assignments = sh.gather_clients(assignments, rules)
             sel = _select_reserves(draws.seed, assignments,
                                    [t.shape[1] for t in trust_np],
                                    cfg.reserve_per_cluster, cd.sizes)
@@ -535,11 +577,11 @@ def run_exchange(datasets, labels, assignments, trust, in_edge, p_fail,
             with obs.span("pretrain", method=method):
                 params = pretrain_autoencoders_batched(
                     tree_map(lambda p: p.to(dev), draws.init_params), cd,
-                    ae_cfg, cfg)
+                    ae_cfg, cfg, rules)
         elif isinstance(ae_params, (list, tuple)):
-            params = stack_pytrees(list(ae_params))
+            params = stack_pytrees(list(ae_params), rules)
         else:
             params = ae_params
         with obs.span("gate", method=method):
             return _gate_batched(cd, trust_np, in_edge, sel, fail_u, p_fail,
-                                 params, ae_cfg, cfg)
+                                 params, ae_cfg, cfg, rules)

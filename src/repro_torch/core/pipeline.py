@@ -7,6 +7,12 @@
 The reference derives five sub-keys from one ``jax.random`` key; here every
 draw is an explicit input gathered in :class:`PipelineDraws`, and any draw
 left as ``None`` comes from one ``torch.Generator`` on the run's device.
+
+``rules`` shards the client axis through clustering, discovery and the
+exchange (``repro_torch.sharding`` lists each stage's collectives); the
+draws are made whole, the centroids are gathered for beta and the lambda
+matrix, and K-means stays shard-local: each rank's ``kmeans_assign``
+launch covers its own clients.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch import obs, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.core import channel as ch
 from repro_torch.core import dissimilarity as ds
 from repro_torch.core import exchange as ex
@@ -26,7 +33,8 @@ from repro_torch.core import pca as pca_lib
 from repro_torch.core import qlearning as ql
 from repro_torch.core import rewards as rw
 from repro_torch.core import trust as tr
-from repro_torch.core.batching import ClientData, as_client_data
+from repro_torch.core.batching import ClientData, as_client_data, \
+    shard_client_data
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,33 +124,41 @@ def _stage(times: dict, name: str, device: torch.device):
     times[name] = time.perf_counter() - t0
 
 
-def _cluster_impl(data, sizes, n_pca, n_clusters, kmeans_iters, draws):
+def _cluster_impl(data, sizes, n_pca, n_clusters, kmeans_iters, draws,
+                  rules=None):
+    """The clustering program on a client stack (placed or whole) with
+    whole sizes and draws; the centroids and assignments come out placed."""
     n, cap = data.shape[:2]
-    flats = data.reshape(n, cap, -1)
+    part = sh.ClientSlice(rules, n)
+    data, sizes, draws = part.rows((data, sizes, draws))
+    flats = data.reshape(part.n_local, cap, -1)
     mask = (torch.arange(cap, device=data.device)[None, :]
             < sizes[:, None]).to(flats.dtype)
-    pca = pca_lib.fit_pca_federated_stacked(flats, mask, n_pca)
+    pca = pca_lib.fit_pca_federated_stacked(flats, mask, n_pca, part)
     res = km.kmeans_batched(pca.transform(flats), sizes, n_clusters, draws,
                             kmeans_iters)
-    return pca, res.centroids, res.assignments
+    return pca, part.place(res.centroids), part.place(res.assignments)
 
 
 def cluster_clients(datasets, cfg: PipelineConfig,
                     draws: Optional[km.KMeansDraws] = None,
                     generator: Optional[torch.Generator] = None,
-                    device="cuda"):
+                    device="cuda", rules=None):
     """Shared-basis federated PCA + per-client K-means++ over the stacked
     client plane. Returns ``(pca, centroids (N, k, d), assignments
-    (N, cap))``; assignments at index >= sizes[i] are padding."""
+    (N, cap))``; assignments at index >= sizes[i] are padding. With
+    ``rules`` the PCA basis is whole on every rank (the moments' one
+    all-reduce) and the centroids and assignments are placed."""
     with obs.span("cluster"):
-        cd = as_client_data(datasets, device=resolve_device(device))
+        cd = as_client_data(datasets, device=resolve_device(device),
+                            rules=rules)
         if draws is None:
             if generator is None:
                 raise ValueError(
                     "cluster_clients needs draws or a generator")
             draws = km.draw_kmeans(generator, cd.sizes, cfg.n_clusters)
         return _cluster_impl(cd.data, cd.sizes, cfg.n_pca, cfg.n_clusters,
-                             cfg.kmeans_iters, draws)
+                             cfg.kmeans_iters, draws, rules)
 
 
 def cluster_clients_loop(datasets, cfg: PipelineConfig,
@@ -171,8 +187,9 @@ def cluster_clients_loop(datasets, cfg: PipelineConfig,
 
 
 def link_rewards(cents, trust, p_fail, cfg: PipelineConfig):
-    """beta + lambda matrix + Eq. 2 local rewards from stacked centroids.
-    Returns ``(beta, lam, local_r)``."""
+    """beta + lambda matrix + Eq. 2 local rewards from the whole stacked
+    centroids (a sharded caller gathers them first). Returns
+    ``(beta, lam, local_r)``."""
     beta = cfg.beta if cfg.beta is not None else \
         ds.median_heuristic_beta(cents, cfg.beta_scale)
     lam = ds.lambda_matrix(cents, trust, beta)
@@ -184,11 +201,13 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
                  rss=None, ae_params=None,
                  draws: Optional[PipelineDraws] = None,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda") -> PipelineResult:
+                 device="cuda", rules=None) -> PipelineResult:
     """The full smart exchange. ``in_edge`` skips RL; ``rss`` supplies the
     channel snapshot; ``ae_params`` skips AE pretraining. Draws not given
     come from ``generator`` (default: seed 0 on the run's device); the
-    result's ``draws`` holds every draw the run used."""
+    result's ``draws`` holds every draw the run used. ``rules`` shards the
+    client axis (module docstring): the result's client stack and gate
+    stacks are placed, the graph, lambdas and centroids whole."""
     with obs.span("pipeline"):
         dev = resolve_device(device)
         draws = draws.to(dev) if draws else PipelineDraws()
@@ -202,8 +221,10 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
             if draws.cluster is None:
                 draws.cluster = km.draw_kmeans(generator, cd.sizes,
                                                cfg.n_clusters)
+            cd = shard_client_data(cd, rules)
             pca, cents, assigns = cluster_clients(cd, cfg, draws.cluster,
-                                                  device=dev)
+                                                  device=dev, rules=rules)
+            cents = sh.gather_clients(cents, rules)
         with _stage(times, "trust_channel", dev), \
                 obs.span("trust-channel"):
             if draws.trust_u is None:
@@ -228,7 +249,7 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
                 if draws.rl is None and cfg.rl.policy != "ucb":
                     draws.rl = ql.draw_rl(generator, n, cfg.rl.n_episodes)
                 graph = ql.discover_graph(local_r, p_fail, cfg.rl,
-                                          draws=draws.rl)
+                                          draws=draws.rl, rules=rules)
                 in_edge = graph.in_edge
             else:
                 in_edge = torch.as_tensor(in_edge, device=dev).long()
@@ -245,7 +266,8 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
                     if cfg.exchange.reserve_selector == "device" else None)
             res = ex.run_exchange(cd, None, assigns, trust, in_edge, p_fail,
                                   ae_cfg, cfg.exchange, ae_params=ae_params,
-                                  draws=draws.exchange, device=dev)
+                                  draws=draws.exchange, device=dev,
+                                  rules=rules)
 
         # dissimilarity on the post-exchange datasets (Fig. 3)
         with _stage(times, "cluster_after", dev):
@@ -257,7 +279,8 @@ def run_pipeline(datasets, labels=None, ae_cfg=None,
                     res.client_data.sizes)
             _, cents_after, _ = cluster_clients(res.client_data, cfg,
                                                 draws.cluster_after,
-                                                device=dev)
+                                                device=dev, rules=rules)
+            cents_after = sh.gather_clients(cents_after, rules)
             lam_after = ds.lambda_matrix(cents_after, trust, beta)
         return PipelineResult(res.client_data, in_edge, lam_before,
                               lam_after, p_fail, graph, cents, trust, res,

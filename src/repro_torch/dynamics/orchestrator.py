@@ -58,6 +58,13 @@ boundaries and a killed run resumes bit-identically through
 ``run_orchestrator(..., resume_from=path)``. With ``cfg.retry.enabled``,
 failed live links re-offer through a bounded backoff queue; retries ride
 the re-discovery cadence (they need fresh cluster assignments).
+
+Sharding (``rules``, both engines): the client stack, the RL state's agent
+rows and the FL carry's client trees are placed over the mesh, and each
+stage runs its own collectives (``repro_torch.sharding``); the
+environment, trust, P_D, the graph and every segment metric are whole on
+every rank, so ``_read_all`` still reads one transfer. A checkpoint is
+written by rank 0 from the gathered state, and a resume places it again.
 """
 from __future__ import annotations
 
@@ -70,9 +77,11 @@ import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.core import exchange as ex
 from repro_torch.core import qlearning as ql
-from repro_torch.core.batching import ClientData, as_client_data
+from repro_torch.core.batching import ClientData, as_client_data, \
+    shard_client_data
 from repro_torch.core.channel import failure_prob
 from repro_torch.core.pipeline import (PipelineConfig, _cluster_impl,
                                        cluster_clients, link_rewards,
@@ -258,36 +267,41 @@ def _advance_env(s: int, env, d: _SegmentDraws, scn, pcfg):
 
 
 def _rediscover(cd: ClientData, trust, p_fail, cfg: OrchestratorConfig,
-                rl_state: Optional[ql.RLState], d: _SegmentDraws, dev):
+                rl_state: Optional[ql.RLState], d: _SegmentDraws, dev,
+                rules=None):
     """Re-cluster the *current* client stack and run a warm-started RL
     burst (or a uniform re-draw). Returns (in_edge, rl_state, assigns)."""
     pcfg = cfg.pipeline
     with obs.span("re-cluster"):
         _, cents, assigns = cluster_clients(cd, pcfg, d.cluster(cd.sizes),
-                                            device=dev)
+                                            device=dev, rules=rules)
     with obs.span("re-discover", mode=cfg.mode):
         if cfg.mode == "uniform":
             return d.uniform_edge, rl_state, assigns
-        _beta, _lam, local_r = link_rewards(cents, trust, p_fail, pcfg)
+        _beta, _lam, local_r = link_rewards(sh.gather_clients(cents, rules),
+                                            trust, p_fail, pcfg)
         graph = ql.discover_graph(local_r, p_fail, pcfg.rl,
                                   init_state=rl_state,
-                                  n_episodes=cfg.burst_episodes, draws=d.rl)
+                                  n_episodes=cfg.burst_episodes, draws=d.rl,
+                                  rules=rules)
     return graph.in_edge, graph.state, assigns
 
 
 def _rediscover_impl(cd: ClientData, trust, p_fail, cfg: OrchestratorConfig,
-                     rl_state: Optional[ql.RLState], d: _SegmentDraws):
+                     rl_state: Optional[ql.RLState], d: _SegmentDraws,
+                     rules=None):
     """:func:`_rediscover` through the span-free impls, for the scan
     chunk."""
     pcfg = cfg.pipeline
     _, cents, assigns = _cluster_impl(cd.data, cd.sizes, pcfg.n_pca,
                                       pcfg.n_clusters, pcfg.kmeans_iters,
-                                      d.cluster(cd.sizes))
+                                      d.cluster(cd.sizes), rules)
     if cfg.mode == "uniform":
         return d.uniform_edge, rl_state, assigns
-    _beta, _lam, local_r = link_rewards(cents, trust, p_fail, pcfg)
+    _beta, _lam, local_r = link_rewards(sh.gather_clients(cents, rules),
+                                        trust, p_fail, pcfg)
     graph = ql._discover_impl(local_r, p_fail, pcfg.rl, rl_state,
-                              cfg.burst_episodes, d.rl)
+                              cfg.burst_episodes, d.rl, rules)
     return graph.in_edge, graph.state, assigns
 
 
@@ -300,7 +314,8 @@ def _segment_batches(s: int, cd: ClientData, fl_batch: list,
 
 
 def _fl_segment(s: int, cd: ClientData, avail, carry, fl_batch: list,
-                cfg: OrchestratorConfig, ae_cfg, eval_data, draws, dev):
+                cfg: OrchestratorConfig, ae_cfg, eval_data, draws, dev,
+                rules=None):
     """The segment's FL rounds, from the previous segment's carry."""
     flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
     return fl_train(cd, ae_cfg, flcfg, eval_data, avail_mask=avail,
@@ -309,18 +324,18 @@ def _fl_segment(s: int, cd: ClientData, avail, carry, fl_batch: list,
                     start_iter=s * cfg.iters_per_segment,
                     stop_iter=(s + 1) * cfg.iters_per_segment,
                     batch_idx=_segment_batches(s, cd, fl_batch, cfg),
-                    defer_metrics=True, device=dev)
+                    defer_metrics=True, device=dev, rules=rules)
 
 
 def _fl_segment_impl(s: int, cd: ClientData, avail, carry, fl_batch: list,
-                     cfg: OrchestratorConfig, ae_cfg, eval_data):
+                     cfg: OrchestratorConfig, ae_cfg, eval_data, rules=None):
     """:func:`_fl_segment` through the span-free rounds, for the scan
     chunk (the carry exists there: segment 0 ran eagerly)."""
     flcfg = dataclasses.replace(cfg.fl, total_iters=cfg.total_iters)
     first = s * cfg.iters_per_segment // flcfg.tau_a
     return _fl_rounds(cd, ae_cfg, flcfg, eval_data, carry,
                       avail.to(torch.float32), first, first + len(fl_batch),
-                      _segment_batches(s, cd, fl_batch, cfg))
+                      _segment_batches(s, cd, fl_batch, cfg), rules)
 
 
 def _segment_dev(s: int, fl, ae_cfg, eval_data, env, p_fail, in_edge,
@@ -358,7 +373,8 @@ def _segment_dev(s: int, fl, ae_cfg, eval_data, env, p_fail, in_edge,
 def run_orchestrator(datasets, labels, ae_cfg,
                      cfg: OrchestratorConfig = OrchestratorConfig(),
                      scenario="static", eval_data=None, *, draws=None,
-                     resume_from=None, device="cuda") -> OrchestratorResult:
+                     resume_from=None, device="cuda",
+                     rules=None) -> OrchestratorResult:
     """Simulate a deployment: ``cfg.n_segments`` FL segments over an
     evolving environment (see the module docstring).
 
@@ -372,7 +388,11 @@ def run_orchestrator(datasets, labels, ae_cfg,
     call must
     pass the same draw source, configs, scenario and eval data; the run
     skips the completed segments and continues bit-identically. A resumed
-    run ignores the scenario's ``preempt_at``."""
+    run ignores the scenario's ``preempt_at``.
+
+    ``rules`` shards the client axis (module docstring); every rank of the
+    mesh makes the same call. The result's ``client_data`` is placed, its
+    ``datasets`` and ``labels`` whole."""
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; expected one of {MODES}")
     if cfg.segment_impl not in SEGMENT_IMPLS:
@@ -413,11 +433,24 @@ def run_orchestrator(datasets, labels, ae_cfg,
                   resumed=resume_from is not None):
         return _orchestrate(datasets, labels, ae_cfg, cfg, scn,
                             torch.as_tensor(eval_data, device=dev), draws,
-                            resume_from, dev)
+                            resume_from, dev, rules)
+
+
+def _save(path: str, rs: RunState, cfg: OrchestratorConfig, rules) -> None:
+    """Write the run state: gathered whole (one all-gather), written by
+    rank 0, and every rank waits for the write."""
+    rs = dataclasses.replace(rs, **dict(zip(
+        ("cd", "rl_state", "carry"),
+        sh.gather_clients((rs.cd, rs.rl_state, rs.carry), rules))))
+    if rules is None or not torch.distributed.is_initialized() or \
+            torch.distributed.get_rank() == 0:
+        save_run_state(path, rs, cfg.n_segments, cfg.iters_per_segment)
+    sh.barrier(rules)
 
 
 def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
-                 eval_data, draws, resume_from, dev) -> OrchestratorResult:
+                 eval_data, draws, resume_from, dev,
+                 rules=None) -> OrchestratorResult:
     plan = scn.faults
     pcfg = cfg.pipeline
     ckpt_path = cfg.checkpoint_path
@@ -436,9 +469,12 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                 "resume key mismatch: the checkpoint was written by a run "
                 "with another draw source; resuming would silently diverge "
                 "from the original run")
-        env, cd, trust = rs.env, rs.cd, rs.trust
+        env, cd, trust = rs.env, shard_client_data(rs.cd, rules), rs.trust
         in_edge, prev_edge, p_fail = rs.in_edge, rs.prev_edge, rs.p_fail
-        rl_state, carry, retry_q = rs.rl_state, rs.carry, rs.retry
+        rl_state, retry_q = sh.shard_clients(rs.rl_state, rules), rs.retry
+        carry = rs.carry._replace(**{
+            f: sh.shard_clients(getattr(rs.carry, f), rules)
+            for f in ("client_params", "mu", "nu")})
         pending = list(rs.pending)
         exch = None
         start_segment = rs.segment + 1
@@ -454,7 +490,8 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
         init_edge = draws.uniform_edge(0, n) if cfg.mode == "uniform" \
             else None
         pipe = run_pipeline(cd, None, ae_cfg, pcfg, in_edge=init_edge,
-                            rss=env.rss, draws=pipe_draws, device=dev)
+                            rss=env.rss, draws=pipe_draws, device=dev,
+                            rules=rules)
         cd, trust, in_edge = pipe.client_data, pipe.trust, pipe.in_edge
         rl_state, p_fail, exch = pipe.graph.state, pipe.p_fail, pipe.exchange
         pending = []
@@ -497,14 +534,14 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                 exch = None
                 if rediscover:
                     new_edge, rl_state, assigns = _rediscover(
-                        cd, trust, p_fail, cfg, rl_state, d, dev)
+                        cd, trust, p_fail, cfg, rl_state, d, dev, rules)
                     clock.mark("rediscover")
                     if cfg.exchange_on_rediscover:
                         with obs.span("re-exchange", segment=s):
                             exch = ex.run_exchange(
                                 cd, None, assigns, trust, new_edge, p_fail,
                                 ae_cfg, pcfg.exchange, draws=d.exchange,
-                                device=dev)
+                                device=dev, rules=rules)
                             cd = exch.client_data
                         clock.mark("exchange")
                     prev_edge, in_edge = in_edge, new_edge
@@ -518,14 +555,15 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                 if assigns is not None and len(retry_q):
                     cd, retry_moved, retried, retry_delivered = \
                         _retry_exchange(s, cd, assigns, trust, p_fail,
-                                        ae_cfg, cfg, retry_q, draws, dev)
+                                        ae_cfg, cfg, retry_q, draws, dev,
+                                        rules)
                 clock.mark("retry")
 
             with obs.span("fl-segment", segment=s):
                 fl = _fl_segment(s, cd, env.available, carry,
                                  _fl_batch_draws(draws, s, cfg, n)
                                  if d is None else d.fl_batch, cfg, ae_cfg,
-                                 eval_data, draws, dev)
+                                 eval_data, draws, dev, rules)
                 carry = fl.carry
             clock.mark("fl")
 
@@ -554,13 +592,12 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
                     (s + 1) % cfg.checkpoint_every == 0
                     or s == cfg.n_segments - 1):
                 with obs.span("checkpoint-save", segment=s):
-                    save_run_state(ckpt_path, RunState(
+                    _save(ckpt_path, RunState(
                         segment=s, key=np.asarray(draws.identity), env=env,
                         cd=cd, trust=trust, in_edge=in_edge,
                         prev_edge=prev_edge, p_fail=p_fail,
                         rl_state=rl_state, carry=carry, retry=retry_q,
-                        pending=pending),
-                        cfg.n_segments, cfg.iters_per_segment)
+                        pending=pending), cfg, rules)
                 clock.mark("checkpoint")
             total, stages = clock.end()
             seg_seconds.append(total)
@@ -571,7 +608,8 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
         sc, chunk_seconds = _scan_segments(
             cfg, scn, ae_cfg, eval_data, draws, resume_from, trust, retry_q,
             pending, _ScanCarry(env, p_fail, cd, None, in_edge, prev_edge,
-                                rl_state, carry), eager_end, ckpt_path, dev)
+                                rl_state, carry), eager_end, ckpt_path, dev,
+            rules)
         env, cd, in_edge, carry = sc.env, sc.cd, sc.in_edge, sc.fc
 
     with obs.span("metrics-materialize"):
@@ -595,8 +633,9 @@ def _orchestrate(datasets, labels, ae_cfg, cfg: OrchestratorConfig, scn,
             n_live=int(h["n_live"]), n_failed=int(h["n_failed"]),
             retried=p.retried, retry_delivered=p.retry_delivered))
 
+    whole = cd.whole(rules)
     return OrchestratorResult(trace, carry.global_params, carry, in_edge,
-                              env, cd.data_list(), cd.label_list(),
+                              env, whole.data_list(), whole.label_list(),
                               trace.eval_curve_iters, trace.eval_curve, cd,
                               tuple(seg_seconds), tuple(stage_seconds),
                               chunk_seconds)
@@ -630,7 +669,8 @@ def _read_all(devs: list) -> list:
 
 
 def _retry_exchange(s: int, cd: ClientData, assigns, trust, p_fail, ae_cfg,
-                    cfg: OrchestratorConfig, retry_q: RetryQueue, draws, dev):
+                    cfg: OrchestratorConfig, retry_q: RetryQueue, draws, dev,
+                    rules=None):
     """Re-offer the due failed links through the standard exchange.
 
     The retry edge maps each due receiver to its original transmitter and
@@ -649,7 +689,8 @@ def _retry_exchange(s: int, cd: ClientData, assigns, trust, p_fail, ae_cfg,
                                  torch.as_tensor(retry_edge, device=dev),
                                  p_fail, ae_cfg, cfg.pipeline.exchange,
                                  draws=draws.retry(s, n, ae_cfg, _sel_shape(
-                                     cfg, trust, cd.cap)), device=dev)
+                                     cfg, trust, cd.cap)), device=dev,
+                                 rules=rules)
         failed = set(r_exch.failed_links())
         delivered = 0
         for e in due:
@@ -723,7 +764,7 @@ def _chunk_bounds(cfg: OrchestratorConfig, plan, start: int,
 
 def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, trust,
            sc: _ScanCarry, segs: list, re_flags: list, seg_draws: list,
-           dev):
+           dev, rules=None):
     """Run one chunk's segments from ``sc``. Returns the carry after them
     and, per segment, (deferred metrics, the channel-failure row, the FL
     segment's eval iterations).
@@ -739,6 +780,7 @@ def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, trust,
     sampled_possible = do_exchange and excfg.apply_channel_failure
     env, p_fail, cd, assigns, in_edge, prev_edge, rl_state, fc = sc
     n = in_edge.shape[0]
+    part = sh.ClientSlice(rules, n)
     out = []
     for s, re, d in zip(segs, re_flags, seg_draws):
         env, p_fail = _advance_env(s, env, d, scn, pcfg)
@@ -746,21 +788,22 @@ def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, trust,
         fail = torch.zeros((n,), dtype=torch.bool, device=dev)
         if re:
             new_edge, rl_state, assigns = _rediscover_impl(
-                cd, trust, p_fail, cfg, rl_state, d)
+                cd, trust, p_fail, cfg, rl_state, d, rules)
             if do_exchange:
                 xd = d.exchange
                 params = ex.pretrain_autoencoders_batched(
-                    xd.init_params, cd, ae_cfg, excfg)
-                sel_idx, sel_mask = ex.select_reserves_device(
-                    xd.sel_u, assigns, cd.sizes, int(trust.shape[-1]),
-                    excfg.reserve_per_cluster)
+                    xd.init_params, cd, ae_cfg, excfg, rules)
+                sel_idx, sel_mask = part.place(ex.select_reserves_device(
+                    part.rows(xd.sel_u), part.rows(assigns),
+                    part.rows(cd.sizes), int(trust.shape[-1]),
+                    excfg.reserve_per_cluster))
                 cd, moved, _b, _sc, fail, _acc, _ovf = ex._exchange_device(
                     params, cd.data, cd.sizes, cd.labels, sel_idx, sel_mask,
                     trust, xd.fail_u, p_fail, new_edge, ae_cfg,
-                    excfg.apply_channel_failure, cd.cap)
+                    excfg.apply_channel_failure, cd.cap, rules)
             prev_edge, in_edge = in_edge, new_edge
         fl = _fl_segment_impl(s, cd, env.available, fc, d.fl_batch, cfg,
-                              ae_cfg, eval_data)
+                              ae_cfg, eval_data, rules)
         fc = fl.carry
         dev_metrics = _segment_dev(
             s, fl, ae_cfg, eval_data, env, p_fail, in_edge, prev_edge, re,
@@ -772,7 +815,7 @@ def _chunk(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, trust,
 
 def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
                    resume_from, trust, retry_q: RetryQueue, pending: list,
-                   sc: _ScanCarry, start: int, ckpt_path, dev):
+                   sc: _ScanCarry, start: int, ckpt_path, dev, rules=None):
     """Drive the scan engine over segments [start, n_segments): per chunk,
     take its draws, run it, sync once, then do the host work at its
     boundary (retry offers from its sampled failures and one drain,
@@ -798,7 +841,7 @@ def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
         t0 = time.perf_counter()
         with obs.span("scan-chunk", start=c0, n_segments=len(segs)):
             sc, out = _chunk(cfg, scn, ae_cfg, eval_data, trust, sc, segs,
-                             re_flags, seg_draws, dev)
+                             re_flags, seg_draws, dev, rules)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         chunk_seconds.append((c0, c1, time.perf_counter() - t0))
@@ -824,7 +867,7 @@ def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
             # chunk's rediscovery: _chunk_bounds cuts there)
             new_cd, retry_moved, retried, retry_delivered = _retry_exchange(
                 b, sc.cd, sc.assigns, trust, sc.p_fail, ae_cfg, cfg, retry_q,
-                draws, dev)
+                draws, dev, rules)
             sc = sc._replace(cd=new_cd)
 
         for s, re, (dm, _, eval_iters) in zip(segs, re_flags, out):
@@ -839,10 +882,10 @@ def _scan_segments(cfg: OrchestratorConfig, scn, ae_cfg, eval_data, draws,
         if ckpt_path is not None and ((b + 1) % cfg.checkpoint_every == 0
                                       or b == cfg.n_segments - 1):
             with obs.span("checkpoint-save", segment=b):
-                save_run_state(ckpt_path, RunState(
+                _save(ckpt_path, RunState(
                     segment=b, key=np.asarray(draws.identity), env=sc.env,
                     cd=sc.cd, trust=trust, in_edge=sc.in_edge,
                     prev_edge=sc.prev_edge, p_fail=sc.p_fail,
                     rl_state=sc.rl_state, carry=sc.fc, retry=retry_q,
-                    pending=pending), cfg.n_segments, cfg.iters_per_segment)
+                    pending=pending), cfg, rules)
     return sc, tuple(chunk_seconds)

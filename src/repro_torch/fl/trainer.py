@@ -14,6 +14,12 @@ sum's gradient with respect to client i's parameters is client i's own.
 
 The minibatch indices are inputs: ``batch_idx`` (n_rounds, tau_a, N, B)
 over the whole horizon, drawn from ``generator`` when omitted.
+
+Sharded over the clients (``rules``), each rank trains its own clients on
+its rows of the whole draw. FedAvg/FedProx is a local weighted sum and one
+all-reduce a round of the parameter tree flattened into one buffer (FedSGD:
+one an iteration), weighted by the whole availability mask, so the global
+model is whole on every rank.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.core.batching import as_client_data
 from repro_torch.models import autoencoder as ae
 from repro_torch.models.common import tree_map, value_and_grad
@@ -71,10 +78,18 @@ def _broadcast(params, n):
     return tree_map(lambda p: p[None].expand((n,) + p.shape).clone(), params)
 
 
-def _masked_mean(tree, mask):
+def _masked_mean(tree, mask, part: Optional[sh.ClientSlice] = None):
+    """The mask-weighted mean over clients. ``mask`` is whole (N,); with a
+    sharded ``part`` the tree holds this rank's rows, and the weighted
+    partial sums travel in one all-reduce."""
     w = mask / torch.clamp_min(torch.sum(mask), 1.0)
-    return tree_map(lambda p: torch.tensordot(w, p.to(torch.float32), dims=1)
-                    .to(p.dtype), tree)
+    if part is None or not part.sharded:
+        return tree_map(lambda p: torch.tensordot(w, p.to(torch.float32),
+                                                  dims=1).to(p.dtype), tree)
+    w = part.rows(w)
+    sums = part.psum(tree_map(
+        lambda p: torch.tensordot(w, p.to(torch.float32), dims=1), tree))
+    return tree_map(lambda m, p: m.to(p.dtype), sums, tree)
 
 
 def batch_indices_from(u, sizes) -> torch.Tensor:
@@ -97,14 +112,16 @@ def draw_batch_indices(generator: torch.Generator, sizes, cfg: FLConfig,
 
 
 def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
-                batch_idx) -> FLCarry:
+                batch_idx, part: Optional[sh.ClientSlice] = None) -> FLCarry:
     """One aggregation round: ``tau_a`` local iterations on the minibatch
     indices ``batch_idx`` (tau_a, N, B), then the masked mean and
-    broadcast."""
+    broadcast. With a sharded ``part``, the carry's client trees, ``data``
+    and ``batch_idx`` hold this rank's rows; ``agg_mask`` is whole."""
     cp, gp, mu, nu, t = carry
     n = data.shape[0]
+    n_all = n if part is None else part.n
     rows = torch.arange(n, device=data.device)[:, None]
-    floor = (max(1, math.ceil(cfg.min_participation * n - 1e-9))
+    floor = (max(1, math.ceil(cfg.min_participation * n_all - 1e-9))
              if cfg.min_participation > 0.0 else 0)
     # below the floor a round keeps the last global model: a device select,
     # as the reference's traced ``ok`` is, so the round never reads the
@@ -129,7 +146,7 @@ def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
             # all clients step with the participants' mean gradient; below
             # the floor they keep their local gradients
             grads = keep_below_floor(
-                _broadcast(_masked_mean(grads, agg_mask), n), grads)
+                _broadcast(_masked_mean(grads, agg_mask, part), n), grads)
         if cfg.local_opt == "sgd":    # Eq. 8, paper-faithful
             cp = tree_map(lambda p, g: p - cfg.lr * g, cp, grads)
         else:
@@ -142,7 +159,7 @@ def _round_body(cfg: FLConfig, ae_cfg, carry: FLCarry, data, agg_mask,
                           / (torch.sqrt(v / c2) + cfg.adam_eps), cp, mu, nu)
     # FedAvg/FedProx param mean; below the floor keep the old model and the
     # clients' local parameters
-    gp = keep_below_floor(_masked_mean(cp, agg_mask), gp)
+    gp = keep_below_floor(_masked_mean(cp, agg_mask, part), gp)
     cp = keep_below_floor(_broadcast(gp, n), cp)
     return FLCarry(cp, gp, mu, nu, t)
 
@@ -159,7 +176,7 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
              stop_iter: Optional[int] = None, *, batch_idx=None,
              generator: Optional[torch.Generator] = None,
              avail_mask=None, defer_metrics: bool = False,
-             device="cuda") -> FLResult:
+             device="cuda", rules=None) -> FLResult:
     """Run the FL task. datasets: per-client arrays or one ClientData;
     eval_data: (n_eval, H, W, C) held-out set for the global recon loss.
 
@@ -173,10 +190,14 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
     ``avail_mask``: an (N,) availability mask (truthy = aggregated) that
     overrides ``stragglers`` and stays on the device. ``defer_metrics``
     leaves ``eval_loss`` as a device tensor, so a caller looping over
-    segments can read every metric in one transfer at the end."""
+    segments can read every metric in one transfer at the end.
+
+    ``rules`` shards the clients (module docstring): the result's client
+    trees are placed, the global model whole on every rank."""
     dev = resolve_device(device)
-    cd = as_client_data(datasets, device=dev)
+    cd = as_client_data(datasets, device=dev, rules=rules)
     n = cd.n_clients
+    part = sh.ClientSlice(rules, n)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     if avail_mask is not None:
@@ -194,10 +215,11 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
             init_params = ae.init_ae(generator, ae_cfg)
         init_params = tree_map(lambda p: torch.as_tensor(p, device=dev),
                                init_params)
-        client_params = _broadcast(init_params, n)
-        carry = FLCarry(client_params, tree_map(torch.clone, init_params),
-                        tree_map(torch.zeros_like, client_params),
-                        tree_map(torch.zeros_like, client_params),
+        client_params = _broadcast(init_params, part.n_local)
+        carry = FLCarry(part.place(client_params),
+                        tree_map(torch.clone, init_params),
+                        part.place(tree_map(torch.zeros_like, client_params)),
+                        part.place(tree_map(torch.zeros_like, client_params)),
                         torch.zeros((), device=dev))
 
     if start_iter % cfg.tau_a or (stop_iter is not None
@@ -215,7 +237,7 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
                          start_round, stop_round,
                          batch_idx if batch_idx is not None else
                          (lambda r: draw_batch_indices(generator, cd.sizes,
-                                                       cfg, 1)[0]))
+                                                       cfg, 1)[0]), rules)
         if not defer_metrics:
             res = res._replace(eval_loss=res.eval_loss.cpu().numpy())
     return res
@@ -223,19 +245,24 @@ def fl_train(datasets, ae_cfg, cfg: FLConfig, eval_data,
 
 def _fl_rounds(cd, ae_cfg, cfg: FLConfig, eval_data, carry: FLCarry,
                agg_mask, start_round: int, stop_round: int,
-               batch_idx) -> FLResult:
+               batch_idx, rules=None) -> FLResult:
     """Rounds ``[start_round, stop_round)`` of :func:`fl_train` from
     ``carry``, without its span (the orchestrator's scan chunk calls it
     directly). ``batch_idx[r]`` (an array or a mapping) or ``batch_idx(r)``
-    gives round r's (tau_a, N, B) minibatch indices; the eval losses stay
-    a device tensor."""
-    dev = cd.data.device
+    gives round r's whole (tau_a, N, B) minibatch indices; the eval losses
+    stay a device tensor."""
+    dev = cd.sizes.device
+    part = sh.ClientSlice(rules, cd.n_clients)
+    data = part.rows(cd.data)
+    carry = FLCarry(part.rows(carry.client_params), carry.global_params,
+                    part.rows(carry.mu), part.rows(carry.nu), carry.step)
     n_rounds = cfg.total_iters // cfg.tau_a
     eval_iters, eval_vals = [], []
     for r in range(start_round, stop_round):
         idx = batch_idx(r) if callable(batch_idx) else batch_idx[r]
-        carry = _round_body(cfg, ae_cfg, carry, cd.data, agg_mask,
-                            torch.as_tensor(idx, device=dev).long())
+        idx = part.rows(torch.as_tensor(idx, device=dev).long(), dim=1)
+        carry = _round_body(cfg, ae_cfg, carry, data, agg_mask, idx,
+                            part if part.sharded else None)
         it = (r + 1) * cfg.tau_a
         if it % cfg.eval_every == 0 or r == n_rounds - 1:
             eval_iters.append(it)
@@ -243,5 +270,7 @@ def _fl_rounds(cd, ae_cfg, cfg: FLConfig, eval_data, carry: FLCarry,
                                               ae_cfg))
     eval_loss = (torch.stack(eval_vals) if eval_vals
                  else torch.zeros((0,), device=dev))
+    carry = FLCarry(part.place(carry.client_params), carry.global_params,
+                    part.place(carry.mu), part.place(carry.nu), carry.step)
     return FLResult(carry.global_params, np.asarray(eval_iters), eval_loss,
                     carry.client_params, carry)

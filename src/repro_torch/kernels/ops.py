@@ -10,13 +10,17 @@ Dispatch follows the tensor's device and nothing else:
     kernel's work reported to the dry run's counter; outside one, an error
     as for any other device.
 
-The kernels mask their own ragged edges, so no operand is padded here.
+The kernels mask their own ragged edges, so no operand is padded here. A
+``DTensor`` raises ``TypeError``: the sharded client plane hands each
+kernel its rank's local shard, and gathering a stack here would hide the
+plane's cost behind a dispatch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import roofline
+from repro_torch.sharding import is_dtensor
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import recon_gate as _rg
@@ -37,6 +41,13 @@ KERNELS = {"kmeans_assign": _km.KERNEL, "recon_gate": _rg.KERNEL,
 DRY_RUN_COUNTERS: list = []
 
 
+def _local(*ts) -> None:
+    for t in ts:
+        if is_dtensor(t):
+            raise TypeError("a kernel takes the local shard of a sharded "
+                            "stack (DTensor.to_local()), not the DTensor")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -48,6 +59,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def kmeans_assign(x, centroids):
     """x: (..., n, d), centroids: (..., k, d) -> (assign (..., n) int32,
     min_d2 (..., n) f32). A (N, n, d) stack is one launch on the card."""
+    _local(x, centroids)
     if not _on_cuda(x):
         return ref.kmeans_assign_ref(x, centroids)
     return _km.kmeans_assign_cuda(x.to(torch.float32).contiguous(),
@@ -59,6 +71,7 @@ def recon_gate_score(y, x, mask):
 
     Per-sample pixel-mean squared error averaged over each group's valid
     samples: the AE exchange gate's subset score."""
+    _local(y, x, mask)
     if not _on_cuda(y):
         return ref.recon_gate_ref(y, x, mask)
     lead = y.shape[:-2]
@@ -81,6 +94,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     the padding without the causal test.
     The kernels have no backward (nor has the Pallas kernel): an input that
     needs a gradient raises on the card rather than dropping it."""
+    _local(q, k, v)
     if q.device.type == "meta" and DRY_RUN_COUNTERS:
         sm90 = _fa.route(q, k, v) == "sm90"
         work = roofline.flash_attention_work(

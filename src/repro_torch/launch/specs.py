@@ -4,8 +4,8 @@
 tensors on the ``meta`` device: the reference's shapes and dtypes, no
 memory. For VLM/audio the modality frontend is stubbed, as in the JAX
 package: the batch carries patch embeddings / codec token ids of the right
-shape. The reference also returns each input's logical sharding axes; that
-half goes with the sharding slice (ROADMAP Queue 1, item 11).
+shape. :func:`input_specs_logical` returns the reference's pair, the batch
+and each input's logical sharding axes.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.configs.base import InputShape, ModelConfig
 
 VLM_IMG_TOKENS = 256  # patch tokens prepended by the stubbed vision frontend
@@ -64,3 +65,12 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     if shape.kind == "prefill":
         return prefill_input_specs(cfg, shape.global_batch, shape.seq_len)
     return decode_input_specs(cfg, shape.global_batch)
+
+
+def input_specs_logical(cfg: ModelConfig, shape: InputShape):
+    """(specs, logical), as the reference's ``input_specs`` returns: each
+    input's logical axes put its batch axis over BATCH and replicate every
+    other axis."""
+    specs = input_specs(cfg, shape)
+    return specs, {k: (sh.BATCH,) + (None,) * (v.dim() - 1)
+                   for k, v in specs.items()}

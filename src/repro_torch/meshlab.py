@@ -1,0 +1,655 @@
+"""Mesh lab: a deterministic client world and the client-stacked hot paths
+(clustering, AE pretraining, the exchange gate, FL rounds, RL discovery),
+runnable with or without :class:`~repro_torch.sharding.ShardingRules`
+(mirrors ``repro.meshlab``).
+
+Shared by the mesh parity tests (``tests/test_torch_mesh.py``) and
+``chip_smoke.py``. The reference spawns one child per mesh size with a
+forced XLA device count; here :func:`spawn` starts ``world`` ranks of
+``torch.distributed`` (gloo on the host, a ``file://`` store in a temporary
+directory: no port, no network), every rank runs the same function on the
+same world, and rank 0's value comes back. On the card a one-rank NCCL
+group does the same in process (``launch.mesh.make_client_mesh(1)``).
+
+The world comes from ``torch.Generator``s on the host seeded per site from
+``LabConfig.seed`` (the port cannot replay threefry), so every rank and
+every device draws the same numbers. Client sizes are ragged, so every
+stacked program runs the mask-padded plane.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import hashlib
+import os
+import pickle
+import tempfile
+import time
+from collections import Counter
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch import sharding as sh
+from repro_torch.core import channel as ch
+from repro_torch.core import exchange as ex
+from repro_torch.core import kmeans as km
+from repro_torch.core import qlearning as ql
+from repro_torch.core import rewards as rw
+from repro_torch.core import trust as tr
+from repro_torch.core.batching import as_client_data, stack_clients
+from repro_torch.core.pipeline import (PipelineConfig, cluster_clients,
+                                       cluster_clients_loop)
+from repro_torch.fl.trainer import FLConfig, batch_indices_from, fl_train
+from repro_torch.models import autoencoder as ae
+
+# the torch.distributed calls a stage may make (the test counts them all)
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+               "all_gather", "broadcast", "barrier", "reduce_scatter_tensor",
+               "all_to_all_single", "scatter", "gather", "reduce")
+
+
+@dataclasses.dataclass(frozen=True)
+class LabConfig:
+    n_clients: int = 8
+    n_per_client: int = 40
+    n_clusters: int = 3
+    reserve: int = 8
+    hw: int = 16                   # image height == width
+    widths: tuple = (4, 8)
+    latent: int = 8
+    tau_a: int = 5
+    n_rounds: int = 2
+    batch_size: int = 16
+    rl_episodes: int = 120         # discovery program length (one burst)
+    rl_buffer: int = 30
+    seed: int = 0
+
+    @property
+    def ae_cfg(self) -> ae.AEConfig:
+        return ae.AEConfig(self.hw, self.hw, 1, widths=self.widths,
+                           latent_dim=self.latent)
+
+
+def make_rules(mesh_size, device="cuda"):
+    """``ShardingRules`` over a ``mesh_size``-rank "data" axis; ``None`` is
+    unsharded. ``mesh_size`` is the process group's size, or 1 inside a
+    larger group: every rank then holds its own one-rank "data" axis under
+    a "replica" axis (the reference's mesh of one device)."""
+    if mesh_size is None:
+        return None
+    from repro_torch.launch.mesh import make_client_mesh
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh_size == world:
+        return sh.ShardingRules.default(make_client_mesh(mesh_size, device))
+    if mesh_size != 1:
+        raise ValueError(f"a {mesh_size}-rank mesh in a {world}-rank group")
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    return sh.ShardingRules.default(init_device_mesh(
+        dev.type, (world, 1), mesh_dim_names=("replica", "data")))
+
+
+def _gen(cfg: LabConfig, site: int) -> torch.Generator:
+    return torch.Generator().manual_seed(cfg.seed * 1000 + site)
+
+
+def build_world(cfg: LabConfig, device="cuda") -> dict:
+    """Datasets, cluster ids, trust, P_D, a graph, local rewards and every
+    draw the paths take, for N clients, on ``device`` (the card unless the
+    caller asks for the CPU).
+
+    Client sizes are ragged, ``max(n_per_client - 3 * (i % 4), 4)``, as in
+    the reference."""
+    device = resolve_device(device)
+    n, k, hw = cfg.n_clients, cfg.n_clusters, cfg.hw
+    sizes = [max(cfg.n_per_client - 3 * (i % 4), 4) for i in range(n)]
+    g = _gen(cfg, 0)
+    datasets = [torch.rand((s, hw, hw, 1), generator=g) for s in sizes]
+    assignments = [torch.randint(0, k, (s,), generator=g) for s in sizes]
+    g = _gen(cfg, 1)
+    trust = tr.make_trust(tr.draw_trust_uniforms(g, n, k), 0.9)
+    p_fail = ch.failure_prob(ch.make_rss(g, n))
+    in_edge = ql.uniform_graph(g, n)
+    eval_data = torch.rand((32, hw, hw, 1), generator=g)
+    lam = torch.rand((n, n), generator=g)
+    g = _gen(cfg, 2)
+    pre_init = ae.init_ae(g, cfg.ae_cfg, n_clients=n)
+    ex_seed = int(torch.randint(0, 2**31 - 1, (1,), generator=g))
+    fail_u = torch.rand(n, generator=g)
+    g = _gen(cfg, 3)
+    fl_init = ae.init_ae(g, cfg.ae_cfg)
+    fl_u = torch.rand((cfg.n_rounds, cfg.tau_a, n, cfg.batch_size),
+                      generator=g)
+    half = cfg.rl_episodes // 2
+    rl = ql.draw_rl(_gen(cfg, 4), n, cfg.rl_episodes)
+    rl_warm = (ql.draw_rl(_gen(cfg, 5), n, half),
+               ql.draw_rl(_gen(cfg, 6), n, cfg.rl_episodes - half))
+    sizes_t = torch.as_tensor(sizes)
+    world = {
+        "datasets": datasets, "assignments": assignments, "trust": trust,
+        "p_fail": p_fail, "in_edge": in_edge, "eval_data": eval_data,
+        "local_r": rw.local_reward_matrix(lam, p_fail),
+        "pre_init": pre_init, "ex_seed": ex_seed, "fail_u": fail_u,
+        "fl_init": fl_init, "fl_batch": batch_indices_from(fl_u, sizes_t),
+        "rl": rl, "rl_warm": rl_warm,
+        "cl_draws": km.draw_kmeans(_gen(cfg, 7), sizes_t, k),
+        "cluster_data": _cluster_world(_gen(cfg, 8), cfg, sizes)}
+    world = sh._map(lambda x: x.to(device) if isinstance(x, torch.Tensor)
+                    else x, world)
+    world["cfg"], world["device"] = cfg, torch.device(device)
+    return world
+
+
+def _cluster_world(g: torch.Generator, cfg: LabConfig, sizes) -> list:
+    """Blobby ragged datasets for the clustering program: six shared
+    prototypes plus small noise, at about unit flattened norm, so the
+    covariance has separated eigenvalues and the retained basis (and the
+    centroids) stay put under the moment all-reduce's reassociation, as in
+    the reference."""
+    scale = 1.0 / cfg.hw
+    protos = torch.randn((6, cfg.hw, cfg.hw, 1), generator=g) * scale
+    out = []
+    for s in sizes:
+        ids = torch.randint(0, 6, (s,), generator=g)
+        noise = torch.randn((s, cfg.hw, cfg.hw, 1), generator=g)
+        out.append(protos[ids] + 0.05 * scale * noise)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the hot paths
+# ---------------------------------------------------------------------------
+
+def _excfg(cfg: LabConfig) -> ex.ExchangeConfig:
+    return ex.ExchangeConfig(reserve_per_cluster=cfg.reserve)
+
+
+def run_pretrain(world, rules):
+    """One full-batch AE step over the (sharded) client stack."""
+    cfg: LabConfig = world["cfg"]
+    cd = as_client_data(world["datasets"], device=world["device"],
+                        rules=rules)
+    return ex.pretrain_autoencoders_batched(world["pre_init"], cd,
+                                            cfg.ae_cfg, _excfg(cfg), rules)
+
+
+def gate_operands(world, rules):
+    """The exchange program's operands: host-selected reserve indices (the
+    whole cluster ids are host lists here, so no gather), the stacked
+    trust, the channel uniforms and the placed client stack."""
+    cfg: LabConfig = world["cfg"]
+    n, dev = cfg.n_clients, world["device"]
+    trust_np = ex._trust_list(world["trust"])
+    k_max = max(t.shape[1] for t in trust_np)
+    assigns, sizes = stack_clients(world["assignments"])
+    sel = ex._select_reserves(world["ex_seed"], assigns,
+                              [t.shape[1] for t in trust_np], cfg.reserve,
+                              sizes)
+    sel_idx, sel_mask = ex._sel_tensors(sel, n, k_max, cfg.reserve)
+    cd = as_client_data(world["datasets"], device=dev, rules=rules)
+    out_cap = cd.cap + int(sel_mask.sum(axis=(1, 2)).max(initial=0))
+    sel_idx, sel_mask = sh.shard_clients(
+        (torch.as_tensor(sel_idx, device=dev),
+         torch.as_tensor(sel_mask, device=dev)), rules)
+    trust_s = torch.as_tensor(ex._stack_trust_padded(trust_np, n, k_max),
+                              device=dev)
+    return (cd, sel_idx, sel_mask, trust_s, world["fail_u"],
+            world["in_edge"], out_cap)
+
+
+def run_gate(world, params, operands, rules):
+    """The exchange program (gather reserves, score the gate, scatter):
+    (new ClientData, moved, base, scores, fail, accept, overflowed)."""
+    cfg: LabConfig = world["cfg"]
+    cd, sel_idx, sel_mask, trust_s, fail_u, in_edge, out_cap = operands
+    return ex._exchange_device(params, cd.data, cd.sizes, cd.labels,
+                               sel_idx, sel_mask, trust_s, fail_u,
+                               world["p_fail"], in_edge, cfg.ae_cfg, False,
+                               out_cap, rules)
+
+
+def run_fl_segment(world, rules):
+    """A short FL segment (``n_rounds`` aggregation rounds) from scratch:
+    (global params, client params)."""
+    cfg: LabConfig = world["cfg"]
+    flcfg = FLConfig(total_iters=cfg.tau_a * cfg.n_rounds, tau_a=cfg.tau_a,
+                     eval_every=cfg.tau_a * cfg.n_rounds,
+                     batch_size=cfg.batch_size)
+    res = fl_train(world["datasets"], cfg.ae_cfg, flcfg, world["eval_data"],
+                   init_params=world["fl_init"], batch_idx=world["fl_batch"],
+                   device=world["device"], rules=rules)
+    return res.global_params, res.client_params
+
+
+def _pipe_cfg(cfg: LabConfig) -> PipelineConfig:
+    # n_pca=4 < the cluster world's rank-5 prototype scatter
+    return PipelineConfig(n_pca=4, n_clusters=cfg.n_clusters,
+                          kmeans_iters=10)
+
+
+def run_cluster(world, rules):
+    """The stacked clustering program (masked federated PCA + batched
+    K-means++) on the blobby world: (components, centroids,
+    assignments)."""
+    cfg: LabConfig = world["cfg"]
+    pca, cents, assigns = cluster_clients(
+        world["cluster_data"], _pipe_cfg(cfg), world["cl_draws"],
+        device=world["device"], rules=rules)
+    return pca.components, cents, assigns
+
+
+def run_cluster_loop(world):
+    """The per-client host loop of the same masked math."""
+    cfg: LabConfig = world["cfg"]
+    pca, cents, assigns = cluster_clients_loop(
+        world["cluster_data"], _pipe_cfg(cfg), world["cl_draws"],
+        device=world["device"])
+    return pca.components, cents, assigns
+
+
+def _rl_cfg(cfg: LabConfig, policy: str) -> ql.RLConfig:
+    return ql.RLConfig(n_episodes=cfg.rl_episodes, buffer_size=cfg.rl_buffer,
+                       policy=policy)
+
+
+def run_discovery(world, rules, policy: str = "mixed") -> ql.GraphResult:
+    """One cold-start RL burst (Algorithm 1) with the agents placed per
+    ``rules``."""
+    cfg: LabConfig = world["cfg"]
+    return ql.discover_graph(world["local_r"], world["p_fail"],
+                             _rl_cfg(cfg, policy),
+                             draws=None if policy == "ucb" else world["rl"],
+                             rules=rules)
+
+
+def run_discovery_warm(world, rules, policy: str = "mixed") -> ql.GraphResult:
+    """Two chained bursts, the second warm-started from the first's placed
+    state (the orchestrator's re-discovery)."""
+    cfg: LabConfig = world["cfg"]
+    half = cfg.rl_episodes // 2
+    first = ql.discover_graph(world["local_r"], world["p_fail"],
+                              _rl_cfg(cfg, policy), n_episodes=half,
+                              draws=world["rl_warm"][0], rules=rules)
+    return ql.discover_graph(world["local_r"], world["p_fail"],
+                             _rl_cfg(cfg, policy), init_state=first.state,
+                             n_episodes=cfg.rl_episodes - half,
+                             draws=world["rl_warm"][1], rules=rules)
+
+
+# ---------------------------------------------------------------------------
+# parity and timing (each rank runs them)
+# ---------------------------------------------------------------------------
+
+def digest(tree) -> str:
+    """sha256 over the bytes of every tensor leaf (gather placed ones
+    first: :func:`whole`)."""
+    h = hashlib.sha256()
+    for leaf in sh._leaves(tree):
+        h.update(leaf.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def max_abs_diff(a, b) -> float:
+    return max(float(torch.max(torch.abs(x.double() - y.double())))
+               for x, y in zip(sh._leaves(a), sh._leaves(b)))
+
+
+def whole(tree, rules):
+    """``tree`` with every placed stack gathered (one all-gather)."""
+    return sh.gather_clients(tree, rules)
+
+
+@contextlib.contextmanager
+def count_collectives(into: Counter):
+    """Count every ``torch.distributed`` collective called inside, by name
+    (DTensor's own collectives go through ``_functional_collectives``,
+    counted as ``funcol.<name>``)."""
+    dist = torch.distributed
+    from torch.distributed import _functional_collectives as funcol
+    saved = []
+    for mod, prefix, names in (
+            (dist, "", COLLECTIVES),
+            (funcol, "funcol.", [n for n in dir(funcol) if n.startswith(
+                ("all_", "reduce_", "broadcast", "permute"))])):
+        for name in names:
+            fn = getattr(mod, name, None)
+            if not callable(fn):
+                continue
+
+            def wrapped(*a, _fn=fn, _key=prefix + name, **kw):
+                into[_key] += 1
+                return _fn(*a, **kw)
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    try:
+        yield into
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _stage(counts: dict, name: str, fn, count: bool):
+    if not count:
+        return fn()
+    c = Counter()
+    with count_collectives(c):
+        out = fn()
+    counts[name] = dict(c)
+    return out
+
+
+def parity_report(cfg: LabConfig, mesh_size: int, device="cuda",
+                  count: bool = False) -> dict:
+    """Run every path unsharded, at mesh 1 and at ``mesh_size``; report
+    digests (bit parity) and max float deltas. With ``count``, each stage's
+    ``torch.distributed`` calls by name under ``collectives_<tag>``.
+
+    Discovery: ``disc`` (Eq. 4's mixed policy), ``disc_ucb`` and
+    ``disc_warm``; their collectives reassociate float sums at mesh > 1,
+    so parity there is a Q delta and agreement of the final links, as for
+    the FL round's all-reduce. Clustering's moment all-reduce reassociates
+    too: a centroid delta and agreement of every assignment."""
+    device = resolve_device(device)
+    world = build_world(cfg, device)
+    out = {"world_size": torch.distributed.get_world_size()
+           if torch.distributed.is_initialized() else 1,
+           "mesh_size": mesh_size, "n_clients": cfg.n_clients}
+    discoveries = (("disc", lambda r: run_discovery(world, r, "mixed")),
+                   ("disc_ucb", lambda r: run_discovery(world, r, "ucb")),
+                   ("disc_warm", lambda r: run_discovery_warm(world, r)))
+    tags = [("base", None), ("mesh1", make_rules(1, device))]
+    if mesh_size != 1:
+        tags.append((f"mesh{mesh_size}", make_rules(mesh_size, device)))
+    ref = {}
+    for tag, rules in tags:
+        counts = {}
+        params = _stage(counts, "pretrain",
+                        lambda: run_pretrain(world, rules), count)
+        operands = _stage(counts, "gate_operands",
+                          lambda: gate_operands(world, rules), count)
+        gate = _stage(counts, "gate",
+                      lambda: run_gate(world, params, operands, rules), count)
+        gp, cp = _stage(counts, "fl", lambda: run_fl_segment(world, rules),
+                        count)
+        cluster = _stage(counts, "cluster", lambda: run_cluster(world, rules),
+                         count)
+        graphs = {name: _stage(counts, name, lambda fn=fn: fn(rules), count)
+                  for name, fn in discoveries}
+        if count:
+            out[f"collectives_{tag}"] = counts
+        params, gate, cp, cluster, graphs = whole(
+            (params, gate, cp, cluster, graphs), rules)
+        out[f"pretrain_digest_{tag}"] = digest(params)
+        out[f"gate_digest_{tag}"] = digest(gate)
+        out[f"fl_digest_{tag}"] = digest((gp, cp))
+        out[f"cluster_digest_{tag}"] = digest(cluster)
+        for name, g in graphs.items():
+            out[f"{name}_digest_{tag}"] = digest((g.in_edge, g.state))
+        if tag == "base":
+            ref = {"params": params, "gate": gate, "gp": gp,
+                   "cluster": cluster, "graphs": graphs}
+            continue
+        out[f"pretrain_maxdiff_{tag}"] = max_abs_diff(ref["params"], params)
+        out[f"gate_maxdiff_{tag}"] = max_abs_diff(ref["gate"][2:4], gate[2:4])
+        out[f"fl_maxdiff_{tag}"] = max_abs_diff(ref["gp"], gp)
+        out[f"cluster_cents_maxdiff_{tag}"] = max_abs_diff(
+            ref["cluster"][1], cluster[1])
+        out[f"cluster_assign_agree_{tag}"] = int(
+            (ref["cluster"][2] == cluster[2]).sum())
+        out[f"cluster_assign_total_{tag}"] = int(cluster[2].numel())
+        for name, g in graphs.items():
+            rg = ref["graphs"][name]
+            out[f"{name}_q_maxdiff_{tag}"] = max_abs_diff(rg.q, g.q)
+            out[f"{name}_edge_agree_{tag}"] = int(
+                (rg.in_edge == g.in_edge).sum())
+    return out
+
+
+def time_path(fn, *, iters: int = 5) -> float:
+    """Mean wall-clock us per call after one warm-up call (a card run is
+    synchronised before each clock read)."""
+    def sync():
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def timing_report(cfg: LabConfig, mesh_size, iters: int = 5,
+                  device="cuda") -> dict:
+    """Wall time of the gate program, an FL segment, a discovery burst and
+    the clustering program at the given mesh size (None: unsharded)."""
+    device = resolve_device(device)
+    world = build_world(cfg, device)
+    rules = make_rules(mesh_size, device)
+    params = run_pretrain(world, rules)
+    operands = gate_operands(world, rules)
+    gate_us = time_path(lambda: run_gate(world, params, operands, rules),
+                        iters=iters)
+    fl_us = time_path(lambda: run_fl_segment(world, rules),
+                      iters=max(iters // 2, 2))
+    disc_us = time_path(lambda: run_discovery(world, rules),
+                        iters=max(iters // 2, 2))
+    cluster_us = time_path(lambda: run_cluster(world, rules), iters=iters)
+    n = cfg.n_clients
+    return {"mesh_size": 0 if mesh_size is None else mesh_size,
+            "n_clients": n, "gate_us": gate_us, "fl_segment_us": fl_us,
+            "disc_us": disc_us, "rl_episodes": cfg.rl_episodes,
+            "cluster_us": cluster_us, "gate_us_per_client": gate_us / n,
+            "fl_us_per_client": fl_us / n,
+            "cluster_us_per_client": cluster_us / n,
+            "disc_us_per_agent_episode": disc_us / (n * cfg.rl_episodes)}
+
+
+# ---------------------------------------------------------------------------
+# the one-shot pipeline and the online orchestrator, sharded and not
+# ---------------------------------------------------------------------------
+
+ONLINE_AE = ae.AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
+
+
+def online_world(n_clients: int = 6, cut: int = 3, seed: int = 0):
+    """A small labelled world: 8x8 synthetic images of 10 classes over
+    ``n_clients`` clients with three circular classes each, client i cut
+    by ``cut * i`` rows (unequal sizes leave ``overflow="drop"`` room to
+    move data). Returns (datasets, labels, eval images)."""
+    from repro_torch.data import make_split_dataset, partition_by_classes
+    g = torch.Generator().manual_seed(seed)
+    train, ev = make_split_dataset(g, n_train_per_class=30,
+                                   n_eval_per_class=6, height=8, width=8,
+                                   channels=1)
+    xs, ys, _ = partition_by_classes(seed, train.images.numpy(),
+                                     train.labels.numpy(),
+                                     n_clients=n_clients,
+                                     classes_per_client=3, circular=True)
+    return ([x[:len(x) - cut * i] for i, x in enumerate(xs)],
+            [y[:len(y) - cut * i] for i, y in enumerate(ys)], ev.images)
+
+
+def online_config(segment_impl: str = "eager", **kw):
+    """The orchestrator tests' small config: UCB bursts of 20 episodes, a
+    re-exchange with channel failures and retries every segment, 4 segments
+    of one FL round; the scan engine's exchange drops overflow and selects
+    reserves on the device."""
+    from repro_torch.dynamics import OrchestratorConfig
+    from repro_torch.faults import RetryPolicy
+    scan = segment_impl == "scan"
+    pcfg = PipelineConfig(
+        n_pca=4, kmeans_iters=5,
+        rl=ql.RLConfig(n_episodes=30, buffer_size=10, policy="ucb"),
+        exchange=ex.ExchangeConfig(
+            reserve_per_cluster=8, apply_channel_failure=True,
+            overflow="drop" if scan else "grow",
+            reserve_selector="device" if scan else "host"))
+    return OrchestratorConfig(
+        n_segments=4, iters_per_segment=10, mode="online",
+        rediscover_every=1, burst_episodes=20, pipeline=pcfg,
+        fl=FLConfig(tau_a=10, batch_size=8, eval_every=10),
+        retry=RetryPolicy(enabled=True), segment_impl=segment_impl, **kw)
+
+
+def _flat(tree) -> torch.Tensor:
+    return torch.cat([x.detach().reshape(-1).cpu().to(torch.float64)
+                      for x in sh._leaves(tree)])
+
+
+def _gate_margin(res) -> float:
+    """Smallest relative gate margin |score - base| / |base| over the pairs
+    the gate decided on its scores (trusted, with reserves, live, channel
+    held); exact decisions are comparable across meshes above ~1e-5."""
+    ctx = res.exchange._ctx
+    trust_s, in_edge = ctx[0], ctx[2].cpu()
+    base = sh.full_tensor(res.exchange.base).cpu()
+    scores = sh.full_tensor(res.exchange.scores).cpu()
+    n = in_edge.shape[0]
+    allowed = torch.stack([torch.as_tensor(trust_s[int(in_edge[i])][i]) != 0
+                           for i in range(n)])
+    allowed &= (in_edge != torch.arange(n))[:, None]
+    allowed &= ~res.exchange.fail.cpu()[:, None]
+    rel = (scores - base[:, None]).abs() / base[:, None].abs()
+    return float(rel[allowed].min()) if bool(allowed.any()) else float("inf")
+
+
+def pipeline_report(mesh_size: int, device="cuda") -> dict:
+    """``run_pipeline`` + ``fl_train`` on :func:`online_world` unsharded and
+    at ``mesh_size``, each from a generator seeded 0: graph, moved counts,
+    gate decisions, channel failures, lambdas, the exchanged data's digest
+    and the FL global parameters, per tag ("base", "mesh<K>")."""
+    from repro_torch.core.pipeline import run_pipeline
+    device = resolve_device(device)
+    xs, ys, ev = online_world()
+    cfg = online_config().pipeline
+    flcfg = FLConfig(total_iters=20, tau_a=10, batch_size=8, eval_every=10)
+    out = {}
+    for tag, rules in (("base", None),
+                       (f"mesh{mesh_size}", make_rules(mesh_size, device))):
+        gen = torch.Generator(device=device).manual_seed(0)
+        res = run_pipeline(xs, ys, ONLINE_AE, cfg, generator=gen,
+                           device=device, rules=rules)
+        fl = fl_train(res.client_data, ONLINE_AE, flcfg, ev, generator=gen,
+                      device=device, rules=rules)
+        accept, cd = whole((res.exchange.accept, res.client_data), rules)
+        out[tag] = {
+            "in_edge": res.in_edge.cpu().numpy(),
+            "moved": res.moved_counts, "fail": res.exchange.fail.cpu().numpy(),
+            "accept": accept.cpu().numpy(),
+            "lam_before": res.lam_before.cpu().numpy(),
+            "lam_after": res.lam_after.cpu().numpy(),
+            "data_digest": digest(cd), "gate_margin": _gate_margin(res),
+            "fl_global": _flat(fl.global_params).numpy(),
+            "eval_loss": fl.eval_loss}
+    return out
+
+
+def _run_summary(res) -> dict:
+    return {"segments": [dataclasses.asdict(r) for r in res.trace.segments],
+            "global": _flat(res.global_params).numpy(),
+            "data_digest": digest((res.datasets, res.labels)),
+            "in_edge": res.in_edge.cpu().numpy()}
+
+
+def orchestrator_report(mesh_size: int, ckpt_dir: str,
+                        device="cuda") -> dict:
+    """``run_orchestrator`` on :func:`online_world` under ``burst-outage``
+    from ``SeededDraws(5)``, per engine ("eager", "scan") unsharded and at
+    ``mesh_size``; then at ``mesh_size`` a run killed at segment 2 (the
+    scenario's preemption, checkpoints under ``ckpt_dir``) and resumed
+    from its checkpoint, per engine. Returns each run's summary under
+    ``<impl>_<tag>`` (tags "base", "mesh<K>", "resumed")."""
+    from repro_torch.dynamics import (SeededDraws, get_scenario,
+                                      run_orchestrator)
+    from repro_torch.faults import Preempted
+    device = resolve_device(device)
+    xs, ys, ev = online_world()
+    scn = get_scenario("burst-outage")
+    killed = dataclasses.replace(scn, faults=dataclasses.replace(
+        scn.faults, preempt_at=2))
+    rules = make_rules(mesh_size, device)
+    out = {}
+    for impl in ("eager", "scan"):
+        cfg = online_config(impl)
+        for tag, r in (("base", None), (f"mesh{mesh_size}", rules)):
+            res = run_orchestrator(xs, ys, ONLINE_AE, cfg, scn, ev,
+                                   draws=SeededDraws(5, device),
+                                   device=device, rules=r)
+            out[f"{impl}_{tag}"] = _run_summary(res)
+        ck = dataclasses.replace(cfg, checkpoint_dir=os.path.join(
+            ckpt_dir, impl))
+        try:
+            run_orchestrator(xs, ys, ONLINE_AE, ck, killed, ev,
+                             draws=SeededDraws(5, device), device=device,
+                             rules=rules)
+            raise AssertionError("the run was not preempted")
+        except Preempted as e:
+            if e.segment != 2:
+                raise
+        res = run_orchestrator(xs, ys, ONLINE_AE, ck, killed, ev,
+                               draws=SeededDraws(5, device), device=device,
+                               rules=rules, resume_from=ck.checkpoint_path)
+        out[f"{impl}_resumed"] = _run_summary(res)
+    return out
+
+
+def online_reports(mesh_size: int, ckpt_dir: str, device="cuda") -> dict:
+    """:func:`pipeline_report` and :func:`orchestrator_report` in one
+    group."""
+    return {"pipeline": pipeline_report(mesh_size, device),
+            "orchestrator": orchestrator_report(mesh_size, ckpt_dir, device)}
+
+
+def parity_reports(cfgs, mesh_size: int, device="cuda",
+                   count: bool = False) -> list:
+    """:func:`parity_report` for each config in turn."""
+    return [parity_report(c, mesh_size, device, count) for c in cfgs]
+
+
+# ---------------------------------------------------------------------------
+# ranks on the host
+# ---------------------------------------------------------------------------
+
+def _child(rank: int, world: int, tmp: str, fn, args):
+    torch.set_num_threads(1)
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        out = fn(*args)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, *args):
+    """Run ``fn(*args)`` on ``world`` spawned ranks of a gloo group (a
+    ``file://`` store in a fresh temporary directory) and return rank 0's
+    value, pickled through a file there. ``fn`` must be importable by the
+    children (a module-level function)."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_child, args=(world, d, fn, args), nprocs=world,
+                           join=True, start_method="spawn")
+        with open(os.path.join(d, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+def spawn_parity_report(cfg, mesh_size: int, device="cpu",
+                        count: bool = False):
+    """:func:`parity_report` on ``mesh_size`` spawned host ranks (gloo);
+    rank 0's report, or its list of reports when ``cfg`` is a sequence of
+    configs (one spawn for all of them)."""
+    if torch.device(device).type != "cpu":
+        raise ValueError("spawned ranks run on the host (gloo); on the card "
+                         "call parity_report in a one-rank group")
+    if isinstance(cfg, LabConfig):
+        return spawn(parity_report, mesh_size, cfg, mesh_size, device, count)
+    return spawn(parity_reports, mesh_size, tuple(cfg), mesh_size, device,
+                 count)

@@ -71,6 +71,12 @@ def value_and_grad(fn, params, *args):
     return value.detach(), tree_unflatten(params, grads)
 
 
+def param_logical(spec_tree):
+    """The logical-axis tuple of every parameter, in the spec tree's
+    layout (``sharding.ShardingRules.spec`` maps them onto a mesh)."""
+    return tree_map(lambda s: s.logical, spec_tree)
+
+
 def stack_specs(spec_tree, n: int):
     """Add a leading scan axis of size ``n`` to every Spec in the tree."""
     return tree_map(lambda s: Spec((n,) + s.shape, ("stack",) + s.logical,

@@ -42,6 +42,10 @@ class Model:
         return cm.tree_map(lambda s: torch.empty(s.shape, dtype=self.cfg.p_dtype,
                                                  device="meta"), self.specs)
 
+    def param_logical(self):
+        """Each parameter's logical axes (``sharding.ShardingRules.spec``)."""
+        return cm.param_logical(self.specs)
+
     def n_params(self) -> int:
         return sum(math.prod(s.shape) for s in cm.tree_leaves(self.specs))
 
@@ -77,6 +81,10 @@ class Model:
         on ``device`` (``"meta"``: shapes and dtypes only)."""
         return tf.init_cache(self.cfg, batch, seq_len, self.cfg.act_dtype,
                              resolve_device(device))
+
+    def cache_logical(self, seq_len: int, model_axis_size: int):
+        """The cache's logical axes, for a model axis of that size."""
+        return tf.cache_logical(self.cfg, seq_len, model_axis_size)
 
 
 def _spec_paths(tree, path=()):

@@ -57,6 +57,7 @@ import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as sh
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_lib
@@ -189,6 +190,38 @@ def init_block_cache(cfg, kind: str, batch: int, seq_len: int, dtype,
         st = xlstm_lib.slstm_init_state(batch, d, device=device, lead=lead)
         return st._asdict()
     raise ValueError(kind)
+
+
+def cache_logical(cfg, seq_len: int, model_axis_size: int):
+    """Logical-axis tree matching :func:`init_cache`: KV over heads when
+    they divide the model axis, over the cache's sequence otherwise."""
+    kv_ok = cfg.n_kv_heads % model_axis_size == 0
+
+    def block_logical(kind):
+        if kind in ("attn", "local_attn"):
+            lg = (sh.BATCH, None, sh.KV_HEADS, None) if kv_ok else \
+                (sh.BATCH, sh.KV_SEQ, None, None)
+            return {"k": lg, "v": lg}
+        if kind == "rglru":
+            return {"h": (sh.BATCH, sh.D_FF),
+                    "conv": (sh.BATCH, None, sh.D_FF)}
+        if kind == "mlstm":
+            return {"C": (sh.BATCH, None, None, None),
+                    "n": (sh.BATCH, None, None), "m": (sh.BATCH, None),
+                    "conv": (sh.BATCH, None, sh.D_FF)}
+        if kind == "slstm":
+            lg = (sh.BATCH, None)
+            return {"c": lg, "n": lg, "m": lg, "h": lg}
+        raise ValueError(kind)
+
+    def add_stack(tree):
+        return {k: (sh.STACK,) + v for k, v in tree.items()}
+
+    period, n_units, tail_kinds = scan_meta(cfg)
+    scan_lg = tuple(add_stack(block_logical(k)) for k in cfg.block_pattern) \
+        if n_units else ()
+    tail_lg = tuple(block_logical(k) for k in tail_kinds)
+    return {"pos": sh.SCALAR, "scan": scan_lg, "tail": tail_lg}
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,

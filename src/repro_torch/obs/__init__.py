@@ -50,15 +50,16 @@ _writer: Optional[ManifestWriter] = None
 
 
 def enable(manifest: Optional[str] = None,
-           meta: Optional[dict] = None) -> None:
+           meta: Optional[dict] = None, rules=None) -> None:
     """Start tracing. ``manifest`` streams events to a JSONL file as they
-    close; ``meta`` (any JSON-serialisable dict) lands in its header.
+    close; ``meta`` (any JSON-serialisable dict) and ``rules`` (a
+    ``ShardingRules`` or mesh, for the mesh shape) land in its header.
     Re-enabling restarts the trace (and closes any previous manifest)."""
     global _writer
     if _tracer.enabled():
         disable()
     if manifest is not None:
-        _writer = ManifestWriter(manifest, meta=meta)
+        _writer = ManifestWriter(manifest, meta=meta, rules=rules)
     _tracer.start(
         snapshot_memory=bool(os.environ.get("REPRO_OBS_MEM")),
         on_close=_writer.on_span if _writer is not None else None)

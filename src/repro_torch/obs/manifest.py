@@ -7,8 +7,9 @@ other side's files):
 
   * ``{"type": "run", ...}``   header: schema, wall-clock timestamp, torch
     version, backend (the device type, ``"cuda"`` or ``"cpu"``), device
-    count, the card's name when there is one, mesh shape (``null``: the
-    port does not shard yet) and caller-supplied ``meta``.
+    count, the card's name when there is one, the mesh shape of the
+    ``rules`` the run was traced under (``null`` without) and
+    caller-supplied ``meta``.
   * ``{"type": "span", ...}``  one per closed span, streamed as the run
     progresses (a crashed run keeps every span closed before the crash);
     fields as in :class:`repro_torch.obs.tracer.SpanEvent.to_dict`.
@@ -28,15 +29,26 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.sharding import _mesh_shape
+
 SCHEMA = "obs-manifest/v1"
 
 __all__ = ["SCHEMA", "ManifestWriter", "read_manifest"]
 
 
+def _mesh_desc(rules) -> Optional[dict]:
+    """{axis: size} of a ``ShardingRules``' mesh (or of a ``DeviceMesh`` or
+    shape mapping given directly), as the reference's header has it."""
+    mesh = getattr(rules, "mesh", rules)
+    if mesh is None:
+        return None
+    return _mesh_shape(mesh) or None
+
+
 class ManifestWriter:
     """Streams one run's events to a JSONL file; close writes the totals."""
 
-    def __init__(self, path: str, meta: Optional[dict] = None):
+    def __init__(self, path: str, meta: Optional[dict] = None, rules=None):
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
@@ -54,7 +66,7 @@ class ManifestWriter:
             "torch_version": torch.__version__,
             "backend": "cuda" if cuda else "cpu",
             "device_count": torch.cuda.device_count() if cuda else 1,
-            "mesh": None,
+            "mesh": _mesh_desc(rules),
             "meta": meta or {},
         }
         if cuda:

@@ -19,6 +19,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.sharding import SCALAR
 
 
 class OptState(NamedTuple):
@@ -128,3 +129,12 @@ def opt_update(kind: str, params, grads, state: OptState, lr, *,
     if kind == "adamw":
         return adamw(params, grads, state, lr, donate=donate, **kw)
     raise ValueError(kind)
+
+
+def opt_state_logical(params_logical, kind: str) -> OptState:
+    """Logical-axis tree of :class:`OptState` mirroring the params tree."""
+    if kind == "sgd":
+        return OptState(SCALAR, (), ())
+    if kind == "momentum":
+        return OptState(SCALAR, params_logical, ())
+    return OptState(SCALAR, params_logical, params_logical)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import meshlab
 from repro_torch.core import exchange as tex
 from repro_torch.core import pipeline as tpl
 from repro_torch.configs import get_smoke_config
@@ -78,7 +79,8 @@ def test_port_has_the_slice_modules():
                 "checkpoint/store.py", "obs/__init__.py", "obs/tracer.py",
                 "obs/counters.py", "obs/manifest.py", "obs/profile.py",
                 "obs/report.py", "examples/quickstart.py", "roofline.py",
-                "launch/specs.py", "launch/dryrun.py", "launch/perf.py"):
+                "launch/specs.py", "launch/dryrun.py", "launch/perf.py",
+                "sharding.py", "launch/mesh.py", "meshlab.py"):
         assert mod in names
     for src in ("kmeans_assign.cu", "recon_gate.cu", "flash_attention.cu",
                 "flash_attention_sm90.cu"):
@@ -114,6 +116,10 @@ def test_entry_points_raise_without_a_card():
                          xs[0])
     with pytest.raises(RuntimeError, match="CUDA"):
         full_trust(3, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        meshlab.parity_report(meshlab.LabConfig(), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        meshlab.timing_report(meshlab.LabConfig(), None)
     model = build_model(get_smoke_config("llama3.2-1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init(torch.Generator().manual_seed(0))

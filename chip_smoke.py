@@ -199,9 +199,23 @@
    ``in_edge`` and moved held to phase 6's, its seconds printed beside
    them). The kernels get local CUDA tensors, never a DTensor; the phase
    destroys its process group.
+16. Drives the model plane (``models.transformer`` under ``rules=``):
+   (a) on a one-rank NCCL mesh from ``launch.mesh.host_rules``,
+   Llama-3.2-1B at full width and depth served (4 x 2,048 prompt, 32
+   decode steps, one Gumbel draw) and trained (3 donated AdamW steps at
+   2 x 2,048) once with ``rules=None`` and once under the rules: logits,
+   tokens, losses and final parameters equal bit for bit, 16
+   ``flash_attention_sm90`` launches, each run's seconds printed, and no
+   collective run by a prefill, a decode step or a train step (a one-rank
+   axis's collectives are the identity); (b)
+   both flash kernels at Llama's per-rank heads for model 2, 4 and 16
+   against the plain version, timed; (c) the KV_SEQ decode combine
+   (``attention.decode_attention_kv_seq``) over 16 slices of a 4 x 2,080
+   cache, one thread a slice, against ``decode_attention``; (d) the dry
+   run of Llama-3.2-1B's four shapes on both production meshes.
 
 Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12, 13
-(b, c), 14 (a, b) and 15 (a, b, c) set every kernel's launch count to 0
+(b, c), 14 (a, b), 15 (a, b, c) and 16 (a) set every kernel's launch count to 0
 just before each run they drive
 (the main path, the bf16 serve, the f32 serve, the two online runs, the two
 training runs, the federated-LLM run, the eager and scan runs, the
@@ -226,7 +240,7 @@ and ``musicgen_serve_launches`` in phase 12, as ``family_train_launches``
 (per arch, train_e2e's under xlstm-125m) in phase 13, as
 ``quickstart_launches`` and ``moonshot_full_serve_launches`` in phase 14,
 as ``client_plane_launches`` (its lab, main path and online runs) in phase
-15, the online shapes' errors, the
+15, as ``model_plane_launches`` in phase 16 (a), the online shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
 recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
@@ -3609,7 +3623,9 @@ def dryrun_phase(torch, llama_prefill_s, llama_steps, moonshot_prefill_s,
              moonshot_prefill_s))
     checks = {}
     for label, cfg, shape, max_len, secs in rows:
-        rec = dryrun.count_step(cfg, shape, max_len=max_len)
+        # the train step is launch.train's, under a one-rank mesh's rules
+        rec = dryrun.count_step(cfg, shape, max_len=max_len, rules=(
+            dryrun.mesh_rules("h100") if shape.kind == "train" else None))
         terms = dryrun.roofline_record(cfg, shape, rec)
         bound_s = max(terms["t_compute_s"], terms["t_memory_s"])
         by = {k: f"{v / 1e12:.3f}" for k, v in
@@ -3897,6 +3913,275 @@ def client_plane_phase(torch, ops, dev, main_rec, online_segs, online_secs):
     return {"lab": lab, "main_path": main, "online": online}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the model plane on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+# Llama-3.2-1B's per-rank attention at model 2, 4 and 16: q heads, KV heads
+PLANE_HEADS = (("model 2", 16, 4), ("model 4", 8, 2), ("model 16", 2, 1))
+
+
+def _collectives(torch, fn):
+    """``fn()`` with every ``torch.distributed`` collective counted by kind:
+    (result, calls, result bytes)."""
+    from collections import Counter
+    from repro_torch import meshlab
+    calls, nbytes = Counter(), Counter()
+    with meshlab.record_collectives(calls, nbytes):
+        out = fn()
+        torch.cuda.synchronize()
+    return out, dict(calls), dict(nbytes)
+
+
+def _train_llama(torch, model, tc, batches, dev, rules):
+    """Three donated AdamW steps from seed 0's weights, under ``rules``:
+    (losses, final parameters, step seconds, the last step's
+    collectives)."""
+    from repro_torch import optim
+    from repro_torch import sharding as sh
+    from repro_torch.models.registry import make_train_step
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = sh.place_params(model.init(g, device=dev), model.param_logical(),
+                             rules)
+    state = optim.init_opt_state(params, tc.optimizer)
+    step = make_train_step(model, tc, donate=True, rules=rules)
+    losses, secs, coll = [], [], None
+    for batch in batches:
+        t0 = time.perf_counter()
+        (params, state, m), calls, nbytes = _collectives(
+            torch, lambda: step(params, state, batch))
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        coll = (calls, nbytes)
+    del state
+    return torch.stack(losses), params, secs, coll
+
+
+def plane_llama(torch, ops, dev, rules):
+    """Phase 16 (a): Llama-3.2-1B at full width and depth served (4 x 2,048
+    prompt, 32 decode steps, Gumbel noise drawn once) and trained (3
+    donated AdamW steps at 2 x 2,048) once with ``rules=None`` and once
+    under the one-rank mesh's rules; logits, tokens, losses and the final
+    parameters must be equal bit for bit, and a prefill, a decode step and
+    a train step must run no collective (over one-rank axes each is the
+    identity). Prints each run's seconds. Returns the rules serve's
+    launches."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.serve import gumbel_noise, serve
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build_model
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    b, s, gen = 4, 2048, 33
+    params, g = _draw(torch, model, dev)
+    placed = sh.place_params(params, model.param_logical(), rules)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    noise = gumbel_noise(g, (gen, b, 1, cfg.vocab_size))
+    runs = {}
+    for tag, r, p in (("rules=None", None, params), ("mesh (1, 1)", rules,
+                                                     placed)):
+        serve(model, p, tokens[:, :256], 2, gumbel=noise[:2], device=dev,
+              rules=r)
+        _zero_launches(ops)
+        res = serve(model, p, tokens, gen, gumbel=noise, device=dev, rules=r)
+        runs[tag] = (res, _launch_counts(ops))
+        log(f"  serve {tag}: prefill {b}x{s} {res.prefill_s * 1e3:.2f} ms, "
+            f"decode {res.decode_s * 1e3 / (gen - 1):.3f} ms a step over "
+            f"{gen - 1} steps; launches {runs[tag][1]}")
+    (_, cache), pre_calls, pre_bytes = _collectives(torch, lambda: model.prefill(
+        placed, {"tokens": tokens}, max_len=s + gen, use_flash=True,
+        rules=rules))
+    _, dec_calls, dec_bytes = _collectives(torch, lambda: model.decode(
+        placed, cache, {"token": tokens[:, :1]}, rules=rules))
+    del cache, params, placed
+    _release(torch)
+    tc = TrainConfig(learning_rate=3e-4, total_steps=3, warmup_steps=2)
+    bt = 2
+    batches = [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (bt, s), generator=g, device=dev)
+        for _ in range(3))]
+    l0, p0, sec0, _ = _train_llama(torch, model, tc, batches, dev, None)
+    base = reset_peak(torch, "mesh (1, 1) train")
+    _zero_launches(ops)
+    l1, p1, sec1, (tr_calls, tr_bytes) = _train_llama(torch, model, tc,
+                                                      batches, dev, rules)
+    train_launches = _launch_counts(ops)
+    peak = peak_text(torch, base)
+    same_params = all(torch.equal(a, c) for a, c in zip(tree_leaves(p0),
+                                                        tree_leaves(p1)))
+    del p0, p1
+    _release(torch)
+    log(f"  train {bt}x{s}, 3 donated AdamW steps: rules=None losses "
+        f"{[round(float(x), 6) for x in l0]}, seconds "
+        f"{[round(x, 3) for x in sec0]}; mesh (1, 1) losses "
+        f"{[round(float(x), 6) for x in l1]}, seconds "
+        f"{[round(x, 3) for x in sec1]}; {peak}; launches {train_launches}")
+    log(f"  one-rank collectives: prefill {pre_calls} ({pre_bytes} bytes); "
+        f"decode step {dec_calls} ({dec_bytes} bytes); train step "
+        f"{tr_calls} ({tr_bytes} bytes)")
+    (r0, _), (r1, launches) = runs["rules=None"], runs["mesh (1, 1)"]
+    checks = {
+        "prefill logits bit for bit": torch.equal(r0.logits, r1.logits),
+        "32 decode steps' tokens bit for bit": torch.equal(r0.tokens,
+                                                           r1.tokens),
+        "train losses bit for bit": torch.equal(l0, l1),
+        "no collective in a prefill, a decode step or a train step":
+            not (pre_calls or dec_calls or tr_calls),
+        "final parameters bit for bit": same_params,
+        f"flash_attention_sm90 launched {cfg.n_layers} times in the mesh "
+        "serve, nothing else": launches == {
+            n: (cfg.n_layers if n == "flash_attention_sm90" else 0)
+            for n in launches},
+        "training launched no kernel": not any(train_launches.values()),
+        "logits finite": bool(torch.isfinite(r1.logits).all()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 16 (a) checks failed: {failed}")
+    return launches
+
+
+def plane_flash(torch, ops, ref, fa_mod, dev):
+    """Phase 16 (b): both flash kernels at Llama-3.2-1B's per-rank attention
+    (4, 2,048 tokens, head_dim 64) at model 2, 4 and 16, against the plain
+    version at phase 2's tolerances (``check_flash``), each timed beside its
+    plain version, one SDPA call (``enable_gqa``) and its bound."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(16)
+    out = []
+    for label, h, kv in PLANE_HEADS:
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for shape in
+                   ((4, 2048, h, 64), (4, 2048, kv, 64), (4, 2048, kv, 64)))
+        if fa_mod.route(q, k, v) != "sm90":
+            raise AssertionError(f"{label}: route did not pick sm90")
+        err = check_flash(ops, ref, q, k, v, f"{label} per rank (4,2048,"
+                          f"{h}/{kv},64) bf16", "flash_attention_sm90")
+        flops = 4 * 64 * 4 * h * 2048 * 2049 // 2
+        moved = 2 * (2 * q.numel() + 2 * k.numel())
+        b_ms, b_by = bound(moved, flops, "bfloat16")
+        ms = graph_ms(lambda: fa_mod.flash_attention_sm90(q, k, v), iters=20,
+                      replays=3)
+        call = cuda_ms(lambda: fa_mod.flash_attention_sm90(q, k, v), iters=50)
+        plain = graph_ms(lambda: ref.flash_attention_ref(q, k, v), iters=3,
+                         replays=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, replays=3)
+        log(f"  flash_attention_sm90 {label} per rank: device {ms:.5f} ms, "
+            f"per call {call:.5f} ms, plain {plain:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}); SDPA {sdpa:.5f} ms")
+        out.append({"shape": f"{label}: q (4, 2048, {h}, 64), k/v (4, 2048, "
+                    f"{kv}, 64) bf16, causal", "max_abs_err": err, "ms": ms,
+                    "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": sdpa})
+        if h == 16:
+            q32, k32, v32 = (t[:1].float() for t in (q, k, v))
+            check_flash(ops, ref, q32, k32, v32, f"{label} per rank "
+                        "(1,2048,16/4,64) f32", "flash_attention")
+    return out
+
+
+def plane_kv_seq(torch, dev):
+    """Phase 16 (c): ``attention.decode_attention_kv_seq`` at Llama-3.2-1B's
+    widths at model 16: a 4 x 2,080 cache (32 query heads, 8 KV heads,
+    head_dim 64) in 16 slices of 130 slots, one thread a slice on the card,
+    whose all-reduces meet in a barrier and sum in rank order; held against
+    ``decode_attention`` over the whole cache (1e-5 float32, 3e-2 bf16)."""
+    import threading
+    from repro_torch.models import attention as attn
+    m, b, w, h, kv, hd = 16, 4, 2080, 32, 8, 64
+    pos = w + 37                      # the ring has wrapped
+    g = torch.Generator(device=dev).manual_seed(160)
+
+    class Lab:
+        def __init__(self):
+            self.bar, self.parts = threading.Barrier(m), [None] * m
+
+        def all_reduce(self, x, axis, op="sum", rank=None):
+            self.parts[rank] = x
+            self.bar.wait()
+            stack = torch.stack(self.parts)
+            out = stack.amax(0) if op == "max" else stack.sum(0)
+            self.bar.wait()
+            return out
+
+    class RankPlane:
+        def __init__(self, lab, rank):
+            self.lab, self.rank = lab, rank
+
+        def all_reduce(self, x, axis, op="sum"):
+            return self.lab.all_reduce(x, axis, op, self.rank)
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        q = torch.randn((b, 1, h, hd), generator=g, device=dev).to(dtype)
+        kc, vc = (torch.randn((b, w, kv, hd), generator=g, device=dev)
+                  .to(dtype) for _ in range(2))
+        held = attn.cache_slot_positions(pos, w, dev)
+        want = attn.decode_attention(q, kc, vc, held, pos=pos)
+        lab, outs, n = Lab(), [None] * m, w // m
+
+        def rank_fn(r):
+            outs[r] = attn.decode_attention_kv_seq(
+                q, kc[:, r * n:(r + 1) * n], vc[:, r * n:(r + 1) * n],
+                held[r * n:(r + 1) * n], pos=pos, plane=RankPlane(lab, r))
+        threads = [threading.Thread(target=rank_fn, args=(r,))
+                   for r in range(m)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads) or any(o is None for o in outs):
+            raise AssertionError("phase 16 (c): a slice did not finish")
+        err = max(float((o.float() - want.float()).abs().max())
+                  for o in outs)
+        errs[str(dtype)[6:]] = err
+        if err > tol or not all(torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError(f"phase 16 (c) {dtype}: max err {err} > "
+                                 f"{tol}, or the slices' results differ")
+    log(f"  KV_SEQ decode combine, 16 slices of a {b}x{w} cache (32/8 heads, "
+        f"hd 64) against decode_attention: max err {errs}")
+    return errs
+
+
+def plane_dryrun():
+    """Phase 16 (d): ``launch.dryrun`` of Llama-3.2-1B's four shapes on both
+    production meshes with the roofline (one rank's count), each line
+    printed by ``dryrun.run_one``."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    out = os.path.join(ROOT, "runs", "dryrun_torch")
+    recs = [dryrun.run_one("llama3.2-1b", shape, out, True, mesh)
+            for shape in INPUT_SHAPES for mesh in ("pod16x16", "pod2x16x16")]
+    failed = [f"{r['shape']} {r['mesh']}" for r in recs if r["status"] != "ok"]
+    cache = next(r for r in recs if r["shape"] == "decode_32k"
+                 and r["mesh"] == "pod16x16")["memory"]["cache_size_in_bytes"]
+    log(f"  decode_32k at 16 x 16: {cache / 2**30:.3f} GiB of KV cache a "
+        "rank")
+    if failed or cache != 2 ** 29:
+        raise AssertionError(f"phase 16 (d): failed {failed}, cache {cache}")
+
+
+def model_plane_phase(torch, ops, ref, fa_mod, dev):
+    """Phase 16: (a) under ``launch.mesh.host_rules`` (a one-rank NCCL group
+    made over a ``HashStore``, destroyed after), then (b), (c) and (d).
+    Returns (a)'s launches and (b)'s rows."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import host_rules
+    torch.cuda.set_device(0)
+    with host_rules(device=dev) as rules:
+        log(f"  mesh {rules.shape} on backend {dist.get_backend()}, "
+            f"{dist.get_world_size()} rank")
+        launches = plane_llama(torch, ops, dev, rules)
+    shapes = plane_flash(torch, ops, ref, fa_mod, dev)
+    plane_kv_seq(torch, dev)
+    plane_dryrun()
+    return launches, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4023,6 +4308,12 @@ def main() -> int:
     plane = client_plane_phase(torch, ops, dev, main_rec, online_segs,
                                online_secs)
     log(f"  phase 15 {time.perf_counter() - t15:.1f} s")
+
+    log("== phase 16: the model plane (dense Llama) on a one-rank NCCL mesh")
+    t16 = time.perf_counter()
+    plane_launches, plane_shapes = model_plane_phase(torch, ops, ref, fa_mod,
+                                                     dev)
+    log(f"  phase 16 {time.perf_counter() - t16:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -4050,11 +4341,13 @@ def main() -> int:
         row["moonshot_full_serve_launches"] = moonshot_full[name]
         row["client_plane_launches"] = {k: v[name] for k, v in
                                         plane.items()}
+        row["model_plane_launches"] = plane_launches[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
     rows["kmeans_assign"]["shapes"].append(loop_shape)
     rows["recon_gate"]["shapes"] = [cifar_shape]
+    rows["flash_attention_sm90"]["shapes"].extend(plane_shapes)
     for shape in rows["flash_attention"]["shapes"]:
         if "model" in shape:
             shape["launches_in_phase"] = f32_launches[shape["model"]]
@@ -4067,7 +4360,7 @@ def main() -> int:
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
             "family_train_launches", "quickstart_launches",
             "moonshot_full_serve_launches", "client_plane_launches",
-            "max_abs_err",
+            "model_plane_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms",
             "floor_ms", "shapes")

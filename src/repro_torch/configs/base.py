@@ -9,9 +9,10 @@ by CPU tests: <= 2 layers, d_model <= 512).
 Holds the fields the ported families read: the dense transformer, MoE,
 xLSTM, the RG-LRU hybrid, the vision stub (``frontend="vision_stub"``,
 ``frontend_dim``, M-RoPE's ``mrope_sections``) and the audio codec frontend
-(``frontend="audio_codec"``, ``n_codebooks``). ``act_seq_shard`` selects a
-feature the port lacks: the model raises ``NotImplementedError`` naming
-ROADMAP when it is set. ``scan_unroll`` (a lowering switch of the JAX
+(``frontend="audio_codec"``, ``n_codebooks``). ``act_seq_shard`` splits the
+activations between units along S over the model axis of the model plane
+(``models.transformer``); without a model axis above one rank it changes
+nothing. ``scan_unroll`` (a lowering switch of the JAX
 package's roofline pass) has no counterpart here.
 """
 from __future__ import annotations
@@ -72,7 +73,7 @@ class ModelConfig:
     param_dtype: str = "float32"
 
     # --- perf variants ---
-    act_seq_shard: bool = False    # sequence-parallel activations (unported)
+    act_seq_shard: bool = False    # sequence-parallel activations
     logits_dtype: str = "float32"  # "bfloat16" halves LM-head traffic
 
     # --- citation ---

@@ -27,7 +27,7 @@ def _tensor(a, device):
     return torch.as_tensor(a, device=device)
 
 
-def lm_params(tree, device="cpu") -> dict:
+def lm_params(tree, device="cpu", *, rules=None, logical=None) -> dict:
     """A transformer's parameter tree ({"embed", "scan": (...), "tail":
     (...), "final_norm", "head"}), attention and recurrent blocks alike;
     the layouts match, so this is a copy. An MoE block's ``moe`` sub-tree
@@ -35,8 +35,16 @@ def lm_params(tree, device="cpu") -> dict:
     comes across the same way, and so do the frontends' leaves: the vision
     stub's projector ``embed.proj`` (frontend_dim, D) and the audio
     codec's stacked codebook table ``embed.tok`` (nq, V, D) with its head
-    (D, nq * V)."""
-    return tree_map(lambda a: _tensor(a, device), tree)
+    (D, nq * V).
+
+    With ``rules`` and the tree's ``logical`` axes (``Model.param_logical``)
+    it returns this rank's shards (``sharding.place_params``), so every
+    rank of a mesh computes the model the JAX parameters describe."""
+    whole = tree_map(lambda a: _tensor(a, device), tree)
+    if rules is None:
+        return whole
+    from repro_torch.sharding import place_params
+    return place_params(whole, logical, rules)
 
 
 def lm_cache(cache, device="cpu") -> dict:

@@ -25,9 +25,12 @@ import time
 import torch
 
 from repro_torch import optim, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.data.tokens import draw_topic_tokens, topic_token_batch
+from repro_torch.launch.mesh import host_rules
+from repro_torch.launch.specs import place_batch
 from repro_torch.models.registry import build_model, make_train_step
 
 
@@ -56,10 +59,16 @@ def main(argv=None) -> list:
                      total_steps=args.steps,
                      warmup_steps=max(5, args.steps // 20))
     dev = resolve_device(args.device)
+    with host_rules(device=dev) as rules:
+        return _train(args, cfg, model, tc, dev, rules)
+
+
+def _train(args, cfg, model, tc, dev, rules) -> list:
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(gen, device=dev)
+    params = sh.place_params(model.init(gen, device=dev),
+                             model.param_logical(), rules)
     opt = optim.init_opt_state(params, tc.optimizer)
-    step = make_train_step(model, tc, donate=True)
+    step = make_train_step(model, tc, donate=True, rules=rules)
     print(f"model={cfg.name} params={model.n_params():,} "
           f"steps={args.steps} batch={args.batch} seq={args.seq}")
 
@@ -68,7 +77,8 @@ def main(argv=None) -> list:
     for i in range(args.steps):
         toks = step_tokens(gen, i, batch=args.batch, seq_len=args.seq,
                            vocab=cfg.vocab_size).long()
-        params, opt, m = step(params, opt, {"tokens": toks, "labels": toks})
+        params, opt, m = step(params, opt, place_batch(
+            {"tokens": toks, "labels": toks}, rules))
         losses.append(float(m["loss"]))
         if i % 10 == 0 or i == args.steps - 1:
             rate = (i + 1) * args.batch * args.seq / (time.time() - t0)

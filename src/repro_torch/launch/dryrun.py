@@ -1,10 +1,13 @@
-"""Dry run of every (architecture x input shape) step for one H100 (mirrors
-``repro.launch.dryrun``, which lowers and compiles each step for a
-512-chip TPU v5e mesh).
+"""Dry run of every (architecture x input shape) step for one H100, and of
+one rank's step on the reference's production meshes (mirrors
+``repro.launch.dryrun``, which lowers and compiles each step for the
+16 x 16 and 2 x 16 x 16 TPU meshes).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
         --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--roofline]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
+        --both-meshes --roofline           # or --multi-pod: 2 x 16 x 16 only
 
 Each step is the one the reference lowers (``build_step``): a train step
 (``make_train_step`` with ``TrainConfig()``, AdamW state from
@@ -28,21 +31,38 @@ route that ``launch.serve`` takes) or a decode step (``model.decode`` on
     place of the plain version's S x L product;
   * with ``--roofline`` the three roofline terms (``repro_torch.roofline``).
 
+One card's step is the launchers' (``launch.train``, ``launch.serve``):
+under the rules of a one-rank (data, model) mesh, whose collectives are
+the identity (no copy, nothing recorded), so the counted bytes and peak
+are the card's.
+
+On a production mesh (``--multi-pod``: pod 2 x data 16 x model 16;
+``--both-meshes``: that and data 16 x model 16) the step is one rank's,
+under ``ShardingRules.default`` of a ``sharding.CountingMesh``: the
+parameters, AdamW moments, batch and cache are meta tensors of that rank's
+shard shapes (the reference's ``build_lowerable`` placements), and each
+collective of the model plane records its kind, mesh axes and result bytes
+instead of running; the record, ``<arch>--<shape>--pod16x16.json`` or
+``--pod2x16x16.json``, adds ``collectives`` (bytes by the reference's
+kinds), ``collective_calls`` (per kind and axes) and, with ``--roofline``,
+the collective term (``roofline.collective_seconds``). Only the dense
+family runs on the model plane; the others print a ``[SKIP]`` line naming
+their ROADMAP item.
+
 The count runs the port's Python as a real step does, op by op: the layers,
 the chunked attention's loop and the sLSTM's loop over time, so every
 layer is counted and nothing is extrapolated. It takes seconds a step for
 most combinations; xlstm-125m's sLSTM loop runs 32,768 steps at
 prefill_32k and 4,096 forward and backward at train_4k, op by op, which
 takes tens of minutes, so a sweep skips those two (``SLOW``; the README
-gives the times). The reference's ``--multi-pod``
-and ``--both-meshes`` go with the sharding slice (ROADMAP Queue 1,
-item 11).
+gives the times).
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import math
 import os
 import time
 import traceback
@@ -55,10 +75,19 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch import optim
 from repro_torch import roofline as rl
+from repro_torch import sharding as sh
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, TrainConfig, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import specs as sp
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import transformer as tf
 from repro_torch.models.registry import build_model, make_train_step
+
+# the meshes a record can be for: one card is the launchers' one-rank
+# (data, model) mesh (``launch.mesh.host_rules``)
+MESHES = {"h100": {"data": 1, "model": 1},
+          "pod16x16": make_production_mesh(),
+          "pod2x16x16": make_production_mesh(multi_pod=True)}
 
 # combinations whose count takes tens of minutes: the sLSTM's loop over
 # time runs op by op on meta tensors (32,768 steps at prefill_32k, 4,096
@@ -206,29 +235,40 @@ class StepCounter(TorchDispatchMode):
         return out
 
 
-def build_step(cfg, shape, *, max_len=None):
+def build_step(cfg, shape, *, max_len=None, rules=None):
     """Returns (fn, args): the step the shape exercises and its arguments
-    as meta tensors. ``max_len`` sets a prefill's cache capacity (the
-    prompt's length by default, as in the reference)."""
+    as meta tensors, one rank's shards under ``rules``. ``max_len`` sets a
+    prefill's cache capacity (the prompt's length by default, as in the
+    reference)."""
     model = build_model(cfg)
-    params = model.param_shapes()
-    batch = sp.input_specs(cfg, shape)
+    params = model.param_shapes(rules)
+    batch = sp.input_specs(cfg, shape, rules)
     if shape.kind == "train":
         tc = TrainConfig()
         state = optim.init_opt_state(params, tc.optimizer)
-        return make_train_step(model, tc, donate=True), (params, state, batch)
+        return (make_train_step(model, tc, donate=True, rules=rules),
+                (params, state, batch))
     if shape.kind == "prefill":
         return (lambda p, b: model.prefill(p, b, max_len=max_len,
-                                           use_flash=True)), (params, batch)
+                                           use_flash=True, rules=rules)), \
+            (params, batch)
     cache = model.init_cache(shape.global_batch, shape.seq_len,
-                             device="meta")
-    return model.decode, (params, cache, batch)
+                             device="meta", rules=rules)
+    return (lambda p, c, b: model.decode(p, c, b, rules=rules)), \
+        (params, cache, batch)
 
 
-def count_step(cfg, shape, *, max_len=None) -> dict:
+def mesh_rules(mesh_name: str):
+    """``ShardingRules.default`` over a fresh :class:`sh.CountingMesh` of
+    the named mesh (``MESHES``)."""
+    return sh.ShardingRules.default(sh.CountingMesh(MESHES[mesh_name]))
+
+
+def count_step(cfg, shape, *, max_len=None, rules=None) -> dict:
     """Runs the step once on meta tensors under :class:`StepCounter`;
-    returns its record (``memory``, ``cost``, ``kernels``, ``count_s``)."""
-    fn, args = build_step(cfg, shape, max_len=max_len)
+    returns its record (``memory``, ``cost``, ``kernels``, ``count_s``;
+    on a counting mesh also ``collectives`` and ``collective_calls``)."""
+    fn, args = build_step(cfg, shape, max_len=max_len, rules=rules)
     arg_bytes = tree_bytes(args)
     counter = StepCounter(args)
     t0 = time.perf_counter()
@@ -239,7 +279,7 @@ def count_step(cfg, shape, *, max_len=None) -> dict:
     arg_keys = counter.arg_keys
     del out
     flops = sum(counter.flops_by_dtype.values())
-    return {
+    rec = {
         "memory": {
             "argument_size_in_bytes": arg_bytes,
             "output_size_in_bytes": tree_bytes(outs),
@@ -255,33 +295,49 @@ def count_step(cfg, shape, *, max_len=None) -> dict:
         "ops": counter.n_ops,
         "count_s": secs,
     }
+    if shape.kind == "decode":
+        rec["memory"]["cache_size_in_bytes"] = tree_bytes(args[1])
+    if rules is not None:
+        rec["mesh_shape"] = dict(rules.shape)
+        rec["collectives"] = rules.mesh.by_kind()
+        rec["collective_calls"] = rules.mesh.summary()
+    return rec
 
 
 def roofline_record(cfg, shape, rec: dict) -> dict:
     """The roofline terms of a :func:`count_step` record: the counted FLOPs
-    and bytes on one card, beside ``model_flops`` (and, for a train step,
-    ``train_step_flops``: the step as it runs, analytically)."""
+    and bytes on one card (on a mesh, one device's, with the collective
+    term of the record's mesh), beside ``model_flops`` (and, for a train
+    step, ``train_step_flops``: the step as it runs, analytically), both
+    for the whole step."""
     model = build_model(cfg)
     train = shape.kind == "train"
     analytic = (rl.train_step_flops(model, shape.global_batch,
                                     shape.seq_len)[1] if train else 0.0)
+    coll = rec.get("collective_calls", [])
     terms = rl.RooflineTerms(
         flops=rec["cost"]["flops"], bytes_hbm=rec["cost"]["bytes"],
         flops_by_dtype=rec["cost"]["flops_by_dtype"], chips=1,
+        bytes_collective=float(sum(r["bytes"] for r in coll)),
+        collective_s=rl.collective_seconds(coll, rec["mesh_shape"])
+        if coll else 0.0,
         model_flops=rl.model_flops(cfg, model.n_active_params(), shape,
                                    backward=train),
         flops_analytic=float(analytic))
     return terms.as_dict()
 
 
-def run_one(arch: str, shape_name: str, out_dir: str,
-            do_roofline: bool) -> dict:
+def run_one(arch: str, shape_name: str, out_dir: str, do_roofline: bool,
+            mesh_name: str = "h100") -> dict:
     shape = INPUT_SHAPES[shape_name]
     cfg = sp.shape_config(get_config(arch), shape)
-    rec = {"arch": arch, "shape": shape_name, "device": "h100", "chips": 1,
-           "status": "ok"}
+    mesh = MESHES[mesh_name]
+    chips = math.prod(mesh.values())
+    rec = {"arch": arch, "shape": shape_name, "device": "h100",
+           "mesh": mesh_name, "chips": chips, "status": "ok"}
     try:
-        rec.update(count_step(cfg, shape))
+        rules = mesh_rules(mesh_name)
+        rec.update(count_step(cfg, shape, rules=rules))
         if do_roofline:
             rec["roofline"] = roofline_record(cfg, shape, rec)
     except Exception as e:  # a failure here is a bug in the system
@@ -289,21 +345,29 @@ def run_one(arch: str, shape_name: str, out_dir: str,
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{arch}--{shape_name}--h100.json")
+    path = os.path.join(out_dir, f"{arch}--{shape_name}--{mesh_name}.json")
     with open(path, "w") as f:
         json.dump(rec, f, indent=1, default=str)
     flag = "OK " if rec["status"] == "ok" else "FAIL"
     extra = ""
     if rec["status"] == "ok":
-        extra = (f" flops={rec['cost']['flops']:.4g}"
-                 f" bytes={rec['cost']['bytes']:.4g}"
-                 f" temp={rec['memory']['temp_size_in_bytes']:.4g}B"
-                 f" count={rec['count_s']:.1f}s")
+        per = "/dev" if chips > 1 else ""
+        extra = (f" flops{per}={rec['cost']['flops']:.4g}"
+                 f" bytes{per}={rec['cost']['bytes']:.4g}"
+                 f" args{per}={rec['memory']['argument_size_in_bytes']:.4g}B"
+                 f" temp={rec['memory']['temp_size_in_bytes']:.4g}B")
+        if chips > 1:
+            extra += f" coll={sum(rec['collectives'].values()):.4g}B"
+        extra += f" count={rec['count_s']:.1f}s"
         if do_roofline:
             r = rec["roofline"]
             extra += (f" t_comp={r['t_compute_s']:.4g}s"
-                      f" t_mem={r['t_memory_s']:.4g}s -> {r['bottleneck']}")
-    print(f"[{flag}] {arch:22s} {shape_name:12s} h100{extra}", flush=True)
+                      f" t_mem={r['t_memory_s']:.4g}s")
+            if chips > 1:
+                extra += f" t_coll={r['t_collective_s']:.4g}s"
+            extra += f" -> {r['bottleneck']}"
+    print(f"[{flag}] {arch:22s} {shape_name:12s} {mesh_name}{extra}",
+          flush=True)
     return rec
 
 
@@ -312,24 +376,37 @@ def main(argv=None):
     ap.add_argument("--arch", default=None, choices=list(ARCH_IDS))
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="one rank of the 2 x 16 x 16 mesh")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="one rank of the 16 x 16 and the 2 x 16 x 16 mesh")
     ap.add_argument("--roofline", action="store_true")
     ap.add_argument("--out", default="runs/dryrun_torch")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if (args.all or not args.arch) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = (["pod16x16", "pod2x16x16"] if args.both_meshes else
+              ["pod2x16x16"] if args.multi_pod else ["h100"])
 
     named = bool(args.arch and args.shape and not args.all)
     n_fail = 0
     for arch in archs:
+        cfg = get_config(arch)
         for shape in shapes:
-            if (arch, shape) in SLOW and not named:
-                print(f"[SKIP] {arch:22s} {shape:12s} h100: the sLSTM loop "
-                      "takes tens of minutes to count; name it with --arch "
-                      "and --shape", flush=True)
-                continue
-            rec = run_one(arch, shape, args.out, args.roofline)
-            n_fail += rec["status"] != "ok"
+            for mesh in meshes:
+                if mesh != "h100" and not tf.plane_supported(cfg):
+                    print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the model "
+                          "plane runs the dense family; ROADMAP Queue 1, "
+                          f"item {tf.plane_item(cfg)}", flush=True)
+                    continue
+                if (arch, shape) in SLOW and not named:
+                    print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the sLSTM "
+                          "loop takes tens of minutes to count; name it with "
+                          "--arch and --shape", flush=True)
+                    continue
+                rec = run_one(arch, shape, args.out, args.roofline, mesh)
+                n_fail += rec["status"] != "ok"
     print(f"done; failures: {n_fail}")
     raise SystemExit(1 if n_fail else 0)
 

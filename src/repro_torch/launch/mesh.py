@@ -8,6 +8,8 @@ kept as shapes for specs and the dry run: (data=16, model=16) for one pod,
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
@@ -69,3 +71,18 @@ def make_host_mesh(model: int = 1, device="cuda"):
     dev = _ensure_group(size, device)
     return init_device_mesh(dev.type, (size // model, model),
                             mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def host_rules(device="cuda"):
+    """``ShardingRules.default`` over :func:`make_host_mesh` (the launchers'
+    mesh, as the reference's ``make_host_mesh`` plus
+    ``ShardingRules.default``). A one-rank group made here is destroyed on
+    exit; a group the caller made stays."""
+    from repro_torch.sharding import ShardingRules
+    made = not dist.is_initialized()
+    try:
+        yield ShardingRules.default(make_host_mesh(device=device))
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()

@@ -19,6 +19,11 @@ then S - n_img text tokens, all drawn from the run's generator (the JAX
 launcher feeds every non-audio family ``{"tokens"}`` alone, which its
 vision model cannot take). For musicgen it draws (B, S, nq) codes; each
 step samples every codebook, so its tokens are (B, gen, nq).
+
+``main`` builds the host mesh and ``ShardingRules.default`` of it, as the
+reference does (``launch.mesh.host_rules``: one rank made on the spot when
+no process group exists, NCCL on the card and gloo with ``--device cpu``),
+and serves under those rules: on one rank the unsharded run, bit for bit.
 """
 from __future__ import annotations
 
@@ -30,7 +35,10 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import sharding as sh
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.launch.mesh import host_rules
+from repro_torch.launch.specs import place_batch
 from repro_torch.models.registry import Model, build_model
 
 VLM_IMG_TOKENS = 256  # patch embeddings ahead of the text in main's batch
@@ -68,7 +76,7 @@ def _sync(dev: torch.device) -> None:
 def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
           gumbel: Optional[torch.Tensor] = None,
           generator: Optional[torch.Generator] = None,
-          device="cuda") -> ServeResult:
+          device="cuda", rules=None) -> ServeResult:
     """Prefill ``prompt`` into a cache of capacity S + gen, then sample
     ``gen`` tokens, one decode step per token after the first.
 
@@ -81,10 +89,19 @@ def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
     ``gumbel`` (gen, B, 1, V), audio (gen, B, 1, nq, V), is the sampling
     noise, step by step (the JAX launcher's draws from ``key`` for the
     first token, then from ``fold_in(key, i)``); without it the noise is
-    drawn from ``generator`` (seeded 0 on the device when not given)."""
+    drawn from ``generator`` (seeded 0 on the device when not given).
+
+    Under ``rules`` (``params`` this rank's shards) the prompt and
+    ``gumbel`` are whole and each rank serves its rows of the batch; the
+    result holds this rank's rows."""
     dev = resolve_device(device)
     batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if rules is not None:
+        batch = place_batch(batch, rules)
+        if gumbel is not None:
+            gumbel = sh.place_params(gumbel, (None, sh.BATCH) + (None,) * (
+                gumbel.dim() - 2), rules)
     s = sum(batch[k].shape[1] for k in ("embeds", "tokens", "codes")
             if k in batch)
     feed = "codes" if model.cfg.frontend == "audio_codec" else "token"
@@ -98,7 +115,7 @@ def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
 
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, max_len=s + gen,
-                                  use_flash=True)
+                                  use_flash=True, rules=rules)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     first_logits = logits
@@ -106,7 +123,8 @@ def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = model.decode(params, cache, {feed: tok})
+        logits, cache = model.decode(params, cache, {feed: tok},
+                                     rules=rules)
         tok = sample(logits, temperature, noise(i + 1, logits.shape))
         out.append(tok)
     _sync(dev)
@@ -128,8 +146,14 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     dev = resolve_device(args.device)
+    with host_rules(device=dev) as rules:
+        return _main(args, cfg, model, dev, rules)
+
+
+def _main(args, cfg, model, dev, rules) -> ServeResult:
     generator = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(generator, device=dev)
+    params = sh.place_params(model.init(generator, device=dev),
+                             model.param_logical(), rules)
     b, s = args.batch, args.prompt_len
     if cfg.frontend == "audio_codec":
         prompt = {"codes": torch.randint(0, cfg.vocab_size,
@@ -147,7 +171,8 @@ def main(argv=None):
         prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
                                device=dev)
     res = serve(model, params, prompt, args.gen,
-                temperature=args.temperature, generator=generator, device=dev)
+                temperature=args.temperature, generator=generator, device=dev,
+                rules=rules)
     print(f"prefill {b}x{s}: {res.prefill_s*1e3:.1f} ms "
           f"({b*s/res.prefill_s:.0f} tok/s)")
     steps = args.gen - 1

@@ -2,9 +2,11 @@
 
 ``input_specs(cfg, shape)`` returns the batch a step of ``shape`` takes as
 tensors on the ``meta`` device: the reference's shapes and dtypes, no
-memory. For VLM/audio the modality frontend is stubbed, as in the JAX
-package: the batch carries patch embeddings / codec token ids of the right
-shape. :func:`input_specs_logical` returns the reference's pair, the batch
+memory; with ``rules``, one rank's rows of it (the batch split over the
+data axes when it divides them, as ``rules.spec`` places BATCH;
+:func:`place_batch`). For VLM/audio the modality frontend is stubbed, as
+in the JAX package: the batch carries patch embeddings / codec token ids
+of the right shape. :func:`input_specs_logical` returns the reference's pair, the batch
 and each input's logical sharding axes.
 """
 from __future__ import annotations
@@ -58,13 +60,28 @@ def decode_input_specs(cfg: ModelConfig, b: int) -> dict:
     return {"token": _meta((b, 1), torch.int32)}
 
 
-def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
-    """The batch of the step the shape exercises, on the meta device."""
+def input_specs(cfg: ModelConfig, shape: InputShape, rules=None) -> dict:
+    """The batch of the step the shape exercises, on the meta device: one
+    rank's rows under ``rules``."""
     if shape.kind == "train":
-        return train_input_specs(cfg, shape.global_batch, shape.seq_len)
-    if shape.kind == "prefill":
-        return prefill_input_specs(cfg, shape.global_batch, shape.seq_len)
-    return decode_input_specs(cfg, shape.global_batch)
+        specs = train_input_specs(cfg, shape.global_batch, shape.seq_len)
+    elif shape.kind == "prefill":
+        specs = prefill_input_specs(cfg, shape.global_batch, shape.seq_len)
+    else:
+        specs = decode_input_specs(cfg, shape.global_batch)
+    return place_batch(specs, rules)
+
+
+def batch_logical(batch: dict) -> dict:
+    """Each input's logical axes: its batch axis over BATCH, every other
+    axis replicated."""
+    return {k: (sh.BATCH,) + (None,) * (v.dim() - 1) for k, v in batch.items()}
+
+
+def place_batch(batch: dict, rules) -> dict:
+    """This rank's rows of a whole batch (``sharding.place_params``); the
+    identity at ``rules=None``."""
+    return sh.place_params(batch, batch_logical(batch), rules)
 
 
 def input_specs_logical(cfg: ModelConfig, shape: InputShape):
@@ -72,5 +89,4 @@ def input_specs_logical(cfg: ModelConfig, shape: InputShape):
     input's logical axes put its batch axis over BATCH and replicate every
     other axis."""
     specs = input_specs(cfg, shape)
-    return specs, {k: (sh.BATCH,) + (None,) * (v.dim() - 1)
-                   for k, v in specs.items()}
+    return specs, batch_logical(specs)

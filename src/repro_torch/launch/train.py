@@ -10,6 +10,13 @@ the run's device, each step writing the parameters and moments in place
 ``donate_argnums``). --smoke selects the reduced config; the full config is
 for the card. Each step ends in a device sync, so the printed seconds are
 the device's. ``main`` returns a :class:`TrainResult`.
+
+As the reference does, the run builds the host mesh (``launch.mesh.
+host_rules``: the process group's ranks, one rank made on the spot when
+there is none: NCCL on the card, gloo with ``--device cpu``) and passes
+``ShardingRules.default`` of it to the step; the parameters and each
+batch are placed on it (``sharding.place_params``). On one rank that is
+the unsharded run, bit for bit.
 """
 from __future__ import annotations
 
@@ -20,8 +27,11 @@ import time
 import torch
 
 from repro_torch import optim, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.configs import (ARCH_IDS, TrainConfig, get_config,
                                  get_smoke_config)
+from repro_torch.launch.mesh import host_rules
+from repro_torch.launch.specs import place_batch
 from repro_torch.models.registry import build_model, make_train_step
 
 
@@ -81,10 +91,16 @@ def main(argv=None) -> TrainResult:
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(2, args.steps // 10), seed=args.seed)
     dev = resolve_device(args.device)
+    with host_rules(device=dev) as rules:
+        return _run(args, cfg, model, tc, dev, rules)
+
+
+def _run(args, cfg, model, tc, dev, rules) -> TrainResult:
     gen = torch.Generator(device=dev).manual_seed(tc.seed)
-    params = model.init(gen, device=dev)
+    params = sh.place_params(model.init(gen, device=dev),
+                             model.param_logical(), rules)
     opt_state = optim.init_opt_state(params, tc.optimizer)
-    step = make_train_step(model, tc, donate=True)
+    step = make_train_step(model, tc, donate=True, rules=rules)
 
     print(f"arch={cfg.name} params={model.n_params():,} "
           f"active={model.n_active_params():,} device={dev}")
@@ -92,7 +108,8 @@ def main(argv=None) -> TrainResult:
     t0 = time.perf_counter()
     for i in range(args.steps):
         ts = time.perf_counter()
-        batch = synth_batch(cfg, gen, args.batch, args.seq)
+        batch = place_batch(synth_batch(cfg, gen, args.batch, args.seq),
+                            rules)
         params, opt_state, metrics = step(params, opt_state, batch)
         _sync(dev)
         res.seconds.append(time.perf_counter() - ts)

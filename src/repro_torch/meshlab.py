@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import math
 import os
 import pickle
 import tempfile
@@ -75,12 +76,21 @@ def make_rules(mesh_size, device="cuda"):
     """``ShardingRules`` over a ``mesh_size``-rank "data" axis; ``None`` is
     unsharded. ``mesh_size`` is the process group's size, or 1 inside a
     larger group: every rank then holds its own one-rank "data" axis under
-    a "replica" axis (the reference's mesh of one device)."""
+    a "replica" axis (the reference's mesh of one device). A pair (pod,
+    data) of the group's size gives a (pod, data) mesh, whose client axis
+    is the product ("pod", "data")."""
     if mesh_size is None:
         return None
     from repro_torch.launch.mesh import make_client_mesh
     dist = torch.distributed
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if isinstance(mesh_size, tuple):
+        from torch.distributed.device_mesh import init_device_mesh
+        if math.prod(mesh_size) != world:
+            raise ValueError(f"a {mesh_size} mesh in a {world}-rank group")
+        return sh.ShardingRules.default(init_device_mesh(
+            resolve_device(device).type, mesh_size,
+            mesh_dim_names=("pod", "data")))
     if mesh_size == world:
         return sh.ShardingRules.default(make_client_mesh(mesh_size, device))
     if mesh_size != 1:
@@ -361,7 +371,7 @@ def parity_report(cfg: LabConfig, mesh_size: int, device="cuda",
                    ("disc_warm", lambda r: run_discovery_warm(world, r)))
     tags = [("base", None), ("mesh1", make_rules(1, device))]
     if mesh_size != 1:
-        tags.append((f"mesh{mesh_size}", make_rules(mesh_size, device)))
+        tags.append((mesh_tag(mesh_size), make_rules(mesh_size, device)))
     ref = {}
     for tag, rules in tags:
         counts = {}
@@ -405,6 +415,13 @@ def parity_report(cfg: LabConfig, mesh_size: int, device="cuda",
             out[f"{name}_edge_agree_{tag}"] = int(
                 (rg.in_edge == g.in_edge).sum())
     return out
+
+
+def mesh_tag(mesh_size) -> str:
+    """"mesh4", or "mesh2x2" for a (pod, data) pair."""
+    if isinstance(mesh_size, tuple):
+        return "mesh" + "x".join(map(str, mesh_size))
+    return f"mesh{mesh_size}"
 
 
 def time_path(fn, *, iters: int = 5) -> float:
@@ -653,3 +670,293 @@ def spawn_parity_report(cfg, mesh_size: int, device="cpu",
         return spawn(parity_report, mesh_size, cfg, mesh_size, device, count)
     return spawn(parity_reports, mesh_size, tuple(cfg), mesh_size, device,
                  count)
+
+
+# ---------------------------------------------------------------------------
+# the model plane on host ranks
+# ---------------------------------------------------------------------------
+
+# the smoke Llama's run: batch x prompt, decode steps, AdamW steps
+PLANE_B, PLANE_S, PLANE_GEN, PLANE_STEPS = 4, 16, 4, 2
+PLANE_WINDOW = 8      # the sliding config's window: a ring at prompt 16
+RECORDED = {"all_gather_single": "all-gather",
+            "all_gather_into_tensor": "all-gather",
+            "reduce_scatter_single": "reduce-scatter",
+            "reduce_scatter_tensor": "reduce-scatter",
+            "all_reduce": "all-reduce"}
+
+
+def make_model_rules(data: int, model: int, device="cuda"):
+    """``ShardingRules`` over a (data, model) mesh of ``data * model``
+    ranks: the process group's, or in a larger group one such mesh per
+    ``data * model`` ranks under a leading "replica" axis (each replica
+    computes the same step)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data * model == world:
+        return sh.ShardingRules.default(make_host_mesh(model, device))
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    return sh.ShardingRules.default(init_device_mesh(
+        dev.type, (world // (data * model), data, model),
+        mesh_dim_names=("replica", "data", "model")))
+
+
+@contextlib.contextmanager
+def record_collectives(calls: Counter, nbytes: Counter):
+    """Count every ``torch.distributed`` all-gather, reduce-scatter and
+    all-reduce called inside, and the bytes of each one's result, by kind
+    (the names of ``sharding.KINDS``)."""
+    dist = torch.distributed
+    saved = []
+    for name, kind in RECORDED.items():
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+
+        def wrapped(*a, _fn=fn, _kind=kind, **kw):
+            out = a[0] if a else kw.get("output", kw.get("tensor"))
+            calls[_kind] += 1
+            nbytes[_kind] += out.numel() * out.element_size()
+            return _fn(*a, **kw)
+        saved.append((name, fn))
+        setattr(dist, name, wrapped)
+    try:
+        yield
+    finally:
+        for name, fn in saved:
+            setattr(dist, name, fn)
+
+
+def plane_configs():
+    """The smoke Llama in float32, its sliding-window variant (window
+    ``PLANE_WINDOW``: the prompt wraps the ring) and its ``act_seq_shard``
+    variant."""
+    import dataclasses as dc
+    from repro_torch.configs import get_smoke_config
+    base = dc.replace(get_smoke_config("llama3.2-1b"), dtype="float32")
+    return {"base": base,
+            "sliding": dc.replace(base, attention="sliding",
+                                  window=PLANE_WINDOW),
+            "seq": dc.replace(base, act_seq_shard=True)}
+
+
+def plane_inputs(cfg, seed: int = 0):
+    """Whole parameters, prompt, labels and Gumbel noise from seeded host
+    generators (the same on every rank)."""
+    from repro_torch.launch.serve import gumbel_noise
+    from repro_torch.models.registry import build_model
+    g = torch.Generator().manual_seed(seed)
+    params = build_model(cfg).init(g, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (PLANE_B, PLANE_S), generator=g)
+    noise = gumbel_noise(g, (PLANE_GEN, PLANE_B, 1, cfg.vocab_size))
+    return params, toks, noise
+
+
+def _serve_run(model, params, toks, noise, rules):
+    """Prefill, then ``PLANE_GEN`` tokens sampled with ``noise`` (each
+    rank's rows), one decode step after each; returns (the logits of every
+    step, the tokens, per-step collectives {step: (calls, bytes)})."""
+    from repro_torch.launch.serve import sample
+    rows = _rows(toks, rules)
+    noise = _rows(noise.transpose(0, 1), rules).transpose(0, 1)
+    counts = {}
+    with _recording(counts, "prefill", rules):
+        logits, cache = model.prefill(params, {"tokens": rows},
+                                      max_len=PLANE_S + PLANE_GEN,
+                                      rules=rules)
+    outs, tokens = [logits], []
+    for i in range(PLANE_GEN):
+        tok = sample(logits, 1.0, noise[i])
+        tokens.append(tok)
+        if i == PLANE_GEN - 1:
+            break
+        with _recording(counts, "decode", rules):
+            logits, cache = model.decode(params, cache, {"token": tok},
+                                         rules=rules)
+        outs.append(logits)
+    return torch.cat(outs, 1), torch.cat(tokens, 1), counts
+
+
+def _train_run(model, params, toks, rules):
+    """``PLANE_STEPS`` donated AdamW steps on the whole batch's rows of this
+    rank; returns (losses, the final parameters, per-step collectives)."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.registry import make_train_step
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    step = make_train_step(model, tc, donate=True, rules=rules)
+    params = sh._map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                     else x, params)
+    state = optim.init_opt_state(params, tc.optimizer)
+    rows = _rows(toks, rules)
+    losses, counts = [], {}
+    for _ in range(PLANE_STEPS):
+        with _recording(counts, "train", rules):
+            params, state, m = step(params, state, {"tokens": rows,
+                                                    "labels": rows})
+        losses.append(m["loss"])
+    return torch.stack(losses), params, counts
+
+
+GRAD_FLOOR = 1e-6
+
+
+def _grads(model, params, toks, rules):
+    """The first train step's gradients as the step uses them (summed over
+    the axes ``transformer.grad_sum_axes`` names)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+    rows = _rows(toks, rules)
+    batch = {"tokens": rows, "labels": rows}
+    _, grads = cm.value_and_grad(
+        lambda p: model.loss_fn(p, batch, remat=True, rules=rules)[0],
+        params)
+    if rules is not None:
+        grads, _ = registry._plane_grads(model, sh.ModelPlane(rules), grads,
+                                         rows.shape[1])
+    return grads
+
+
+@contextlib.contextmanager
+def _recording(counts: dict, step: str, rules):
+    calls, nbytes = Counter(), Counter()
+    if rules is None:
+        yield
+        return
+    with record_collectives(calls, nbytes):
+        yield
+    counts[step] = (dict(calls), dict(nbytes))
+
+
+def _rows(x, rules):
+    """This rank's rows of a whole batch (dim 0 over the data axes)."""
+    if rules is None:
+        return x
+    return sh.place_params(x, (sh.BATCH,) + (None,) * (x.dim() - 1), rules)
+
+
+def _whole_rows(x, rules):
+    if rules is None:
+        return x
+    full = torch.empty((PLANE_B,) + tuple(x.shape[1:]), device="meta")
+    return sh.whole_params(x, (sh.BATCH,) + (None,) * (x.dim() - 1), full,
+                           rules)
+
+
+def _max_over_ranks(v: float) -> float:
+    t = torch.tensor([v], dtype=torch.float64)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return float(t)
+
+
+def _diff(a, b) -> float:
+    return max(float(torch.max(torch.abs(x.double() - y.double())))
+               for x, y in zip(sh._leaves(a), sh._leaves(b)))
+
+
+def plane_mesh_report(data: int, model: int, jax_params=None,
+                      ref=None) -> dict:
+    """One (data, model) mesh on every rank of the group: the smoke Llama's
+    prefill, decode, sampling and donated AdamW steps with the rules and
+    with ``rules=None``; the sliding config's serve (a ring) and the
+    ``act_seq_shard`` config's prefill and train steps against the plain
+    config's. Returns the largest differences over every rank, bit
+    equality, the collectives of each step by kind (``record_collectives``)
+    and which paths the mesh took; with ``jax_params`` (a numpy tree of the
+    reference's layout) also the base config's prefill logits and first
+    loss from those parameters (``convert.lm_params``), whole. ``ref``
+    keeps the ``rules=None`` runs for the next mesh."""
+    from repro_torch import convert
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    cfgs = plane_configs()
+    rules = make_model_rules(data, model, "cpu")
+    plane = sh.ModelPlane(rules)
+    out = {"mesh": (data, model)}
+    ref = {} if ref is None else ref
+    for name in ("base", "sliding", "seq"):
+        cfg = cfgs[name]
+        mdl = build_model(cfg)
+        params, toks, noise = plane_inputs(cfgs["base"])
+        logical = mdl.param_logical()
+        placed = sh.place_params(params, logical, rules)
+        serve = name != "seq" or plane.m > 1
+        if serve:
+            if name != "seq" and name not in ref:
+                ref[name] = _serve_run(mdl, params, toks, noise, None)
+            base_logits, base_tok, _ = ref["base" if name == "seq" else name]
+            logits, tok, counts = _serve_run(mdl, placed, toks, noise, rules)
+            logits, tok = _whole_rows(logits, rules), _whole_rows(tok, rules)
+            out[f"{name}_logits"] = _max_over_ranks(_diff(logits, base_logits))
+            out[f"{name}_tokens_equal"] = bool(torch.equal(tok, base_tok))
+            out[f"{name}_logits_bitwise"] = bool(torch.equal(logits,
+                                                             base_logits))
+            out[f"{name}_serve_counts"] = counts
+        if name == "sliding":
+            continue
+        if name == "base" and "train" not in ref:
+            ref["train"] = _train_run(mdl, params, toks, None)
+        if name == "seq" and plane.m == 1:
+            continue
+        if name == "base" and "grads" not in ref:
+            ref["grads"] = _grads(mdl, params, toks, None)
+        grads = sh.whole_params(_grads(mdl, placed, toks, rules), logical,
+                                params, rules)
+        losses, trained, counts = _train_run(mdl, placed, toks, rules)
+        trained = sh.whole_params(trained, logical, params, rules)
+        base_losses, base_params, _ = ref["train"]
+        out[f"{name}_losses"] = losses.tolist()
+        out[f"{name}_loss_diff"] = _max_over_ranks(_diff(losses, base_losses))
+        out[f"{name}_grad_diff"] = _max_over_ranks(_diff(grads, ref["grads"]))
+        out[f"{name}_param_diff"] = _max_over_ranks(_diff(trained,
+                                                          base_params))
+        # AdamW moves each entry by about lr * sign(g): where the gradient
+        # is at float32 noise level its update is not determined by it
+        floor = [g.abs() > GRAD_FLOOR for g in cm.tree_leaves(ref["grads"])]
+        out[f"{name}_param_diff_above_floor"] = _max_over_ranks(max(
+            float(torch.where(f, (a - b).abs(), 0).max()) for a, b, f in zip(
+                cm.tree_leaves(trained), cm.tree_leaves(base_params), floor)))
+        out[f"{name}_train_bitwise"] = bool(
+            torch.equal(losses, base_losses) and all(
+                torch.equal(a, b) for a, b in zip(cm.tree_leaves(trained),
+                                                  cm.tree_leaves(base_params))))
+        out[f"{name}_train_counts"] = counts
+    base = cfgs["base"]
+    hd, m = base.head_dim, plane.m
+    out["paths"] = {
+        "half_head": (base.n_kv_heads * hd // m) % hd != 0,
+        "kv_seq": base.n_kv_heads % m != 0,
+        "ring": cfgs["sliding"].window < PLANE_S + PLANE_GEN}
+    if jax_params is not None:
+        mdl = build_model(base)
+        local = convert.lm_params(jax_params, rules=rules,
+                                  logical=mdl.param_logical())
+        _, toks, _ = plane_inputs(base)
+        logits, _ = mdl.prefill(local, {"tokens": _rows(toks, rules)},
+                                rules=rules)
+        loss, _ = mdl.loss_fn(local, {"tokens": _rows(toks, rules),
+                                      "labels": _rows(toks, rules)},
+                              rules=rules)
+        out["jax_prefill_logits"] = _whole_rows(logits, rules).numpy()
+        out["jax_loss"] = float(loss)
+    return out
+
+
+def plane_reports(meshes, jax_params=None) -> list:
+    """:func:`plane_mesh_report` for each (data, model) mesh in turn; the
+    JAX parameters go to the (2, 2) mesh's."""
+    ref = {}
+    return [plane_mesh_report(d, m, jax_params if (d, m) == (2, 2) else None,
+                              ref) for d, m in meshes]
+
+
+def plane_world(meshes, jax_params=None, pod_lab=None) -> dict:
+    """Every rank of one spawned group: :func:`plane_reports` over
+    ``meshes`` and, with ``pod_lab`` (a :class:`LabConfig`), the client
+    plane's :func:`parity_report` on a (pod 2, data 2) mesh, counted."""
+    out = {"plane": plane_reports(meshes, jax_params)}
+    if pod_lab is not None:
+        out["pod"] = parity_report(pod_lab, (2, 2), "cpu", count=True)
+    return out

@@ -99,6 +99,33 @@ def decode_attention(q, k_cache, v_cache, slot_pos, *, pos: int):
     return out.reshape(b, 1, h, d)
 
 
+def decode_attention_kv_seq(q, k_cache, v_cache, slot_pos, *, pos: int,
+                            plane):
+    """:func:`decode_attention` over a cache whose slots lie split over
+    the model axis of ``plane`` (``sharding.ModelPlane``): this rank holds
+    slots ``slot_pos`` (their absolute positions, -1 = empty) of every KV
+    head and q (B,1,H,hd) holds every query head. The softmax's max and
+    sum are all-reduced over "model"; each rank rounds its probabilities
+    to ``v_cache.dtype`` where ``decode_attention`` rounds them and sums
+    its slots' P V in float32; the partial sums are all-reduced in float32
+    and rounded once. Returns (B,1,H,hd) on every rank."""
+    b, _, h, d = q.shape
+    n_kv = k_cache.shape[2]
+    qg = _split_gqa(q, n_kv)                                   # (B,1,Kv,G,hd)
+    scores = torch.einsum("bskgd,blkd->bkgsl", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) * (d ** -0.5)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    scores = torch.where(valid, scores, NEG_INF)
+    top = plane.all_reduce(scores.amax(dim=-1, keepdim=True), "model", "max")
+    e = torch.exp(scores - top)
+    total = plane.all_reduce(e.sum(dim=-1, keepdim=True), "model")
+    probs = (e / total).to(v_cache.dtype)
+    part = torch.einsum("bkgsl,blkd->bskgd", probs.to(torch.float32),
+                        v_cache.to(torch.float32))
+    out = plane.all_reduce(part, "model").to(v_cache.dtype)
+    return out.reshape(b, 1, h, d)
+
+
 # ---------------------------------------------------------------------------
 # KV cache helpers (rotating ring buffer for sliding window; linear otherwise)
 # ---------------------------------------------------------------------------

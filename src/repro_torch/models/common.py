@@ -71,6 +71,34 @@ def value_and_grad(fn, params, *args):
     return value.detach(), tree_unflatten(params, grads)
 
 
+def local_shape(spec: Spec, rules) -> tuple:
+    """The shape of one rank's shard of a ``spec`` leaf where
+    ``rules.spec`` places it (the whole shape at ``rules=None``)."""
+    if rules is None:
+        return tuple(spec.shape)
+    from repro_torch.sharding import ModelPlane
+    return ModelPlane(rules).local_shape(spec.logical, spec.shape)
+
+
+def param_shapes(spec_tree, dtype, rules=None):
+    """The parameter tree as meta tensors (shape and dtype, no data): one
+    rank's shards under ``rules``."""
+    return tree_map(lambda s: torch.empty(local_shape(s, rules), dtype=dtype,
+                                          device="meta"), spec_tree)
+
+
+def spec_paths(tree, path=()):
+    """(key path, Spec) of every leaf of a spec tree, in flatten order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from spec_paths(tree[k], path + (k,))
+    elif isinstance(tree, tuple) and not isinstance(tree, Spec):
+        for i, t in enumerate(tree):
+            yield from spec_paths(t, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
 def param_logical(spec_tree):
     """The logical-axis tuple of every parameter, in the spec tree's
     layout (``sharding.ShardingRules.spec`` maps them onto a mesh)."""
@@ -157,12 +185,63 @@ def embed_lookup(tokens, table, dtype):
     return table[tokens].to(dtype)
 
 
-def cross_entropy(logits, labels, ignore_id: int = -1):
-    """Mean token-level CE in float32; labels == ignore_id are masked."""
+def cross_entropy(logits, labels, ignore_id: int = -1, *, plane=None,
+                  vocab_start: int = 0):
+    """Mean token-level CE in float32; labels == ignore_id are masked.
+
+    With ``plane`` (``sharding.ModelPlane``) the logits are this rank's
+    vocab columns from ``vocab_start`` and this rank's batch rows: the
+    logsumexp takes an all-reduce (max) and one (sum) over "model", with
+    the label's logit, taken where this rank holds it and zero elsewhere,
+    in the sum's buffer; the token sum and count take one all-reduce over
+    the data axes. One rank computes ``torch.logsumexp``'s expression and
+    its gradient, so a one-rank mesh gives the unsharded loss and
+    gradients bit for bit."""
     logits = logits.to(torch.float32)
+    if plane is not None:
+        nll = _VocabParallelNLL.apply(logits, labels, vocab_start, plane)
+        mask = (labels != ignore_id).to(torch.float32)
+        sums = plane.psum(torch.stack([torch.sum(nll * mask),
+                                       torch.sum(mask)]), "dp")
+        return sums[0] / torch.clamp_min(sums[1], 1.0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp_min(labels, 0)[..., None].long())[..., 0]
     nll = logz - gold
     mask = (labels != ignore_id).to(torch.float32)
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """logsumexp(logits) - logits[label] per token, the logits' last
+    dimension split over the model axis. Forward: the max and then the
+    sum of exponentials and the label's logit, each all-reduced over
+    "model"; backward: ``torch.logsumexp``'s and ``torch.gather``'s
+    gradients on this rank's columns, nothing communicated."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, plane):
+        width = logits.shape[-1]
+        top = plane.all_reduce(torch.amax(logits, dim=-1, keepdim=True),
+                               "model", "max")
+        top_sq = top[..., 0]
+        # torch.logsumexp's own steps: an infinite max counts as 0
+        top_sq = top_sq.masked_fill(top_sq.abs() == math.inf, 0)
+        top = top_sq[..., None]
+        local = labels.clamp_min(0).long() - start
+        mine = (local >= 0) & (local < width)
+        idx = torch.where(mine, local, 0)[..., None]
+        gold = torch.gather(logits, -1, idx)[..., 0] * mine.to(logits.dtype)
+        sums = plane.all_reduce(torch.stack(
+            [torch.sum(torch.exp(logits - top), dim=-1), gold]), "model")
+        logz = torch.log(sums[0]) + top_sq
+        ctx.save_for_backward(logits, logz, idx, mine)
+        return logz - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, mine = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(logits - logz[..., None])
+        pick = torch.zeros_like(logits).scatter_add_(
+            -1, idx, (-g * mine.to(g.dtype))[..., None])
+        return grad + pick, None, None, None

@@ -9,6 +9,11 @@ caller here: ``launch.serve`` calls ``Model.prefill(..., use_flash=True)``
 and ``Model.decode`` directly, and the prefill allocates its own cache.
 ``Model.init_cache`` builds that cache on its own for ``launch.dryrun``'s
 decode step.
+
+Each entry point takes ``rules=`` (a ``sharding.ShardingRules`` over a
+(data, model) mesh): the parameters, moments, batch and cache are then
+this rank's shards (``sharding.place_params``) and the step runs the model
+plane (``models.transformer``).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import optim, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
@@ -37,10 +43,10 @@ class Model:
                               device=resolve_device(device),
                               n_layers=self.cfg.n_layers)
 
-    def param_shapes(self):
-        """The parameter tree as meta tensors (shape and dtype, no data)."""
-        return cm.tree_map(lambda s: torch.empty(s.shape, dtype=self.cfg.p_dtype,
-                                                 device="meta"), self.specs)
+    def param_shapes(self, rules=None):
+        """The parameter tree as meta tensors (shape and dtype, no data):
+        one rank's shards under ``rules``."""
+        return cm.param_shapes(self.specs, self.cfg.p_dtype, rules)
 
     def param_logical(self):
         """Each parameter's logical axes (``sharding.ShardingRules.spec``)."""
@@ -57,7 +63,7 @@ class Model:
         if not cfg.is_moe:
             return self.n_params()
         total = 0
-        for path, s in _spec_paths(self.specs):
+        for path, s in cm.spec_paths(self.specs):
             size = math.prod(s.shape)
             if "moe" in path and "shared" not in path and "router" not in path:
                 size = size * cfg.experts_per_token // cfg.n_experts
@@ -65,38 +71,30 @@ class Model:
         return total
 
     # ---- forwards ----
-    def loss_fn(self, params, batch, *, remat=False, use_flash=False):
+    def loss_fn(self, params, batch, *, remat=False, use_flash=False,
+                rules=None):
         return tf.forward_train(params, batch, self.cfg, remat=remat,
-                                use_flash=use_flash)
+                                use_flash=use_flash, rules=rules)
 
-    def prefill(self, params, batch, *, max_len=None, use_flash=False):
+    def prefill(self, params, batch, *, max_len=None, use_flash=False,
+                rules=None):
         return tf.forward_prefill(params, batch, self.cfg, max_len=max_len,
-                                  use_flash=use_flash)
+                                  use_flash=use_flash, rules=rules)
 
-    def decode(self, params, cache, batch):
-        return tf.forward_decode(params, cache, batch, self.cfg)
+    def decode(self, params, cache, batch, *, rules=None):
+        return tf.forward_decode(params, cache, batch, self.cfg, rules=rules)
 
-    def init_cache(self, batch: int, seq_len: int, device="cuda"):
+    def init_cache(self, batch: int, seq_len: int, device="cuda",
+                   rules=None):
         """The empty cache of capacity ``seq_len`` that ``prefill`` fills,
-        on ``device`` (``"meta"``: shapes and dtypes only)."""
+        on ``device`` (``"meta"``: shapes and dtypes only); this rank's
+        shards of it under ``rules``."""
         return tf.init_cache(self.cfg, batch, seq_len, self.cfg.act_dtype,
-                             resolve_device(device))
+                             resolve_device(device), rules=rules)
 
     def cache_logical(self, seq_len: int, model_axis_size: int):
         """The cache's logical axes, for a model axis of that size."""
         return tf.cache_logical(self.cfg, seq_len, model_axis_size)
-
-
-def _spec_paths(tree, path=()):
-    """(key path, Spec) of every leaf, in flatten order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _spec_paths(tree[k], path + (k,))
-    elif isinstance(tree, tuple) and not isinstance(tree, cm.Spec):
-        for i, t in enumerate(tree):
-            yield from _spec_paths(t, path + (i,))
-    elif tree is not None:
-        yield path, tree
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -104,7 +102,7 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def make_train_step(model: Model, tc: TrainConfig, *,
-                    donate: bool = False) -> Callable:
+                    donate: bool = False, rules=None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: gradients of the loss, clipped to ``tc.grad_clip`` by global
     norm, then one optimizer update at the cosine-warmup rate of the step
@@ -116,22 +114,37 @@ def make_train_step(model: Model, tc: TrainConfig, *,
     moments into the given trees leaf by leaf (the reference's
     ``donate_argnums=(0, 1)``), so the step holds parameters, gradients and
     moments once (16 bytes a float32 parameter under AdamW) and one leaf's
-    temporaries. The results are bit for bit those of the plain step."""
+    temporaries. The results are bit for bit those of the plain step.
+
+    Under ``rules`` the trees and the batch are this rank's shards. The
+    gradients of leaves stored split over the data axes come out of the
+    FSDP gathers' backward reduce-scattered (summed over the data axes);
+    the others are all-reduced here over the axes
+    ``transformer.grad_sum_axes`` names, one buffer per axis set; the
+    global norm sums each shard once (a leaf stored whole on an axis counts
+    on that axis's first rank) in one all-reduce over every mesh axis; the
+    update is shard-local."""
     remat = tc.remat != "none"
     hyper = ({"beta1": tc.beta1, "beta2": tc.beta2, "eps": tc.eps,
               "weight_decay": tc.weight_decay}
              if tc.optimizer == "adamw" else {})
+    plane = None if rules is None or not tf.plane_supported(model.cfg) \
+        else sh.ModelPlane(rules)
 
     def train_step(params, opt_state, batch):
         parts = {}
 
         def lf(p):
-            loss, metrics = model.loss_fn(p, batch, remat=remat)
+            loss, metrics = model.loss_fn(p, batch, remat=remat, rules=rules)
             parts.update((k, v.detach()) for k, v in metrics.items())
             return loss
         loss, grads = cm.value_and_grad(lf, params)
+        norm_kw = {}
+        if plane is not None:
+            grads, norm_kw = _plane_grads(model, plane, grads,
+                                          batch["tokens"].shape[1])
         grads, gnorm = optim.clip_by_global_norm(grads, tc.grad_clip,
-                                                 donate=donate)
+                                                 donate=donate, **norm_kw)
         lr = optim.cosine_warmup(opt_state.step, base_lr=tc.learning_rate,
                                  warmup_steps=tc.warmup_steps,
                                  total_steps=tc.total_steps)
@@ -142,3 +155,31 @@ def make_train_step(model: Model, tc: TrainConfig, *,
                                        lr=lr)
 
     return train_step
+
+
+def _plane_grads(model, plane, grads, seq_len: int):
+    """The gradients summed over the axes each leaf needs (one all-reduce
+    per axis set), and the global norm's arguments: which leaves this
+    rank's shard counts in the norm and the norm's all-reduce."""
+    cfg = model.cfg
+    leaves = cm.tree_leaves(grads)
+    sums = tf.grad_sum_axes(cfg, plane.rules, seq_len)
+    for axes in sorted(set(sums) - {()}):
+        idx = [i for i, a in enumerate(sums) if a == axes]
+        axis = axes[0] if len(axes) == 1 else "all"
+        flat = plane.all_reduce(torch.cat([leaves[i].reshape(-1)
+                                           for i in idx]), axis)
+        off = 0
+        for i in idx:
+            n = leaves[i].numel()
+            leaves[i] = flat[off:off + n].reshape(leaves[i].shape)
+            off += n
+    counted = []
+    for spec in cm.tree_leaves(model.specs):
+        entries = plane.spec(spec.logical, spec.shape)
+        used = {a for e in entries if e is not None for a in sh._axes(e)}
+        counted.append(all(plane.entry_rank(a) == 0
+                           for a in plane.axes["all"] if a not in used))
+    return cm.tree_unflatten(grads, leaves), {
+        "counted": counted,
+        "reduce": lambda t: plane.all_reduce(t, "all")}

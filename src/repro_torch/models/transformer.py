@@ -41,8 +41,42 @@ when the batch gives none; a decode step puts all three at its position).
 The audio codec (``frontend="audio_codec"``) takes ``{"codes": (B, S,
 nq)}``: ``embed.tok`` is (nq, V, D), the codebooks' embeddings are summed
 in order in the activation dtype, and the head's nq * V columns reshape to
-logits (B, S, nq, V), codebook-major. ``act_seq_shard`` is not ported yet
-and raises ``NotImplementedError`` (ROADMAP Queue 1, item 11).
+logits (B, S, nq, V), codebook-major.
+
+The model plane (``rules=``, a :class:`~repro_torch.sharding.ShardingRules`
+over a (data, model) or (pod, data, model) mesh) runs the dense family
+(``family="dense"``) on each rank's shards, as ``rules.spec`` places the
+parameters, the batch (B over the data axes) and the cache:
+
+  * FSDP: a unit's weights, stored split over the data axes along d_model,
+    are all-gathered there before use, one packed buffer a unit (the
+    embedding at the start, the final norm and head at the end);
+  * attention: rank r of m computes query heads ``split_range(H, m, r)``;
+    ``wq`` column-parallel, ``wo`` row-parallel and all-reduced over
+    "model". When m does not divide the KV heads (whose columns are then
+    stored in pieces that cut a head), ``wk``/``wv`` are all-gathered over
+    "model" and every rank computes all KV heads, the ones its query heads
+    read taken from them; the cache then lies over its sequence slots
+    (KV_SEQ): prefill writes each rank's slots, decode writes at the slot's
+    owner and combines the ranks' partial softmaxes (``attention.
+    decode_attention_kv_seq``);
+  * the MLP: ``wi_gate``/``wi_up`` column-parallel, ``wo`` row-parallel and
+    all-reduced;
+  * the embedding: vocab-parallel, a masked local lookup then an
+    all-reduce; the head: vocab-parallel logits (all-gathered where serving
+    samples them), the loss ``common.cross_entropy``'s vocab-parallel form;
+  * ``act_seq_shard`` (train and prefill, when m > 1 divides S): between
+    units the activations are (B, S/m, D) on each rank; the row-parallel
+    products end in a reduce-scatter along S instead of an all-reduce and
+    the column-parallel ones begin with an all-gather along S. With m = 1,
+    or with no rules, it changes nothing, as the reference's constraint
+    returns x outside a model axis.
+
+A weight whose storage does not match the rank's part (a dimension the
+mesh does not divide is stored whole) is taken whole and cut. A collective
+over axes of one rank is the identity, so on a one-rank mesh none runs and
+the results are the unsharded ones bit for bit. The other families under rules run as without
+them at one rank and raise ``NotImplementedError`` above it.
 """
 from __future__ import annotations
 
@@ -66,6 +100,13 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 _LATER = "not ported yet: ROADMAP Queue 1, item {}"
+# the ROADMAP item of each family's model-plane port
+_PLANE_ITEMS = {"moe": "15 (MoE on the model axis)",
+                "ssm": "16 (the recurrent families on the model axis)",
+                "hybrid": "16 (the recurrent families on the model axis)",
+                "vlm": "17 (the vision and audio frontends on the model axis)",
+                "audio": "17 (the vision and audio frontends on the model "
+                         "axis)"}
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +266,19 @@ def cache_logical(cfg, seq_len: int, model_axis_size: int):
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
-               device=None):
-    """An empty cache of capacity ``seq_len``; prefill fills it."""
+               device=None, rules=None):
+    """An empty cache of capacity ``seq_len``; prefill fills it. With
+    ``rules``, this rank's shards of it, each leaf where ``rules.spec``
+    puts it (``cache_logical`` for the mesh's model axis): the batch split
+    over the data axes when ``batch`` divides them."""
+    if rules is not None:
+        plane = sh.ModelPlane(rules)
+        whole = init_cache(cfg, batch, seq_len, dtype, "meta")
+        logical = cache_logical(cfg, seq_len, plane.m)
+        return sh._map_logical(
+            lambda t, lg: torch.zeros(plane.local_shape(lg, t.shape),
+                                      dtype=t.dtype, device=device),
+            whole, logical)
     period, n_units, tail_kinds = scan_meta(cfg)
     scan_caches = tuple(
         init_block_cache(cfg, kind, batch, seq_len, dtype, (n_units,), device)
@@ -244,10 +296,13 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 def _project_qkv(p, x, cfg):
+    """q (B,S,H,hd), k and v (B,S,Kv,hd); under the model plane the heads
+    this rank's weights hold."""
     b, s, _ = x.shape
-    q = cm.dense(x, p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = cm.dense(x, p["wk"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = cm.dense(x, p["wv"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    q = cm.dense(x, p["wq"].to(x.dtype)).reshape(b, s, -1, hd)
+    k = cm.dense(x, p["wk"].to(x.dtype)).reshape(b, s, -1, hd)
+    v = cm.dense(x, p["wv"].to(x.dtype)).reshape(b, s, -1, hd)
     return q, k, v
 
 
@@ -259,24 +314,27 @@ def _apply_rope(q, k, positions, cfg):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def _mlp(p, x):
+def _mlp(p, x, plan=None):
+    if plan is not None:
+        x = plan.enter(x)
     h = F.silu(cm.dense(x, p["wi_gate"].to(x.dtype))) * \
         cm.dense(x, p["wi_up"].to(x.dtype))
-    return cm.dense(h, p["wo"].to(x.dtype))
+    out = cm.dense(h, p["wo"].to(x.dtype))
+    return out if plan is None else plan.exit(out)
 
 
-def _ffn(p, x, cfg, aux):
+def _ffn(p, x, cfg, aux, plan=None):
     """Second residual branch (MLP or MoE) of an attention block; returns
     (x, aux) with the MoE router loss, weighted, added to ``aux``."""
     xin = cm.rms_norm(x, p["ln2"])
     if "moe" in p:
         out = moe_lib.moe_forward(p["moe"], xin, cfg)
         return x + out.y, aux + out.aux_loss * cfg.router_aux_weight
-    return x + _mlp(p["mlp"], xin), aux
+    return x + _mlp(p["mlp"], xin, plan), aux
 
 
 def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
-                   use_flash=False):
+                   use_flash=False, plan=None):
     """Train/prefill attention block; returns (x, aux). positions: (B,S),
     or (B,S,3) under M-RoPE.
     A prefill passes ``cache`` ({"k", "v"} ring buffers from
@@ -286,13 +344,21 @@ def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
         window = cfg.local_window
     elif cfg.attention == "sliding":
         window = cfg.window
-    q, k, v = _project_qkv(p, cm.rms_norm(x, p["ln1"]), cfg)
+    h = cm.rms_norm(x, p["ln1"])
+    if plan is not None:
+        h = plan.enter(h)
+    q, k, v = _project_qkv(p, h, cfg)
     q, k = _apply_rope(q, k, positions, cfg)
-    y = attn.attention(q, k, v, causal=True, window=window, use_flash=use_flash)
+    kq, vq = (k, v) if plan is None else (plan.kv_heads(k), plan.kv_heads(v))
+    y = attn.attention(q, kq, vq, causal=True, window=window,
+                       use_flash=use_flash)
     b, s, _, _ = y.shape
-    x = x + cm.dense(y.reshape(b, s, -1), p["wo"].to(x.dtype))
-    x, aux = _ffn(p, x, cfg, aux)
-    if cache is not None:
+    out = cm.dense(y.reshape(b, s, -1), p["wo"].to(x.dtype))
+    x = x + (out if plan is None else plan.exit(out))
+    x, aux = _ffn(p, x, cfg, aux, plan)
+    if cache is not None and plan is not None and plan.kv_seq:
+        plan.write_prefill(cache, k, v, s)
+    elif cache is not None:
         w = cache["k"].shape[1]
         if w >= s:      # linear region: positions 0..s-1 land at slots 0..s-1
             cache["k"][:, :s] = k
@@ -303,21 +369,28 @@ def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
     return x, aux
 
 
-def attn_block_step(p, cache, x, cfg, pos: int, aux):
+def attn_block_step(p, cache, x, cfg, pos: int, aux, plan=None):
     """Single-token decode; returns (x, aux). x: (B,1,D); pos: absolute
     position (under M-RoPE every stream at ``pos``). Writes the token's K/V
     into ``cache`` in place."""
-    q, k, v = _project_qkv(p, cm.rms_norm(x, p["ln1"]), cfg)
+    h = cm.rms_norm(x, p["ln1"])
+    if plan is not None:
+        h = plan.enter(h)
+    q, k, v = _project_qkv(p, h, cfg)
     b = x.shape[0]
     posb = torch.full((b, 1, 3) if cfg.mrope_sections else (b, 1), pos,
                       dtype=torch.int64, device=x.device)
     q, k = _apply_rope(q, k, posb, cfg)
-    w = cache["k"].shape[1]
-    kc, vc = attn.cache_write(cache["k"], cache["v"], k, v, pos, w)
-    slot_pos = attn.cache_slot_positions(pos, w, x.device)
-    y = attn.decode_attention(q, kc, vc, slot_pos, pos=pos)
-    x = x + cm.dense(y.reshape(b, 1, -1), p["wo"].to(x.dtype))
-    return _ffn(p, x, cfg, aux)
+    if plan is not None and plan.kv_seq:
+        y = plan.decode_kv_seq(q, k, v, cache, pos)
+    else:
+        w = cache["k"].shape[1]
+        kc, vc = attn.cache_write(cache["k"], cache["v"], k, v, pos, w)
+        slot_pos = attn.cache_slot_positions(pos, w, x.device)
+        y = attn.decode_attention(q, kc, vc, slot_pos, pos=pos)
+    out = cm.dense(y.reshape(b, 1, -1), p["wo"].to(x.dtype))
+    x = x + (out if plan is None else plan.exit(out))
+    return _ffn(p, x, cfg, aux, plan)
 
 
 def _store(cache, new: dict):
@@ -327,15 +400,16 @@ def _store(cache, new: dict):
 
 
 def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos, aux,
-                use_flash=False):
+                use_flash=False, plan=None):
     """Dispatch one block; returns (x, aux). A block given a cache
     (prefill, decode) reads its state there and writes the new one in
-    place."""
+    place. Under the model plane (``plan``) ``p`` holds the weights as
+    this rank computes with them (:meth:`_Plan.weights`)."""
     if kind in ("attn", "local_attn"):
         if mode == "decode":
-            return attn_block_step(p, cache, x, cfg, pos, aux)
+            return attn_block_step(p, cache, x, cfg, pos, aux, plan)
         return attn_block_seq(p, x, cfg, kind, positions, aux=aux,
-                              cache=cache, use_flash=use_flash)
+                              cache=cache, use_flash=use_flash, plan=plan)
     if kind == "rglru":
         st = None if cache is None else rglru_lib.RGLRUState(cache["h"],
                                                              cache["conv"])
@@ -428,23 +502,23 @@ def _unit_views(tree, n_units: int) -> list:
 
 
 def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
-               use_flash=False, remat=False):
+               use_flash=False, remat=False, plan=None):
     """Every layer in order; returns (x, aux), aux the MoE layers' weighted
     router losses summed (a float32 zero for the other families). mode:
     "train" (no cache), "prefill" (fills ``cache``) or "decode" (reads and
     updates ``cache`` in place). ``remat`` checkpoints each unit: its
-    parameter views, x and aux go in, only x and aux are kept."""
-    if cfg.act_seq_shard:
-        raise NotImplementedError(_LATER.format("11: sharding"))
+    parameter views, x and aux go in, only x and aux are kept. Under the
+    model plane each unit gathers its weights first (inside the checkpoint,
+    so the backward gathers them again)."""
     period, n_units, tail_kinds = scan_meta(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-
     def unit_body(x, aux, p_unit, c_unit):
         for i, kind in enumerate(cfg.block_pattern):
-            x, aux = apply_block(p_unit[i],
-                                 None if c_unit is None else c_unit[i], x,
-                                 cfg, kind, positions, mode=mode, pos=pos,
-                                 aux=aux, use_flash=use_flash)
+            p_i = p_unit[i] if plan is None else plan.weights(
+                kind, lambda kind=kind: block_specs(cfg, kind), p_unit[i])
+            x, aux = apply_block(p_i, None if c_unit is None else c_unit[i],
+                                 x, cfg, kind, positions, mode=mode, pos=pos,
+                                 aux=aux, use_flash=use_flash, plan=plan)
         return x, aux
 
     units = list(zip(*(_unit_views(params["scan"][i], n_units)
@@ -460,16 +534,30 @@ def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
             x, aux = unit_body(x, aux, p_unit, c_unit)
     for i, kind in enumerate(tail_kinds):
         c_i = None if cache is None else cache["tail"][i]
-        x, aux = apply_block(params["tail"][i], c_i, x, cfg, kind, positions,
-                             mode=mode, pos=pos, aux=aux, use_flash=use_flash)
+        p_i = params["tail"][i] if plan is None else plan.weights(
+            kind, lambda kind=kind: block_specs(cfg, kind), params["tail"][i])
+        x, aux = apply_block(p_i, c_i, x, cfg, kind, positions, mode=mode,
+                             pos=pos, aux=aux, use_flash=use_flash, plan=plan)
     return x, aux
 
 
-def forward_train(params, batch, cfg, *, remat=False, use_flash=False):
+def forward_train(params, batch, cfg, *, remat=False, use_flash=False,
+                  rules=None):
     """Returns (loss, {"ce", "aux"}): loss = ce + aux, ce the mean CE of
     the logits at positions 0..S-2 against ``batch["labels"]`` at 1..S-1,
     aux the MoE layers' router losses times ``cfg.router_aux_weight`` (0
-    for the other families)."""
+    for the other families). Under ``rules`` the batch is this rank's rows
+    and ce the mean over the whole batch's tokens."""
+    plan = _plan(cfg, rules, "train", batch)
+    if plan is not None:
+        x, positions = plan.embed_tokens(params, batch["tokens"])
+        x, aux = _run_stack(params, None, x, cfg, positions, mode="train",
+                            use_flash=use_flash, remat=remat, plan=plan)
+        logits = plan.logits(params, x)
+        ce = cm.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                              plane=plan.plane, vocab_start=plan.vocab[0])
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux}
     x, positions, labels = embed_inputs(params, batch, cfg)
     x, aux = _run_stack(params, None, x, cfg, positions, mode="train",
                         use_flash=use_flash, remat=remat)
@@ -479,12 +567,23 @@ def forward_train(params, batch, cfg, *, remat=False, use_flash=False):
     return loss, {"ce": ce, "aux": aux}
 
 
-def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False):
+def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False,
+                    rules=None):
     """Returns (last_token_logits, cache).
 
     ``max_len``: cache capacity (prompt + expected decode steps). Defaults
     to the prompt length; serving callers pass prompt_len + generation
-    budget."""
+    budget. Under ``rules`` the batch and the returned cache are this
+    rank's shards and the logits this rank's rows over the whole vocab."""
+    plan = _plan(cfg, rules, "prefill", batch)
+    if plan is not None:
+        x, positions = plan.embed_tokens(params, batch["tokens"])
+        b, s = positions.shape
+        cap = max(max_len or s, s)
+        cache = plan.init_cache(b, cap, x.device)
+        x, _ = _run_stack(params, cache, x, cfg, positions, mode="prefill",
+                          use_flash=use_flash, plan=plan)
+        return plan.serve_logits(params, x, last=True), dict(cache, pos=s)
     x, positions, _ = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     cap = max(max_len or s, s)
@@ -494,11 +593,17 @@ def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False):
     return logits_from_hidden(params, x[:, -1:], cfg), dict(cache, pos=s)
 
 
-def forward_decode(params, cache, batch, cfg):
+def forward_decode(params, cache, batch, cfg, *, rules=None):
     """One new token. batch: {"token": (B,1)} or, audio, {"codes": (B,1,nq)}.
     Returns (logits, cache): the cache's buffers are updated in place and
     its position advanced."""
     pos = cache["pos"]
+    plan = _plan(cfg, rules, "decode", batch)
+    if plan is not None:
+        x, _ = plan.embed_tokens(params, batch["token"])
+        x, _ = _run_stack(params, cache, x, cfg, None, mode="decode",
+                          pos=pos, plan=plan)
+        return plan.serve_logits(params, x), dict(cache, pos=pos + 1)
     if cfg.frontend == "audio_codec":
         x = _embed_codes(batch["codes"], params["embed"]["tok"], cfg.act_dtype)
     else:
@@ -506,3 +611,290 @@ def forward_decode(params, cache, batch, cfg):
                             cfg.act_dtype)
     x, _ = _run_stack(params, cache, x, cfg, None, mode="decode", pos=pos)
     return logits_from_hidden(params, x, cfg), dict(cache, pos=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# the model plane
+# ---------------------------------------------------------------------------
+
+def plane_supported(cfg) -> bool:
+    """Whether the model plane runs ``cfg`` above one rank: the dense
+    family, attention blocks with an MLP and token inputs."""
+    return (cfg.family == "dense" and not cfg.is_moe
+            and cfg.frontend == "none"
+            and set(cfg.layer_kinds) <= {"attn", "local_attn"})
+
+
+def plane_item(cfg) -> str:
+    """The ROADMAP item that ports ``cfg``'s family to the model plane."""
+    if cfg.is_moe:
+        return _PLANE_ITEMS["moe"]
+    if cfg.frontend != "none":
+        return _PLANE_ITEMS["vlm"]
+    return _PLANE_ITEMS.get(cfg.family, _PLANE_ITEMS["ssm"])
+
+
+def _plan(cfg, rules, mode, batch):
+    """The step's :class:`_Plan`, or None: no rules, or a family the model
+    plane does not run on a one-rank mesh (it runs as without rules). A
+    plan is made once per (config, step kind, sequence length) and kept on
+    ``rules``, so a step repeats none of its layout work."""
+    if rules is None:
+        return None
+    if not plane_supported(cfg):
+        if sh.ModelPlane(rules).size["all"] > 1:
+            raise NotImplementedError(_LATER.format(plane_item(cfg)))
+        return None
+    seq = next(iter(batch.values())).shape[1]
+    plans = rules.__dict__.setdefault("_plans", {})
+    key = (cfg, mode, seq)
+    if key not in plans:
+        plans[key] = _Plan(cfg, sh.ModelPlane(rules), mode, seq)
+    return plans[key]
+
+
+class _Plan:
+    """How one rank computes a dense step under the model plane: its query
+    heads, KV heads, d_ff columns and vocab rows on "model", whether the
+    KV heads lie whole on every rank (``kv_seq``: m does not divide them;
+    the cache then lies over its slots) and whether the activations between
+    units are split along S (``seq_shard``)."""
+
+    def __init__(self, cfg, plane: sh.ModelPlane, mode: str, seq_len: int):
+        self.cfg, self.plane, self.mode = cfg, plane, mode
+        m, r = plane.m, plane.rank["model"]
+        heads, kv = cfg.n_heads, cfg.n_kv_heads
+        self.heads = sh.split_range(heads, m, r)
+        self.kv_seq = kv % m != 0
+        g = heads // kv
+        kv_of = [h // g for h in range(*self.heads)]
+        self.kv_range = (kv_of[0], kv_of[-1] + 1)
+        n = self.kv_range[1] - self.kv_range[0]
+        # the query heads' KV heads as a slice when each is read by an equal
+        # run of them (a uniform GQA group); else one KV head per query head
+        even = len(kv_of) % n == 0 and kv_of == [
+            k for k in range(*self.kv_range) for _ in range(len(kv_of) // n)]
+        self.kv_index = None if even else torch.as_tensor(kv_of)
+        self.ff = sh.split_range(cfg.d_ff, m, r)
+        self.vocab = sh.split_range(cfg.vocab_size, m, r)
+        self.seq_shard = (cfg.act_seq_shard and mode != "decode" and m > 1
+                          and seq_len % m == 0)
+        self._layouts = {}
+
+    # -- weights -----------------------------------------------------------
+    def _need(self, path, spec):
+        """(dim, lo, hi): the part of a weight along "model" that this rank
+        computes with, or None for a weight every rank uses whole."""
+        hd = self.cfg.head_dim
+        h0, h1 = self.heads
+        if path == ("wq",):
+            return 1, h0 * hd, h1 * hd
+        if path == ("wo",):
+            return 0, h0 * hd, h1 * hd
+        if path in (("wk",), ("wv",)):
+            if self.kv_seq:
+                return 1, 0, spec.shape[1]
+            return 1, self.kv_range[0] * hd, self.kv_range[1] * hd
+        if path[0] == "mlp":
+            return (0 if path[1] == "wo" else 1), *self.ff
+        if path in (("embed", "tok"), ("head",)):
+            return (0 if path == ("embed", "tok") else 1), *self.vocab
+        return None
+
+    def weights(self, key, specs, p_loc):
+        """``p_loc`` (this rank's stored shards of the weights that the spec
+        tree ``specs()`` describes, whole-tree paths) as the rank computes
+        with them: each leaf stored split over the data axes all-gathered
+        there (FSDP, one buffer), then cut to the rank's part along
+        "model"; a leaf whose stored part is not that part is all-gathered
+        over "model" (one buffer) or, stored whole, passed through ``copy``
+        (its gradient is then summed over "model"). The layout is worked
+        out once per ``key`` (a block kind, or the outer weights' names)."""
+        if key not in self._layouts:
+            self._layouts[key] = self._layout(specs())
+        dp_idx, dp_dims, gather, copy, needs = self._layouts[key]
+        plane = self.plane
+        out = list(cm.tree_leaves(p_loc))
+        for i, t in zip(dp_idx, plane.gather_packed(
+                [out[i] for i in dp_idx], dp_dims, "dp")):
+            out[i] = t
+        for i, t in zip(gather, plane.gather_packed(
+                [out[i] for i in gather], [needs[i][0] for i in gather],
+                "model")):
+            out[i] = t
+        for i, t in zip(copy, plane.copy_packed([out[i] for i in copy],
+                                                "model")):
+            out[i] = t
+        for i in gather + copy:
+            d, lo, hi = needs[i]
+            out[i] = out[i].narrow(d, lo, hi - lo)
+        return cm.tree_unflatten(p_loc, out)
+
+    def _layout(self, specs):
+        """For the leaves of ``specs`` (``tree_leaves`` order): those stored
+        split over the data axes and the dimension of each, those to
+        all-gather over "model", those to ``copy``, and each one's part
+        along "model" (``_need``)."""
+        plane = self.plane
+        paths = list(cm.spec_paths(specs))
+        specs_ = [plane.spec(sp.logical, sp.shape) for _, sp in paths]
+        dp = plane.axes["dp"]
+
+        def dp_dim(entries):
+            for d, e in enumerate(entries):
+                if e is not None and sh._axes(e) == dp:
+                    return d
+            return None
+        dp_idx = [i for i, e in enumerate(specs_) if dp_dim(e) is not None]
+        needs, gather, copy = {}, [], []
+        for i, (path, sp) in enumerate(paths):
+            need = self._need(path, sp)
+            if need is None:
+                continue
+            d, lo, hi = need
+            needs[i] = need
+            if specs_[i][d] is None:
+                copy.append(i)
+            elif sh.split_range(sp.shape[d], plane.m,
+                                plane.rank["model"]) != (lo, hi):
+                gather.append(i)
+        return (dp_idx, [dp_dim(specs_[i]) for i in dp_idx], gather, copy,
+                needs)
+
+    def _outer(self, params, names):
+        def specs():
+            full = model_specs(self.cfg)
+            return {k: full[k] for k in names}
+        return self.weights(names, specs, {k: params[k] for k in names})
+
+    # -- activations ---------------------------------------------------------
+    def enter(self, h):
+        """Before a column-parallel product: the whole sequence (an
+        all-gather along S) or, unsplit, ``copy`` (its gradient summed)."""
+        if self.seq_shard:
+            return self.plane.gather(h, "model", 1)
+        return self.plane.copy(h, "model")
+
+    def exit(self, out):
+        """After a row-parallel product: the sum over "model", split along S
+        (a reduce-scatter) or whole (an all-reduce)."""
+        if self.seq_shard:
+            return self.plane.scatter(out, "model", 1)
+        return self.plane.psum(out, "model")
+
+    def kv_heads(self, k):
+        """The KV heads this rank's query heads read, of k (B,S,Kv,hd)."""
+        if not self.kv_seq:
+            return k
+        if self.kv_index is None:
+            return k[:, :, self.kv_range[0]:self.kv_range[1]]
+        return k.index_select(2, self.kv_index.to(k.device))
+
+    def embed_tokens(self, params, tokens):
+        """The vocab-parallel embedding of (B,S) tokens: each rank looks up
+        the tokens in its rows (zero elsewhere), then the ranks' rows are
+        summed over "model" (split along S under ``seq_shard``). Returns
+        (x, positions)."""
+        table = self._outer(params, ("embed",))["embed"]["tok"]
+        v0, v1 = self.vocab
+        if (v0, v1) == (0, self.cfg.vocab_size):
+            e = table[tokens]
+        else:
+            inside = (tokens >= v0) & (tokens < v1)
+            e = table[torch.where(inside, tokens - v0, 0)] * \
+                inside[..., None].to(table.dtype)
+        # one rank's term is nonzero, so the sum is exact in any dtype
+        e = e.to(self.cfg.act_dtype)
+        x = self.plane.scatter(e, "model", 1) if self.seq_shard else \
+            self.plane.psum(e, "model")
+        b, s = tokens.shape
+        return x, torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def logits(self, params, x, last: bool = False):
+        """This rank's vocab columns of the logits (B,S,V_r), or of the
+        last position's (``last``). The head is column-parallel: its input
+        enters as the blocks' products do (under ``seq_shard`` the final
+        norm runs on each rank's part of S, then one all-gather)."""
+        w = self._outer(params, ("final_norm", "head"))
+        if last and not self.seq_shard:
+            x = x[:, -1:]
+        h = self.enter(cm.rms_norm(x, w["final_norm"]))
+        if last and self.seq_shard:
+            h = h[:, -1:]
+        return cm.dense(h, w["head"].to(h.dtype),
+                        getattr(torch, self.cfg.logits_dtype))
+
+    def serve_logits(self, params, x, last: bool = False):
+        """The logits over the whole vocab, all-gathered over "model"."""
+        return self.plane.all_gather_uneven(self.logits(params, x, last),
+                                            "model", 2, self.cfg.vocab_size)
+
+    # -- the cache -----------------------------------------------------------
+    def init_cache(self, b: int, cap: int, device):
+        """This rank's empty cache shards for its ``b`` rows."""
+        cache = init_cache(self.cfg, b * self.plane.k_dp, cap,
+                           self.cfg.act_dtype, device, rules=self.plane.rules)
+        w = attn_cache_len(self.cfg, "attn", cap)
+        if self.kv_seq and w % self.plane.m:
+            raise ValueError(
+                f"the cache's {w} slots must divide the model axis "
+                f"({self.plane.m}) when its {self.cfg.n_kv_heads} KV heads "
+                "do not")
+        return cache
+
+    def _slots(self, cache):
+        w_loc = cache["k"].shape[1]
+        lo = self.plane.rank["model"] * w_loc
+        return w_loc * self.plane.m, lo, lo + w_loc
+
+    def write_prefill(self, cache, k, v, s: int):
+        """This rank's slots of the cache after an ``s``-token prompt: slot
+        j holds the latest position p < s with p % W == j (positions 0..s-1
+        at slots 0..s-1 when the prompt fits). The slot map is computed on
+        the host from the static sizes."""
+        w, lo, hi = self._slots(cache)
+        held = attn.cache_slot_positions(s - 1, w)[lo:hi]
+        dst = torch.nonzero(held >= 0).flatten()
+        src, dst = held[dst].to(k.device), dst.to(k.device)
+        cache["k"].index_copy_(1, dst, k.index_select(1, src))
+        cache["v"].index_copy_(1, dst, v.index_select(1, src))
+
+    def decode_kv_seq(self, q, k, v, cache, pos: int):
+        """One token's attention over a cache that lies over its slots: the
+        slot's owner writes k/v, the query heads are all-gathered, the
+        ranks' partial softmaxes combined, and this rank's heads kept."""
+        w, lo, hi = self._slots(cache)
+        slot = pos % w
+        if lo <= slot < hi:
+            cache["k"][:, slot - lo:slot - lo + 1] = k.to(cache["k"].dtype)
+            cache["v"][:, slot - lo:slot - lo + 1] = v.to(cache["v"].dtype)
+        held = attn.cache_slot_positions(pos, w, q.device)[lo:hi]
+        q_all = self.plane.all_gather_uneven(q, "model", 2, self.cfg.n_heads)
+        y = attn.decode_attention_kv_seq(q_all, cache["k"], cache["v"], held,
+                                         pos=pos, plane=self.plane)
+        return y[:, :, self.heads[0]:self.heads[1]]
+
+
+def grad_sum_axes(cfg, rules, seq_len: int):
+    """Per parameter leaf (in ``tree_leaves`` order), the plane's axes
+    ("dp", "model") over which a train step sums its gradient as autograd
+    leaves it on each rank: the data axes for a leaf stored whole there
+    (each rank's batch rows add a part), "model" for the norm scales under
+    ``seq_shard`` (each rank normalises its part of S). The other
+    leaves' gradients are whole already: the gathers' and copies'
+    backwards sum them."""
+    if rules is None or not plane_supported(cfg):
+        return None
+    plane = sh.ModelPlane(rules)
+    seq = cfg.act_seq_shard and plane.m > 1 and seq_len % plane.m == 0
+    out = []
+    for path, spec in cm.spec_paths(model_specs(cfg)):
+        entries = plane.spec(spec.logical, spec.shape)
+        axes = []
+        if not any(e is not None and sh._axes(e) == plane.axes["dp"]
+                   for e in entries):
+            axes.append("dp")
+        if seq and path[-1] in ("ln1", "ln2", "final_norm"):
+            axes.append("model")
+        out.append(tuple(axes))
+    return out

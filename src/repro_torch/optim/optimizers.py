@@ -57,18 +57,31 @@ def _update(fn, tree, *rest, donate: bool):
                     tree, *rest)
 
 
-def global_norm(tree):
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sq = [torch.sum(torch.square(x.to(torch.float32)))
-          for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, *, counted=None, reduce=None):
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+
+    For a tree of one rank's shards (the model plane): ``counted`` says,
+    leaf by leaf, whether this rank's shard adds to the sum (a leaf stored
+    whole on several ranks adds once), and ``reduce`` sums the ranks'
+    totals (an all-reduce) before the square root."""
+    leaves = tree_leaves(tree)
+    if counted is not None:
+        leaves = [x for x, c in zip(leaves, counted) if c]
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves]
+    total = torch.sum(torch.stack(sq)) if sq else \
+        torch.zeros((), device=tree_leaves(tree)[0].device)
+    if reduce is not None:
+        total = reduce(total)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
+def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False,
+                        counted=None, reduce=None):
     """Returns (grads scaled so their global norm is at most ``max_norm``,
-    the norm before scaling)."""
-    norm = global_norm(grads)
+    the norm before scaling); ``counted`` and ``reduce`` as for
+    :func:`global_norm`."""
+    norm = global_norm(grads, counted=counted, reduce=reduce)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     return _update(lambda g, out: torch.mul(g, scale, out=out), grads,
                    donate=donate), norm

@@ -5,9 +5,18 @@ Terms (seconds, per training/serving step):
 
     compute    = sum over operand dtypes of FLOPs(dtype) / PEAK_FLOPS[dtype]
     memory     = bytes / HBM_BW
-    collective = 0: one card moves nothing between chips
+    collective = sum over one device's collectives of the bytes a ring
+                 sends per device / the link rate of its mesh axes
+                 (:func:`collective_seconds`); 0 on one card
 
 The constants are the H100 SXM datasheet's dense peaks, not measurements.
+The link rates are those of H100 SXM servers: NVLink 4 between the 8 GPUs
+of one HGX H100 node (900 GB/s both ways, 450 GB/s each way, per GPU:
+NVIDIA H100 datasheet) and one 400 Gb/s NDR network port per GPU across
+nodes (50 GB/s each way: the DGX H100 user guide's ConnectX-7 ports). A
+production mesh (16 x 16, 2 x 16 x 16) lays its ranks out row-major, the
+model axis innermost, 8 to a node; a collective whose ranks span nodes
+runs at the network rate.
 A float32 product runs on the CUDA cores (the port turns TF32 off), a bf16
 one on the tensor cores; ``"3xtf32"`` is float32 work done as three tf32
 tensor-core products (the float32 flash kernel), a third of the tf32 rate.
@@ -15,9 +24,11 @@ tensor-core products (the float32 flash kernel), a third of the tf32 rate.
 The reference lowers each step at two shallow depths and extrapolates,
 because XLA's cost analysis counts a scanned layer once, and it reads the
 collective bytes out of the HLO text. The port runs its layers eagerly, so
-``launch.dryrun`` counts every layer as it runs, and one card has no
-collectives: ``extrapolate``, ``parse_collective_bytes`` and
-``_shape_bytes`` have no counterpart here.
+``launch.dryrun`` counts every layer as it runs, and on a production mesh
+each collective records its own bytes (``sharding.CountingMesh``):
+``extrapolate``, ``parse_collective_bytes`` and ``_shape_bytes`` have no
+counterpart here. No TPU rate is kept: the reference's collective term
+uses the TPU's ICI links.
 """
 from __future__ import annotations
 
@@ -27,6 +38,9 @@ from typing import Dict, Optional
 
 # --- H100 SXM datasheet constants ---
 HBM_BW = 3.35e12                      # bytes/s, device memory
+NVLINK_BW = 450e9                     # bytes/s each way per GPU, in a node
+NET_BW = 50e9                         # bytes/s each way per GPU, across nodes
+GPUS_PER_NODE = 8
 PEAK_FLOPS = {                        # dense FLOP/s by operand dtype
     "float32": 67e12,                 # CUDA cores
     "float64": 67e12,                 # tensor cores
@@ -47,6 +61,7 @@ class RooflineTerms:
     flops_analytic: float = 0.0
     # FLOPs by operand dtype (keys of PEAK_FLOPS); None: all of them bf16
     flops_by_dtype: Optional[Dict[str, float]] = None
+    collective_s: float = 0.0  # collective_seconds of the same step
 
     @property
     def t_compute(self) -> float:
@@ -59,7 +74,7 @@ class RooflineTerms:
 
     @property
     def t_collective(self) -> float:
-        return 0.0
+        return self.collective_s
 
     @property
     def bottleneck(self) -> str:
@@ -86,6 +101,52 @@ class RooflineTerms:
             "useful_flops_ratio": self.useful_flops_ratio,
             "flops_by_dtype": dict(self.flops_by_dtype or {}),
         }
+
+
+def _group_ranks(mesh: Dict[str, int], axes) -> list:
+    """The global ranks of the group over ``axes`` that holds rank 0 of a
+    row-major mesh."""
+    names = list(mesh)
+    strides, acc = {}, 1
+    for n in reversed(names):
+        strides[n] = acc
+        acc *= mesh[n]
+    ranks = [0]
+    for a in axes:
+        ranks = [r + i * strides[a] for r in ranks for i in range(mesh[a])]
+    return ranks
+
+
+def link_rate(mesh: Dict[str, int], axes) -> float:
+    """Bytes/s each way per GPU for a collective over ``axes``: NVLink when
+    its ranks lie in one node, else the network."""
+    nodes = {r // GPUS_PER_NODE for r in _group_ranks(mesh, axes)}
+    return NVLINK_BW if len(nodes) == 1 else NET_BW
+
+
+def wire_bytes(kind: str, n: int, nbytes: float) -> float:
+    """Bytes one device sends in a ring collective over ``n`` ranks whose
+    result is ``nbytes``: an all-gather (n-1)/n of it, a reduce-scatter
+    (n-1) times it (its input is n results), an all-reduce 2 (n-1)/n of
+    it; an all-to-all (n-1)/n."""
+    if n <= 1:
+        return 0.0
+    if kind == "reduce-scatter":
+        return (n - 1) * nbytes
+    if kind == "all-reduce":
+        return 2 * (n - 1) / n * nbytes
+    return (n - 1) / n * nbytes
+
+
+def collective_seconds(summary, mesh: Dict[str, int]) -> float:
+    """The collective term of one device's step: ``summary`` is
+    ``sharding.CountingMesh.summary()`` ([{kind, axes, calls, bytes}])."""
+    t = 0.0
+    for row in summary:
+        n = math.prod(mesh[a] for a in row["axes"])
+        t += wire_bytes(row["kind"], n, row["bytes"]) / \
+            link_rate(mesh, row["axes"])
+    return t
 
 
 def bound_ms(bytes_moved: float, flops: float, dtype: str = "float32"):

@@ -1,5 +1,5 @@
-"""Logical-axis rules and the client plane's collectives (mirrors
-``repro.sharding``).
+"""Logical-axis rules, and the collectives of the client plane and of the
+model plane (mirrors ``repro.sharding``).
 
 The rules half is metadata, as in the reference. Tensor dimensions carry
 *logical* axes ("batch", "d_ff", "clients", ...) and a :class:`ShardingRules`
@@ -11,8 +11,10 @@ is a live ``DeviceMesh`` or a shape alone (``{"data": 16, "model": 16}``), so
 specs can be computed for meshes this machine does not have.
 
 The client half shards the federation's client stacks (every per-client
-tensor has a leading CLIENTS axis) over a ``DeviceMesh`` with one "data"
-dimension (``launch.mesh.make_client_mesh``). JAX lets XLA insert every
+tensor has a leading CLIENTS axis) over the data-parallel axes of a
+``DeviceMesh``: "data" (``launch.mesh.make_client_mesh``) or the product
+("pod", "data"), whose ranks form one group in row-major order
+(:func:`axis_group`). JAX lets XLA insert every
 collective a ``NamedSharding`` implies; eager PyTorch does not, so here:
 
   * between stages a client stack is a ``DTensor``, ``Shard(0)`` or, when N
@@ -55,6 +57,77 @@ A ``ClientData``'s ``sizes`` stays whole on every rank (``core.batching``):
 the draws map their uniforms onto every client's size, and the exchange's
 result gather brings the new sizes, so keeping them whole costs no
 collective of its own.
+
+The model half (:class:`ModelPlane`) runs the dense transformer family on
+a (data, model) or (pod, data, model) mesh (``models.transformer``): each
+rank holds the shards ``ShardingRules.spec`` gives it (:func:`place_params`)
+and computes on them; every collective the layout needs goes through the
+plane's autograd functions, whose backward is the adjoint collective. Per
+unit (one attention block with its MLP) of L, with "D" the data axes and
+"M" the model axis; ``kvg`` is 1 when M does not divide the KV heads (their
+columns are then all-gathered over M, and the cache lies over its slots):
+
+========  ==================================================================
+prefill   a unit: an all-gather over D (its weights, one buffer), kvg over
+          M (wk, wv), an all-reduce over M after ``wo`` and one after the
+          MLP's ``wo``; the step: an all-gather over D of the embedding,
+          an all-reduce over M of the lookup, an all-gather over D of the
+          final norm and head, one over M of the logits
+decode    as prefill, and per unit with kvg: an all-gather over M of the
+          query heads and three all-reduces over M (the softmax's max, its
+          sum, the partial P V)
+train     the forward as prefill's (no logits gather) plus, for the loss,
+          two all-reduces over M (max; the exponentials' sum with the
+          label's logit) and one over D (token sum and count); block remat
+          recomputes each unit's forward up to its last saved tensor (all
+          but the MLP's closing collective); the backward: per unit a
+          reduce-scatter over D and kvg over M (the gathers' adjoints), an
+          all-reduce over M before each of the three column-parallel
+          products (the attention's, the MLP's and the head's input); a
+          reduce-scatter over D for the embedding and one for the final
+          norm and head; the step: one all-reduce over D and M (the global
+          norm), and one over D of any leaf stored whole there
+seq       ``act_seq_shard`` (train, prefill): each all-reduce over M after a
+          row-parallel product becomes a reduce-scatter along S, each
+          column-parallel product (the head's too) starts with an
+          all-gather along S, the embedding's all-reduce is a
+          reduce-scatter; the backward swaps each for the other; the train
+          step adds one all-reduce over M of the norm scales' gradients
+========  ==================================================================
+
+A collective over axes of one rank is the identity and does not run
+(:class:`ModelPlane`), so a step runs the terms of the axes above one rank
+only: D, M, or "DM", the product of both (the global norm's). Summed over
+a step, by kind (AG all-gather, RS reduce-scatter, AR all-reduce) and
+axes:
+
+=================  ==========  ============  ======
+                   D           M             DM
+=================  ==========  ============  ======
+prefill            AG L + 2    AG L kvg + 1
+                               AR 2L + 1
+prefill, seq       AG L + 2    AG L kvg
+                               + 2L + 2
+                               RS 2L + 1
+decode step        AG L + 2    AG 2L kvg + 1
+                               AR 2L + 1
+                               + 3L kvg
+train, remat       AG 2L + 2   AG 2L kvg     AR 1
+                   RS L + 2    RS L kvg
+                   AR 1        AR 5L + 4
+train, remat, seq  AG 2L + 2   AG 2L kvg     AR 1
+                   RS L + 2    + 6L + 2
+                   AR 1        RS L kvg
+                               + 5L + 2
+                               AR 3
+=================  ==========  ============  ======
+
+(kvg as counted assumes M divides the KV columns, as every dense config's
+do on the meshes here; a weight stored whole is ``copy``-ed instead, whose
+forward moves nothing.) ``tests/test_torch_model_plane.py`` holds every
+count to this table on gloo ranks. On a :class:`CountingMesh` the same
+calls record their bytes instead of running (``launch.dryrun``'s
+production meshes).
 
 The default process group is never initialised on import; the mesh
 constructors in ``launch.mesh`` do that.
@@ -215,17 +288,52 @@ def is_dtensor(x) -> bool:
 # the collectives: every one the plane runs goes through these three
 # ---------------------------------------------------------------------------
 
+def axis_group(mesh, axes):
+    """The process group over the mesh axes ``axes`` (one name or a tuple)
+    that holds this rank: one mesh dimension's own group, or for a product
+    of dimensions (("pod", "data")) a group over their ranks in the
+    product's row-major order, the order a ``PartitionSpec`` entry of
+    several axes shards in. Product groups are made once per mesh, every
+    one of them on every rank in the same order (``new_group`` is
+    collective), and kept on the mesh object."""
+    axes = _axes(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    groups = mesh.__dict__.setdefault("_product_groups", {})
+    if axes not in groups:
+        names = list(mesh.mesh_dim_names)
+        rest = [n for n in names if n not in axes]
+        order = [names.index(n) for n in rest + list(axes)]
+        rows = mesh.mesh.permute(order).reshape(-1, math.prod(
+            mesh.shape[names.index(n)] for n in axes))
+        me = torch.distributed.get_rank()
+        for row in rows.tolist():
+            g = torch.distributed.new_group(row)
+            if me in row:
+                groups[axes] = g
+    return groups[axes]
+
+
+def axis_rank(mesh, axes) -> int:
+    """This rank's index along the mesh axes ``axes``: for a product of
+    dimensions the row-major linear index over them (the shard a
+    ``PartitionSpec`` entry of several axes gives it); 0 on a shape-only
+    mesh, whose count stands for the first rank."""
+    if isinstance(mesh, Mapping):
+        return 0
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * mesh.shape[mesh.mesh_dim_names.index(a)] + \
+            mesh.get_local_rank(a)
+    return idx
+
+
 def _group(rules: ShardingRules):
     from torch.distributed.device_mesh import DeviceMesh
     if not isinstance(rules.mesh, DeviceMesh):
         raise ValueError("a shape-only mesh places nothing; build the rules "
                          "on a DeviceMesh (launch.mesh.make_client_mesh)")
-    axes = _axes(rules.rules[CLIENTS])
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"the client plane shards over one mesh dimension; CLIENTS maps "
-            f"to {axes}")
-    return rules.mesh.get_group(axes[0])
+    return axis_group(rules.mesh, rules.rules[CLIENTS])
 
 
 def _all_reduce(t: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
@@ -301,8 +409,8 @@ class ClientSlice:
         self.k = _axis_size(rules.shape, ax) if self.sharded else 1
         rank = 0
         if self.sharded:
-            _group(rules)                 # a live mesh, one dimension
-            rank = rules.mesh.get_local_rank(_axes(ax)[0])
+            _group(rules)                 # a live mesh
+            rank = axis_rank(rules.mesh, ax)
         m = self.n // self.k
         self.lo, self.hi = rank * m, (rank + 1) * m
 
@@ -488,3 +596,421 @@ def client_mean(x, rules: Optional[ShardingRules]):
         return torch.mean(x, dim=0)
     sl = ClientSlice(rules, x.shape[0])
     return sl.mean(sl.rows(x))
+
+
+# ---------------------------------------------------------------------------
+# the model plane: one rank's view of a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+
+
+class CountingMesh(dict):
+    """A mesh as a shape, for counting one rank's step (``launch.dryrun``):
+    the model plane's collectives run no process group; each records its
+    kind, mesh axes and result bytes here (as the reference's
+    ``parse_collective_bytes`` sums result shapes) and returns an empty
+    tensor of the result's shape and dtype on the input's device (``meta``
+    in the dry run). It stands for the mesh's first rank."""
+
+    def __init__(self, shape: Mapping):
+        super().__init__({str(k): int(v) for k, v in shape.items()})
+        self.calls: dict = {}
+        self.bytes: dict = {}
+
+    def record(self, kind: str, axes: tuple, nbytes: int) -> None:
+        key = (kind, tuple(axes))
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.bytes[key] = self.bytes.get(key, 0) + int(nbytes)
+
+    def by_kind(self) -> dict:
+        """{kind: result bytes} over every axis group, each of ``KINDS``."""
+        out = {k: 0 for k in KINDS}
+        for (kind, _), b in self.bytes.items():
+            out[kind] += b
+        return out
+
+    def summary(self) -> list:
+        """[{kind, axes, calls, bytes}] sorted by kind then axes."""
+        return [{"kind": k, "axes": list(a), "calls": self.calls[(k, a)],
+                 "bytes": self.bytes[(k, a)]}
+                for k, a in sorted(self.calls)]
+
+
+def _gather_fn():
+    dist = torch.distributed
+    return getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+
+
+def _scatter_fn():
+    dist = torch.distributed
+    return getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+
+
+def split_range(n: int, k: int, i: int) -> tuple:
+    """Part ``i`` of ``n`` items over ``k`` ranks: [i n // k, (i+1) n // k)
+    (equal parts when k divides n)."""
+    return i * n // k, (i + 1) * n // k
+
+
+class ModelPlane:
+    """The model plane's collectives and local shapes on one rank of a
+    mesh with a "model" axis (``launch.mesh.make_host_mesh``, or a
+    :class:`CountingMesh` for the dry run).
+
+    ``dp`` is the data-parallel product the rules put BATCH and D_MODEL on
+    (("data",) or ("pod", "data")), ``model`` the tensor-parallel axis and
+    ``all`` both (a mesh axis the rules do not use, such as a test's
+    "replica", holds independent copies). Each collective goes through one of the
+    autograd functions below, whose backward is the collective's adjoint:
+
+    ============  =============================  ===========================
+    method        forward                        backward
+    ============  =============================  ===========================
+    ``gather``    all-gather along ``dim``       reduce-scatter along ``dim``
+    ``scatter``   reduce-scatter along ``dim``   all-gather along ``dim``
+    ``psum``      all-reduce (sum)               identity
+    ``copy``      identity                       all-reduce (sum)
+    ============  =============================  ===========================
+
+    ``gather_packed`` and ``copy_packed`` move several tensors of one dtype
+    in one buffer. Over axes of one rank every collective is the identity:
+    it returns its input, copies nothing and runs (or records) nothing, so
+    a one-rank mesh computes the unsharded step on the same tensors."""
+
+    def __init__(self, rules: ShardingRules):
+        shape = rules.shape
+        if "model" not in shape:
+            raise ValueError(f"the model plane needs a 'model' mesh axis; the "
+                             f"mesh is {shape}")
+        self.rules = rules
+        self.mesh = rules.mesh
+        self.counting = isinstance(rules.mesh, CountingMesh)
+        if not self.counting:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(rules.mesh, DeviceMesh):
+                raise ValueError("a shape-only mesh runs no step; use a "
+                                 "DeviceMesh or a CountingMesh")
+        self.axes = {"dp": rules.data_axes(), "model": ("model",),
+                     "all": rules.data_axes() + ("model",)}
+        self.size = {k: _axis_size(shape, v) for k, v in self.axes.items()}
+        self.rank = {k: axis_rank(rules.mesh, v)
+                     for k, v in self.axes.items()}
+        self.m = self.size["model"]
+        self.k_dp = self.size["dp"]
+
+    # -- layout --------------------------------------------------------------
+    def spec(self, logical, dims) -> tuple:
+        return self.rules.spec(logical, dims)
+
+    def entry_size(self, entry) -> int:
+        return _axis_size(self.rules.shape, entry)
+
+    def entry_rank(self, entry) -> int:
+        return 0 if entry is None else axis_rank(self.mesh, entry)
+
+    def local_shape(self, logical, dims) -> tuple:
+        """The shape of this rank's shard of a ``dims`` tensor whose
+        dimensions carry ``logical``."""
+        if isinstance(logical, str):
+            return tuple(dims)
+        return tuple(d // self.entry_size(e)
+                     for d, e in zip(dims, self.spec(logical, dims)))
+
+    def local_slice(self, x: torch.Tensor, logical) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``x`` (a view)."""
+        if isinstance(logical, str):
+            return x
+        for d, e in enumerate(self.spec(logical, x.shape)):
+            if e is not None:
+                lo, hi = split_range(x.shape[d], self.entry_size(e),
+                                     self.entry_rank(e))
+                x = x.narrow(d, lo, hi - lo)
+        return x
+
+    def group(self, axis: str):
+        return axis_group(self.mesh, self.axes[axis])
+
+    # -- raw collectives (no autograd) -------------------------------------
+    def _record(self, kind, axis, out):
+        self.mesh.record(kind, self.axes[axis], out.numel() * out.element_size())
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0):
+        """(.., n, ..) from each of the k ranks -> (.., k n, ..) along
+        ``dim``, in rank order."""
+        k = self.size[axis]
+        if k == 1:
+            return x
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((k * x.shape[0],) + tuple(x.shape[1:]))
+        if self.counting:
+            self._record("all-gather", axis, out)
+        else:
+            _gather_fn()(out, x, group=self.group(axis))
+        return out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = 0):
+        """Sums over the ranks, each keeping its part ``dim`` of the sum:
+        (.., k n, ..) -> (.., n, ..)."""
+        k = self.size[axis]
+        if k == 1:
+            return x
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // k,) + tuple(x.shape[1:]))
+        if self.counting:
+            self._record("reduce-scatter", axis, out)
+        else:
+            _scatter_fn()(out, x, group=self.group(axis))
+        return out.movedim(0, dim).contiguous()
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum"):
+        """The sum (or ``op="max"``) over the ranks, into a new tensor."""
+        if self.size[axis] == 1:
+            return x
+        out = x.contiguous().clone()
+        if self.counting:
+            self._record("all-reduce", axis, out)
+            return out
+        dist = torch.distributed
+        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        dist.all_reduce(out, op=red, group=self.group(axis))
+        return out
+
+    def all_gather_uneven(self, x: torch.Tensor, axis: str, dim: int, n: int):
+        """This rank's part ``split_range(n, k, rank)`` of a length-``n``
+        dimension ``dim`` -> the whole of it on every rank: each part
+        padded to the longest, one all-gather, the padding dropped."""
+        k = self.size[axis]
+        width = -(-n // k)
+        lo, hi = split_range(n, k, self.rank[axis])
+        if hi - lo < width:
+            pad = list(x.shape)
+            pad[dim] = width - (hi - lo)
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        full = self.all_gather(x, axis, dim)
+        if width * k == n:
+            return full
+        keep = [i * width + j for i in range(k)
+                for j in range(split_range(n, k, i)[1] - split_range(n, k, i)[0])]
+        return full.index_select(dim, torch.as_tensor(keep, device=x.device))
+
+    # -- autograd collectives ----------------------------------------------
+    def gather(self, x, axis: str, dim: int):
+        if self.size[axis] == 1:
+            return x
+        return _Gather.apply(x, self, axis, dim)
+
+    def scatter(self, x, axis: str, dim: int):
+        if self.size[axis] == 1:
+            return x
+        return _Scatter.apply(x, self, axis, dim)
+
+    def psum(self, x, axis: str):
+        if self.size[axis] == 1:
+            return x
+        return _Psum.apply(x, self, axis)
+
+    def copy(self, x, axis: str):
+        if self.size[axis] == 1:
+            return x
+        return _Copy.apply(x, self, axis)
+
+    def gather_packed(self, leaves, dims, axis: str) -> list:
+        """Each leaf all-gathered along its ``dims`` entry over ``axis``, all
+        in one all-gather of one buffer (backward: one reduce-scatter)."""
+        if not leaves or self.size[axis] == 1:
+            return list(leaves)
+        return list(_GatherPacked.apply(self, axis, tuple(dims), *leaves))
+
+    def copy_packed(self, leaves, axis: str) -> list:
+        """The leaves unchanged; their gradients summed over ``axis`` in one
+        all-reduce."""
+        if not leaves or self.size[axis] == 1:
+            return list(leaves)
+        return list(_CopyPacked.apply(self, axis, *leaves))
+
+
+def _flat_cat(ts) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane, axis, dim):
+        ctx.plane, ctx.axis, ctx.dim = plane, axis, dim
+        return plane.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plane.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane, axis, dim):
+        ctx.plane, ctx.axis, ctx.dim = plane, axis, dim
+        return plane.reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plane.all_gather(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane, axis):
+        return plane.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane, axis):
+        ctx.plane, ctx.axis = plane, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plane.all_reduce(g, ctx.axis), None, None
+
+
+class _GatherPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plane, axis, dims, *leaves):
+        k = plane.size[axis]
+        # each leaf with its gathered dim first, flattened into one buffer
+        moved = [x.movedim(d, 0) for x, d in zip(leaves, dims)]
+        full = plane.all_gather(_flat_cat(moved), axis, 0).view(k, -1)
+        outs, off = [], 0
+        for x, d, mv in zip(leaves, dims, moved):
+            n = x.numel()
+            part = full[:, off:off + n].reshape((k,) + tuple(mv.shape))
+            outs.append(part.reshape((k * mv.shape[0],) + tuple(mv.shape[1:]))
+                        .movedim(0, d).contiguous())
+            off += n
+        ctx.plane, ctx.axis, ctx.dims = plane, axis, dims
+        ctx.shapes = [tuple(x.shape) for x in leaves]
+        ctx.like = leaves[0]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        k = ctx.plane.size[ctx.axis]
+        cols = []
+        for g, d, shape in zip(grads, ctx.dims, ctx.shapes):
+            full = list(shape)
+            full[d] *= k
+            if g is None:
+                g = ctx.like.new_zeros(full)
+            g = g.movedim(d, 0)
+            cols.append(g.reshape((k, -1)))
+        buf = torch.cat(cols, dim=1).reshape(-1)
+        local = ctx.plane.reduce_scatter(buf, ctx.axis, 0)
+        out, off = [], 0
+        for d, shape in zip(ctx.dims, ctx.shapes):
+            n = math.prod(shape)
+            moved = (shape[d],) + tuple(s for i, s in enumerate(shape)
+                                        if i != d)
+            out.append(local[off:off + n].reshape(moved).movedim(0, d)
+                       .contiguous())
+            off += n
+        return (None, None, None, *out)
+
+
+class _CopyPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plane, axis, *leaves):
+        ctx.plane, ctx.axis = plane, axis
+        ctx.shapes = [tuple(x.shape) for x in leaves]
+        ctx.like = leaves[0]
+        return tuple(x.view_as(x) for x in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [ctx.like.new_zeros(s) if g is None else g
+                 for g, s in zip(grads, ctx.shapes)]
+        flat = ctx.plane.all_reduce(_flat_cat(grads), ctx.axis)
+        out, off = [], 0
+        for s in ctx.shapes:
+            n = math.prod(s)
+            out.append(flat[off:off + n].reshape(s))
+            off += n
+        return (None, None, *out)
+
+
+# ---------------------------------------------------------------------------
+# placement of whole trees
+# ---------------------------------------------------------------------------
+
+def _map_logical(fn, tree, logical):
+    """``fn(leaf, logical)`` over the tensor leaves of ``tree``, whose
+    logical tree has the same containers with a tuple of axis names (or
+    ``SCALAR``) at each tensor leaf; non-tensor leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, logical)
+    if isinstance(tree, dict):
+        return {k: _map_logical(fn, tree[k], logical[k]) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_logical(fn, t, lg)
+                            for t, lg in zip(tree, logical)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_logical(fn, t, lg)
+                          for t, lg in zip(tree, logical))
+    return tree
+
+
+def place_params(tree, logical, rules: Optional[ShardingRules]):
+    """A whole tree (parameters, moments, a cache or a batch, as every rank
+    holds it) -> this rank's shards, each where ``rules.spec(logical,
+    shape)`` puts it. A shard smaller than its tensor is copied out, so
+    the placed tree holds only this rank's part; a whole one is the same
+    tensor. ``rules=None`` is the identity."""
+    if rules is None:
+        return tree
+    plane = ModelPlane(rules)
+
+    def one(x, lg):
+        loc = plane.local_slice(x, lg)
+        return loc if loc.shape == x.shape else loc.clone()
+    return _map_logical(one, tree, logical)
+
+
+def whole_params(tree, logical, shapes, rules: Optional[ShardingRules]):
+    """The inverse of :func:`place_params`: each leaf whole on every rank
+    (all-gathers along its sharded dimensions), ``shapes`` the whole tree
+    (tensors, or anything with ``.shape``) that says which dimensions were
+    sharded. For tests and host views; the gathers are plain collectives,
+    not the model plane's counted ones."""
+    if rules is None:
+        return tree
+    plane = ModelPlane(rules)
+
+    def one(x, lg, full):
+        if isinstance(lg, str):
+            return x
+        for d, e in enumerate(plane.spec(lg, tuple(full.shape))):
+            if e is None:
+                continue
+            k = plane.entry_size(e)
+            grp = axis_group(plane.mesh, e)
+            xm = x.movedim(d, 0).contiguous()
+            out = xm.new_empty((k * xm.shape[0],) + tuple(xm.shape[1:]))
+            _gather_fn()(out, xm, group=grp)
+            x = out.movedim(0, d)
+        return x.contiguous()
+
+    def walk(t, lg, full):
+        if isinstance(t, torch.Tensor):
+            return one(t, lg, full)
+        if isinstance(t, dict):
+            return {k: walk(t[k], lg[k], full[k]) for k in t}
+        if isinstance(t, (list, tuple)):
+            vals = [walk(a, b, c) for a, b, c in zip(t, lg, full)]
+            return type(t)(*vals) if hasattr(t, "_fields") else type(t)(vals)
+        return t
+    return walk(tree, logical, shapes)

@@ -1,7 +1,7 @@
 """The port stands alone: ``src/repro_torch/``, ``chip_smoke.py`` and the
 port's tools (``tools/flash_sm90_ablation.py``,
 ``tools/kmeans_assign_bench.py``, ``tools/flash_f32_bench.py``,
-``tools/mma_tf32_probe.py``) import no JAX and nothing of the JAX package,
+``tools/mma_tf32_probe.py``, ``tools/peak_live.py``) import no JAX and nothing of the JAX package,
 and the port's entry points run on the card unless asked for the CPU."""
 import ast
 import pathlib
@@ -28,7 +28,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_ablation.py",
      ROOT / "tools" / "kmeans_assign_bench.py",
      ROOT / "tools" / "flash_f32_bench.py",
-     ROOT / "tools" / "mma_tf32_probe.py"]
+     ROOT / "tools" / "mma_tf32_probe.py", ROOT / "tools" / "peak_live.py"]
 
 
 def _imports(path):

@@ -206,8 +206,7 @@ def test_roofline_terms_on_one_card():
 
 
 def test_perf_variants_equal_the_reference():
-    seq = {n for n in jperf.VARIANTS if "seq" in n}
-    assert set(perf.VARIANTS) == set(jperf.VARIANTS) - seq
+    assert set(perf.VARIANTS) == set(jperf.VARIANTS)
     for arch in ("llama3.2-1b", "qwen2-moe-a2.7b"):
         for name, fn in perf.VARIANTS.items():
             _same_fields(fn(get_config(arch)),

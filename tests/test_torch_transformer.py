@@ -166,10 +166,11 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    """``act_seq_shard`` raises, naming its ROADMAP item; MoE, the
-    recurrent kinds (rglru, mlstm, slstm), the vision stub with M-RoPE and
-    the audio codec build, MoE and the frontends with JAX's parameter
-    counts."""
+    """``act_seq_shard`` without a mesh changes nothing (as the reference's
+    constraint returns x outside a model axis); MoE on a model axis above
+    one rank raises, naming its ROADMAP item; MoE, the recurrent kinds
+    (rglru, mlstm, slstm), the vision stub with M-RoPE and the audio codec
+    build, MoE and the frontends with JAX's parameter counts."""
     moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4,
                               experts_per_token=2, moe_d_ff=256)
     jmoe = dataclasses.replace(jget_smoke("llama3.2-1b"), n_experts=4,
@@ -204,8 +205,17 @@ def test_unported_families_raise_naming_the_roadmap():
                               act_seq_shard=True)
     sm = build_model(seq)
     params = sm.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sm.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    plain = build_model(get_smoke_config("llama3.2-1b"))
+    assert torch.equal(sm.prefill(params, toks)[0],
+                       plain.prefill(params, toks)[0])
+    from repro_torch import sharding as sh
+    pod = sh.ShardingRules.default(sh.CountingMesh({"data": 16,
+                                                    "model": 16}))
+    mm = build_model(moe)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        mm.prefill(mm.param_shapes(pod), {"tokens": torch.zeros(
+            (1, 4), dtype=torch.long, device="meta")}, rules=pod)
 
 
 def test_tree_helpers_walk_tuples_in_jax_order():

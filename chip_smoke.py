@@ -3957,28 +3957,18 @@ def _train_llama(torch, model, tc, batches, dev, rules):
     return torch.stack(losses), params, secs, coll
 
 
-def plane_llama(torch, ops, dev, rules):
-    """Phase 16 (a): Llama-3.2-1B at full width and depth served (4 x 2,048
-    prompt, 32 decode steps, Gumbel noise drawn once) and trained (3
-    donated AdamW steps at 2 x 2,048) once with ``rules=None`` and once
-    under the one-rank mesh's rules; logits, tokens, losses and the final
-    parameters must be equal bit for bit, and a prefill, a decode step and
-    a train step must run no collective (over one-rank axes each is the
-    identity). Prints each run's seconds. Returns the rules serve's
-    launches."""
-    from repro_torch import sharding as sh
-    from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.launch.serve import gumbel_noise, serve
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.models.registry import build_model
-    cfg = get_config("llama3.2-1b")
-    model = build_model(cfg)
-    b, s, gen = 4, 2048, 33
-    params, g = _draw(torch, model, dev)
-    placed = sh.place_params(params, model.param_logical(), rules)
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
-                           device=dev)
-    noise = gumbel_noise(g, (gen, b, 1, cfg.vocab_size))
+def _plane_serves(torch, ops, model, params, placed, rules, tokens, noise,
+                  dev):
+    """``launch.serve.serve`` of ``tokens`` + ``len(noise)`` tokens with
+    ``rules=None`` on ``params`` and under ``rules`` on ``placed`` (each
+    after a warm-up on the first 256 positions and 2 tokens, its launch
+    counts set to 0 just before and read just after), then a prefill and a
+    decode step under the rules with their collectives counted. Returns
+    ({tag: (result, launches)}, (prefill calls, bytes), (decode calls,
+    bytes))."""
+    from repro_torch.launch.serve import serve
+    b, s = tokens.shape
+    gen = noise.shape[0]
     runs = {}
     for tag, r, p in (("rules=None", None, params), ("mesh (1, 1)", rules,
                                                      placed)):
@@ -3995,7 +3985,36 @@ def plane_llama(torch, ops, dev, rules):
         rules=rules))
     _, dec_calls, dec_bytes = _collectives(torch, lambda: model.decode(
         placed, cache, {"token": tokens[:, :1]}, rules=rules))
-    del cache, params, placed
+    del cache
+    return runs, (pre_calls, pre_bytes), (dec_calls, dec_bytes)
+
+
+def plane_llama(torch, ops, dev, rules):
+    """Phase 16 (a): Llama-3.2-1B at full width and depth served (4 x 2,048
+    prompt, 32 decode steps, Gumbel noise drawn once) and trained (3
+    donated AdamW steps at 2 x 2,048) once with ``rules=None`` and once
+    under the one-rank mesh's rules; logits, tokens, losses and the final
+    parameters must be equal bit for bit, and a prefill, a decode step and
+    a train step must run no collective (over one-rank axes each is the
+    identity). Prints each run's seconds. Returns the rules serve's
+    launches."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.serve import gumbel_noise
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build_model
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    b, s, gen = 4, 2048, 33
+    params, g = _draw(torch, model, dev)
+    placed = sh.place_params(params, model.param_logical(), rules)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    noise = gumbel_noise(g, (gen, b, 1, cfg.vocab_size))
+    runs, pre, dec = _plane_serves(torch, ops, model, params, placed, rules,
+                                   tokens, noise, dev)
+    (pre_calls, pre_bytes), (dec_calls, dec_bytes) = pre, dec
+    del params, placed
     _release(torch)
     tc = TrainConfig(learning_rate=3e-4, total_steps=3, warmup_steps=2)
     bt = 2
@@ -4043,23 +4062,28 @@ def plane_llama(torch, ops, dev, rules):
     return launches
 
 
-def plane_flash(torch, ops, ref, fa_mod, dev):
-    """Phase 16 (b): both flash kernels at Llama-3.2-1B's per-rank attention
-    (4, 2,048 tokens, head_dim 64) at model 2, 4 and 16, against the plain
-    version at phase 2's tolerances (``check_flash``), each timed beside its
-    plain version, one SDPA call (``enable_gqa``) and its bound."""
+def plane_flash(torch, ops, ref, fa_mod, dev, heads=PLANE_HEADS, hd=64,
+                arch="Llama-3.2-1B"):
+    """Phase 16 (b), 17 (c): both flash kernels at a model's per-rank
+    attention (4, 2,048 tokens; ``heads``: (label, query heads, KV heads)
+    a rank; Llama-3.2-1B's at model 2, 4 and 16 by default), the
+    tensor-core kernel against the plain version at phase 2's tolerances
+    (``check_flash``), each timed beside its plain version, one SDPA call
+    (``enable_gqa``) and its bound; the CUDA-core kernel at 16 heads in
+    float32."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(16)
     out = []
-    for label, h, kv in PLANE_HEADS:
+    for label, h, kv in heads:
         q, k, v = (torch.randn(shape, generator=g, device=dev)
                    .to(torch.bfloat16) for shape in
-                   ((4, 2048, h, 64), (4, 2048, kv, 64), (4, 2048, kv, 64)))
+                   ((4, 2048, h, hd), (4, 2048, kv, hd), (4, 2048, kv, hd)))
         if fa_mod.route(q, k, v) != "sm90":
             raise AssertionError(f"{label}: route did not pick sm90")
-        err = check_flash(ops, ref, q, k, v, f"{label} per rank (4,2048,"
-                          f"{h}/{kv},64) bf16", "flash_attention_sm90")
-        flops = 4 * 64 * 4 * h * 2048 * 2049 // 2
+        err = check_flash(ops, ref, q, k, v, f"{arch} {label} per rank "
+                          f"(4,2048,{h}/{kv},{hd}) bf16",
+                          "flash_attention_sm90")
+        flops = 4 * hd * 4 * h * 2048 * 2049 // 2
         moved = 2 * (2 * q.numel() + 2 * k.numel())
         b_ms, b_by = bound(moved, flops, "bfloat16")
         ms = graph_ms(lambda: fa_mod.flash_attention_sm90(q, k, v), iters=20,
@@ -4070,11 +4094,12 @@ def plane_flash(torch, ops, ref, fa_mod, dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, replays=3)
-        log(f"  flash_attention_sm90 {label} per rank: device {ms:.5f} ms, "
-            f"per call {call:.5f} ms, plain {plain:.5f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}); SDPA {sdpa:.5f} ms")
-        out.append({"shape": f"{label}: q (4, 2048, {h}, 64), k/v (4, 2048, "
-                    f"{kv}, 64) bf16, causal", "max_abs_err": err, "ms": ms,
+        log(f"  flash_attention_sm90 {arch} {label} per rank: device "
+            f"{ms:.5f} ms, per call {call:.5f} ms, plain {plain:.5f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}); SDPA {sdpa:.5f} ms")
+        out.append({"shape": f"{arch} {label}: q (4, 2048, {h}, {hd}), k/v "
+                    f"(4, 2048, {kv}, {hd}) bf16, causal",
+                    "max_abs_err": err, "ms": ms,
                     "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": sdpa})
         if h == 16:
@@ -4179,6 +4204,183 @@ def model_plane_phase(torch, ops, ref, fa_mod, dev):
     shapes = plane_flash(torch, ops, ref, fa_mod, dev)
     plane_kv_seq(torch, dev)
     plane_dryrun()
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the MoE family on the model plane
+# ---------------------------------------------------------------------------
+
+# qwen2-moe-a2.7b's per-rank attention (16 heads, MHA, head_dim 128) at
+# model 2, 4 and 16: (label, query heads, KV heads) a rank
+MOE_PLANE_HEADS = (("model 2", 8, 8), ("model 4", 4, 4), ("model 16", 1, 1))
+
+
+def _plane_checks(torch, label, runs, pre, dec, n_flash):
+    """The bit-for-bit and launch checks of two ``_plane_serves`` runs."""
+    (r0, _), (r1, launches) = runs["rules=None"], runs["mesh (1, 1)"]
+    return {
+        f"{label}: prefill logits bit for bit": torch.equal(r0.logits,
+                                                            r1.logits),
+        f"{label}: decode steps' tokens bit for bit": torch.equal(r0.tokens,
+                                                                  r1.tokens),
+        f"{label}: no collective in a prefill or a decode step":
+            not (pre[0] or dec[0]),
+        f"{label}: flash_attention_sm90 launched {n_flash} times in the "
+        "mesh serve, nothing else": launches == {
+            n: (n_flash if n == "flash_attention_sm90" else 0)
+            for n in launches},
+        f"{label}: logits finite": bool(r1.logits.isfinite().all()),
+    }
+
+
+def moe_plane_qwen2(torch, ops, dev, rules):
+    """Phase 17 (a): qwen2-moe-a2.7b at full width and depth (phase 11's
+    f32 weights and bf16 activations) served at 4 x 2,048 + 33 tokens (32
+    decode steps, Gumbel noise drawn once) with ``rules=None`` and under
+    the one-rank mesh's rules from one parameter tree (``place_params``
+    returns views of the same storage at one rank), then trained at phase
+    13's cut (4 of 24 layers, 2 x 2,048, 3 donated AdamW steps) both ways,
+    the first run's final parameters kept on the host. Everything bit for
+    bit; 24 sm90 launches a prefill; no collective in a prefill, a decode
+    step or a train step. Returns the rules serve's launches."""
+    import dataclasses
+    from repro_torch import sharding as sh
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.serve import gumbel_noise
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    cfg = get_config("qwen2-moe-a2.7b")
+    model = build_model(cfg)
+    b, s, gen = 4, 2048, 33
+    params, g = _draw(torch, model, dev)
+    placed = sh.place_params(params, model.param_logical(), rules)
+    same_tree = all(a.data_ptr() == c.data_ptr() and a.shape == c.shape
+                    for a, c in zip(tree_leaves(params), tree_leaves(placed)))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    noise = gumbel_noise(g, (gen, b, 1, cfg.vocab_size))
+    runs, pre, dec = _plane_serves(torch, ops, model, params, placed, rules,
+                                   tokens, noise, dev)
+    launches = runs["mesh (1, 1)"][1]
+    checks = _plane_checks(torch, cfg.name, runs, pre, dec, cfg.n_layers)
+    checks["place_params copied nothing"] = same_tree
+    del params, placed, runs
+    _release(torch)
+    tm = build_model(dataclasses.replace(cfg, n_layers=4))
+    tc = TrainConfig(total_steps=10, warmup_steps=2)
+    bt = 2
+    batches = [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (bt, s), generator=g, device=dev)
+        for _ in range(3))]
+    l0, p0, sec0, _ = _train_llama(torch, tm, tc, batches, dev, None)
+    p0 = tree_map(lambda a: a.cpu(), p0)
+    _release(torch)
+    base = reset_peak(torch, "qwen2-moe (4 of 24 layers) mesh (1, 1) train")
+    _zero_launches(ops)
+    l1, p1, sec1, (tr_calls, tr_bytes) = _train_llama(torch, tm, tc,
+                                                      batches, dev, rules)
+    train_launches = _launch_counts(ops)
+    peak = peak_text(torch, base)
+    checks["train: final parameters bit for bit"] = all(
+        torch.equal(a, c.cpu()) for a, c in zip(tree_leaves(p0),
+                                                tree_leaves(p1)))
+    checks["train: losses bit for bit"] = torch.equal(l0, l1)
+    checks["train: no collective in a step"] = not tr_calls
+    checks["train: no kernel launched"] = not any(train_launches.values())
+    del p0, p1
+    _release(torch)
+    log(f"  train {cfg.name} (4 of 24 layers) {bt}x{s}, 3 donated AdamW "
+        f"steps: rules=None losses {[round(float(x), 6) for x in l0]}, "
+        f"seconds {[round(x, 3) for x in sec0]}; mesh (1, 1) losses "
+        f"{[round(float(x), 6) for x in l1]}, seconds "
+        f"{[round(x, 3) for x in sec1]}; {peak}; launches {train_launches}")
+    log(f"  one-rank collectives: prefill {pre[0]} ({pre[1]} bytes); decode "
+        f"step {dec[0]} ({dec[1]} bytes); train step {tr_calls} "
+        f"({tr_bytes} bytes)")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 17 (a) checks failed: {failed}")
+    return launches
+
+
+def moe_plane_moonshot(torch, ops, dev, rules):
+    """Phase 17 (b): moonshot-v1-16b-a3b cut to 8 layers (``MOE_CUT``) with
+    the gather dispatch (one group of the batch's 8,192 tokens), served at
+    4 x 2,048 + 9 tokens with ``rules=None`` and under the one-rank rules:
+    the expert-parallel layout's code (its 64 experts split along E over a
+    model axis of one) and the gather dispatch's ``Part`` path on the
+    card, bit for bit."""
+    import dataclasses
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import gumbel_noise
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build_model
+    layers = dict(MOE_CUT)["moonshot-v1-16b-a3b"]
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=layers, moe_dispatch="gather")
+    model = build_model(cfg)
+    params, g = _draw(torch, model, dev)
+    placed = sh.place_params(params, model.param_logical(), rules)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device=dev)
+    noise = gumbel_noise(g, (9, 4, 1, cfg.vocab_size))
+    plan = tf._plan(cfg, rules, "prefill", {"tokens": tokens})
+    log(f"  {cfg.name} ({layers} layers, gather dispatch): the plan's "
+        f"experts {plan.experts} of {cfg.n_experts}, expert-parallel "
+        f"{plan.moe_ep}")
+    runs, pre, dec = _plane_serves(torch, ops, model, params, placed, rules,
+                                   tokens, noise, dev)
+    checks = _plane_checks(torch, cfg.name, runs, pre, dec, layers)
+    checks["the expert-parallel layout"] = plan.moe_ep
+    del params, placed, runs
+    _release(torch)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 17 (b) checks failed: {failed}")
+
+
+def moe_plane_dryrun():
+    """Phase 17 (d): ``launch.dryrun`` of qwen2-moe's train_4k and
+    moonshot's decode_32k on both production meshes with the roofline (one
+    rank's count), each line printed by ``dryrun.run_one``."""
+    from repro_torch.launch import dryrun
+    out = os.path.join(ROOT, "runs", "dryrun_torch")
+    recs = [dryrun.run_one(arch, shape, out, True, mesh)
+            for arch, shape in (("qwen2-moe-a2.7b", "train_4k"),
+                                ("moonshot-v1-16b-a3b", "decode_32k"))
+            for mesh in ("pod16x16", "pod2x16x16")]
+    failed = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in recs
+              if r["status"] != "ok"]
+    if failed:
+        raise AssertionError(f"phase 17 (d): failed {failed}")
+
+
+def moe_plane_phase(torch, ops, ref, fa_mod, dev):
+    """Phase 17: (a) and (b) under ``launch.mesh.host_rules`` (a one-rank
+    NCCL group made over a ``HashStore``, destroyed after), then (c) the
+    tensor-core flash kernel at qwen2-moe's per-rank heads and (d).
+    Returns (a)'s launches and (c)'s rows."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import host_rules
+    torch.cuda.set_device(0)
+    with host_rules(device=dev) as rules:
+        log(f"  mesh {rules.shape} on backend {dist.get_backend()}, "
+            f"{dist.get_world_size()} rank")
+        t0 = time.perf_counter()
+        launches = moe_plane_qwen2(torch, ops, dev, rules)
+        log(f"  phase 17 (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        moe_plane_moonshot(torch, ops, dev, rules)
+        log(f"  phase 17 (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shapes = plane_flash(torch, ops, ref, fa_mod, dev, MOE_PLANE_HEADS, 128,
+                         "qwen2-moe-a2.7b")
+    log(f"  phase 17 (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_plane_dryrun()
+    log(f"  phase 17 (d) {time.perf_counter() - t0:.1f} s")
     return launches, shapes
 
 
@@ -4314,6 +4516,12 @@ def main() -> int:
     plane_launches, plane_shapes = model_plane_phase(torch, ops, ref, fa_mod,
                                                      dev)
     log(f"  phase 16 {time.perf_counter() - t16:.1f} s")
+
+    log("== phase 17: the model plane (MoE family) on a one-rank NCCL mesh")
+    t17 = time.perf_counter()
+    moe_plane_launches, moe_plane_shapes = moe_plane_phase(torch, ops, ref,
+                                                           fa_mod, dev)
+    log(f"  phase 17 {time.perf_counter() - t17:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -4342,12 +4550,14 @@ def main() -> int:
         row["client_plane_launches"] = {k: v[name] for k, v in
                                         plane.items()}
         row["model_plane_launches"] = plane_launches[name]
+        row["moe_plane_launches"] = moe_plane_launches[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
     rows["kmeans_assign"]["shapes"].append(loop_shape)
     rows["recon_gate"]["shapes"] = [cifar_shape]
     rows["flash_attention_sm90"]["shapes"].extend(plane_shapes)
+    rows["flash_attention_sm90"]["shapes"].extend(moe_plane_shapes)
     for shape in rows["flash_attention"]["shapes"]:
         if "model" in shape:
             shape["launches_in_phase"] = f32_launches[shape["model"]]
@@ -4360,7 +4570,7 @@ def main() -> int:
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
             "family_train_launches", "quickstart_launches",
             "moonshot_full_serve_launches", "client_plane_launches",
-            "model_plane_launches", "max_abs_err",
+            "model_plane_launches", "moe_plane_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms",
             "floor_ms", "shapes")

@@ -45,9 +45,9 @@ collective of the model plane records its kind, mesh axes and result bytes
 instead of running; the record, ``<arch>--<shape>--pod16x16.json`` or
 ``--pod2x16x16.json``, adds ``collectives`` (bytes by the reference's
 kinds), ``collective_calls`` (per kind and axes) and, with ``--roofline``,
-the collective term (``roofline.collective_seconds``). Only the dense
-family runs on the model plane; the others print a ``[SKIP]`` line naming
-their ROADMAP item.
+the collective term (``roofline.collective_seconds``). The dense and MoE
+families run on the model plane; the recurrent families and the vision
+and audio frontends print a ``[SKIP]`` line naming their ROADMAP item.
 
 The count runs the port's Python as a real step does, op by op: the layers,
 the chunked attention's loop and the sLSTM's loop over time, so every
@@ -397,8 +397,8 @@ def main(argv=None):
             for mesh in meshes:
                 if mesh != "h100" and not tf.plane_supported(cfg):
                     print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the model "
-                          "plane runs the dense family; ROADMAP Queue 1, "
-                          f"item {tf.plane_item(cfg)}", flush=True)
+                          "plane runs the dense and MoE families; ROADMAP "
+                          f"Queue 1, item {tf.plane_item(cfg)}", flush=True)
                     continue
                 if (arch, shape) in SLOW and not named:
                     print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the sLSTM "

@@ -7,9 +7,12 @@ baseline's.
         --shape train_4k --variant bf16_params
 
 Variants are the hypothesis->change->measure loop's "change" step; each one
-is a pure config transformation so baselines stay reproducible. The
-reference's four ``seq_shard`` variants set ``act_seq_shard``, which goes
-with the sharding slice (ROADMAP Queue 1, item 11).
+is a pure config transformation so baselines stay reproducible. The four
+variants that set ``act_seq_shard`` (``seq_shard``, ``seq_bf16_logits``,
+``moe_gather_seq``, ``moe_gather_grouped_seq``) are counted, with their
+baseline, on one rank of the 16 x 16 production mesh (``MESH_VARIANTS``),
+where the flag acts; the two MoE ones on the model plane's MoE layout
+(experts or their d_ff over "model", the router whole on every rank).
 """
 import argparse
 import dataclasses

@@ -729,17 +729,41 @@ def record_collectives(calls: Counter, nbytes: Counter):
             setattr(dist, name, fn)
 
 
+# the dense configs' and the MoE configs' names in ``plane_configs``
+DENSE = ("base", "sliding", "seq")
+MOE = ("moe_gather", "moe_einsum", "moe_grouped_seq")
+
+
 def plane_configs():
     """The smoke Llama in float32, its sliding-window variant (window
     ``PLANE_WINDOW``: the prompt wraps the ring) and its ``act_seq_shard``
-    variant."""
+    variant; the smoke qwen2-moe in float32 (4 experts top-2, one shared
+    expert of 256 columns) three ways:
+
+      * ``moe_gather``: 3 experts (the d_ff layout above one rank: 3 does
+        not divide the model axis), the gather dispatch with no group size
+        (one group of every token of the batch, across the data ranks) and
+        capacity factor 0.5, so choices drop;
+      * ``moe_einsum``: the einsum dispatch (a group is a batch row) at
+        capacity factor 0.5; expert-parallel above one rank;
+      * ``moe_grouped_seq``: the gather dispatch in groups of 16 tokens
+        (a train or prefill group inside a rank's 32 tokens at data 2, a
+        decode step's 4 tokens one group across the data ranks) under
+        ``act_seq_shard``: ``perf``'s ``moe_gather_grouped_seq`` shape."""
     import dataclasses as dc
     from repro_torch.configs import get_smoke_config
     base = dc.replace(get_smoke_config("llama3.2-1b"), dtype="float32")
+    moe = dc.replace(get_smoke_config("qwen2-moe-a2.7b"), dtype="float32")
     return {"base": base,
             "sliding": dc.replace(base, attention="sliding",
                                   window=PLANE_WINDOW),
-            "seq": dc.replace(base, act_seq_shard=True)}
+            "seq": dc.replace(base, act_seq_shard=True),
+            "moe_gather": dc.replace(moe, n_experts=3, moe_dispatch="gather",
+                                     capacity_factor=0.5),
+            "moe_einsum": dc.replace(moe, capacity_factor=0.5),
+            "moe_grouped_seq": dc.replace(moe, moe_dispatch="gather",
+                                          moe_group_size=16,
+                                          act_seq_shard=True)}
 
 
 def plane_inputs(cfg, seed: int = 0):
@@ -851,23 +875,90 @@ def _max_over_ranks(v: float) -> float:
     return float(t)
 
 
+def _sum_over_ranks(v: int) -> int:
+    t = torch.tensor([v], dtype=torch.int64)
+    torch.distributed.all_reduce(t)
+    return int(t)
+
+
+@contextlib.contextmanager
+def router_margins(seen: list, k: int):
+    """Records in ``seen`` the smallest gap between the k-th and the
+    (k+1)-th router probability of each MoE layer run inside: a top-k set
+    (and so every capacity rank) is fixed by probabilities that move less
+    than it."""
+    from repro_torch.models import moe
+    probs_fn = moe.router_probs
+
+    def recording(params, x2d):
+        probs = probs_fn(params, x2d)
+        top = torch.sort(probs.detach(), -1, descending=True)[0]
+        seen.append(float(torch.min(top[:, k - 1] - top[:, k])))
+        return probs
+    moe.router_probs = recording
+    try:
+        yield
+    finally:
+        moe.router_probs = probs_fn
+
+
+@contextlib.contextmanager
+def dropped_across(tally: list):
+    """Appends to ``tally``, per MoE layer run whose groups span data
+    ranks, the choices this rank drops only for the lower ranks' choices
+    in their groups: ranked below the capacity among its own, at or above
+    it after the offset."""
+    from repro_torch.models import moe
+    decide, dispatch = moe.decide, moe._gather_dispatch
+
+    def counted(offsets, cap):
+        def fn(counts):
+            off = offsets(counts)
+            kept = torch.clamp_max(counts, cap)
+            lost = torch.clamp_min(kept - torch.clamp_min(cap - off, 0), 0)
+            tally.append(int(torch.sum(torch.where(off > 0, lost, 0))))
+            return off
+        return fn
+
+    def decide_(probs, cfg, tokens=None, offsets=None):
+        if offsets is not None:
+            offsets = counted(offsets, moe.capacity(
+                cfg.experts_per_token, tokens or probs.shape[1],
+                cfg.capacity_factor, cfg.n_experts))
+        return decide(probs, cfg, tokens, offsets)
+
+    def dispatch_(params, xt, cfg, cap, part=None, xe=None):
+        if part is not None and part.offsets is not None:
+            part = part._replace(offsets=counted(part.offsets, cap))
+        return dispatch(params, xt, cfg, cap, part, xe)
+    moe.decide, moe._gather_dispatch = decide_, dispatch_
+    try:
+        yield
+    finally:
+        moe.decide, moe._gather_dispatch = decide, dispatch
+
+
 def _diff(a, b) -> float:
     return max(float(torch.max(torch.abs(x.double() - y.double())))
                for x, y in zip(sh._leaves(a), sh._leaves(b)))
 
 
 def plane_mesh_report(data: int, model: int, jax_params=None,
-                      ref=None) -> dict:
-    """One (data, model) mesh on every rank of the group: the smoke Llama's
-    prefill, decode, sampling and donated AdamW steps with the rules and
-    with ``rules=None``; the sliding config's serve (a ring) and the
-    ``act_seq_shard`` config's prefill and train steps against the plain
-    config's. Returns the largest differences over every rank, bit
-    equality, the collectives of each step by kind (``record_collectives``)
-    and which paths the mesh took; with ``jax_params`` (a numpy tree of the
-    reference's layout) also the base config's prefill logits and first
-    loss from those parameters (``convert.lm_params``), whole. ``ref``
-    keeps the ``rules=None`` runs for the next mesh."""
+                      ref=None, names=DENSE) -> dict:
+    """One (data, model) mesh on every rank of the group: for each config
+    of ``names`` (``plane_configs``) its prefill, decode, sampling and
+    donated AdamW steps with the rules and with ``rules=None`` (the
+    sliding config serves only; the dense ``act_seq_shard`` config runs
+    above one model rank only and is held to the plain config's runs, as
+    the flag changes nothing without rules). Returns the largest
+    differences over every rank, bit equality, the collectives of each
+    step by kind (``record_collectives``), which paths the mesh took and,
+    for the MoE configs, the smallest router margin of the ``rules=None``
+    runs and the choices dropped only for a lower data rank's (summed over
+    the ranks); with ``jax_params`` (a numpy tree of the reference's
+    layout) also the first config's prefill logits and first loss from
+    those parameters (``convert.lm_params``), whole. ``ref`` keeps the
+    ``rules=None`` runs for the next mesh."""
     from repro_torch import convert
     from repro_torch.models import common as cm
     from repro_torch.models.registry import build_model
@@ -876,45 +967,60 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
     plane = sh.ModelPlane(rules)
     out = {"mesh": (data, model)}
     ref = {} if ref is None else ref
-    for name in ("base", "sliding", "seq"):
+    for name in names:
         cfg = cfgs[name]
+        if cfg.act_seq_shard and plane.m == 1 and not cfg.is_moe:
+            continue
         mdl = build_model(cfg)
-        params, toks, noise = plane_inputs(cfgs["base"])
+        params, toks, noise = plane_inputs(cfg)
         logical = mdl.param_logical()
         placed = sh.place_params(params, logical, rules)
-        serve = name != "seq" or plane.m > 1
-        if serve:
-            if name != "seq" and name not in ref:
-                ref[name] = _serve_run(mdl, params, toks, noise, None)
-            base_logits, base_tok, _ = ref["base" if name == "seq" else name]
+        key = "base" if name == "seq" else name
+        margins, dropped = [], []
+        with router_margins(margins, cfg.experts_per_token):
+            if key not in ref:
+                ref[key] = {"serve": _serve_run(mdl, params, toks, noise,
+                                                None)}
+            if name != "sliding" and "train" not in ref[key]:
+                ref[key]["train"] = _train_run(mdl, params, toks, None)
+                ref[key]["grads"] = _grads(mdl, params, toks, None)
+        if cfg.is_moe:
+            out[f"{name}_margin"] = min(margins) if margins else \
+                ref[key].get("margin")
+            ref[key]["margin"] = out[f"{name}_margin"]
+        base_logits, base_tok, _ = ref[key]["serve"]
+        with dropped_across(dropped):
             logits, tok, counts = _serve_run(mdl, placed, toks, noise, rules)
-            logits, tok = _whole_rows(logits, rules), _whole_rows(tok, rules)
-            out[f"{name}_logits"] = _max_over_ranks(_diff(logits, base_logits))
-            out[f"{name}_tokens_equal"] = bool(torch.equal(tok, base_tok))
-            out[f"{name}_logits_bitwise"] = bool(torch.equal(logits,
-                                                             base_logits))
-            out[f"{name}_serve_counts"] = counts
+        logits, tok = _whole_rows(logits, rules), _whole_rows(tok, rules)
+        out[f"{name}_logits"] = _max_over_ranks(_diff(logits, base_logits))
+        out[f"{name}_tokens_equal"] = bool(torch.equal(tok, base_tok))
+        out[f"{name}_logits_bitwise"] = bool(torch.equal(logits,
+                                                         base_logits))
+        out[f"{name}_serve_counts"] = counts
         if name == "sliding":
             continue
-        if name == "base" and "train" not in ref:
-            ref["train"] = _train_run(mdl, params, toks, None)
-        if name == "seq" and plane.m == 1:
-            continue
-        if name == "base" and "grads" not in ref:
-            ref["grads"] = _grads(mdl, params, toks, None)
-        grads = sh.whole_params(_grads(mdl, placed, toks, rules), logical,
-                                params, rules)
-        losses, trained, counts = _train_run(mdl, placed, toks, rules)
+        with dropped_across(dropped):
+            grads = sh.whole_params(_grads(mdl, placed, toks, rules),
+                                    logical, params, rules)
+            losses, trained, counts = _train_run(mdl, placed, toks, rules)
+        if cfg.is_moe:
+            out[f"{name}_dropped_across"] = _sum_over_ranks(sum(dropped))
         trained = sh.whole_params(trained, logical, params, rules)
-        base_losses, base_params, _ = ref["train"]
+        base_losses, base_params, _ = ref[key]["train"]
+        base_grads = ref[key]["grads"]
         out[f"{name}_losses"] = losses.tolist()
         out[f"{name}_loss_diff"] = _max_over_ranks(_diff(losses, base_losses))
-        out[f"{name}_grad_diff"] = _max_over_ranks(_diff(grads, ref["grads"]))
+        out[f"{name}_grad_diff"] = _max_over_ranks(_diff(grads, base_grads))
+        out[f"{name}_grad_diffs"] = {
+            "/".join(map(str, path)): _max_over_ranks(_diff([a], [b]))
+            for (path, _), a, b in zip(cm.spec_paths(mdl.specs),
+                                       cm.tree_leaves(grads),
+                                       cm.tree_leaves(base_grads))}
         out[f"{name}_param_diff"] = _max_over_ranks(_diff(trained,
                                                           base_params))
         # AdamW moves each entry by about lr * sign(g): where the gradient
         # is at float32 noise level its update is not determined by it
-        floor = [g.abs() > GRAD_FLOOR for g in cm.tree_leaves(ref["grads"])]
+        floor = [g.abs() > GRAD_FLOOR for g in cm.tree_leaves(base_grads)]
         out[f"{name}_param_diff_above_floor"] = _max_over_ranks(max(
             float(torch.where(f, (a - b).abs(), 0).max()) for a, b, f in zip(
                 cm.tree_leaves(trained), cm.tree_leaves(base_params), floor)))
@@ -923,40 +1029,55 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
                 torch.equal(a, b) for a, b in zip(cm.tree_leaves(trained),
                                                   cm.tree_leaves(base_params))))
         out[f"{name}_train_counts"] = counts
-    base = cfgs["base"]
-    hd, m = base.head_dim, plane.m
-    out["paths"] = {
-        "half_head": (base.n_kv_heads * hd // m) % hd != 0,
-        "kv_seq": base.n_kv_heads % m != 0,
-        "ring": cfgs["sliding"].window < PLANE_S + PLANE_GEN}
+    m = plane.m
+    if "base" in names:
+        base = cfgs["base"]
+        hd = base.head_dim
+        out["paths"] = {
+            "half_head": (base.n_kv_heads * hd // m) % hd != 0,
+            "kv_seq": base.n_kv_heads % m != 0,
+            "ring": cfgs["sliding"].window < PLANE_S + PLANE_GEN}
+    else:
+        from repro_torch.models import transformer as tf
+        out["paths"] = {
+            name: "experts" if tf._Plan(cfgs[name], plane, "train",
+                                        PLANE_S).moe_ep else "d_ff"
+            for name in names}
     if jax_params is not None:
-        mdl = build_model(base)
+        cfg = cfgs[names[0]]
+        mdl = build_model(cfg)
         local = convert.lm_params(jax_params, rules=rules,
                                   logical=mdl.param_logical())
-        _, toks, _ = plane_inputs(base)
-        logits, _ = mdl.prefill(local, {"tokens": _rows(toks, rules)},
-                                rules=rules)
-        loss, _ = mdl.loss_fn(local, {"tokens": _rows(toks, rules),
-                                      "labels": _rows(toks, rules)},
-                              rules=rules)
+        _, toks, _ = plane_inputs(cfg)
+        margins = []
+        with router_margins(margins, cfg.experts_per_token):
+            logits, _ = mdl.prefill(local, {"tokens": _rows(toks, rules)},
+                                    rules=rules)
+            loss, _ = mdl.loss_fn(local, {"tokens": _rows(toks, rules),
+                                          "labels": _rows(toks, rules)},
+                                  rules=rules)
         out["jax_prefill_logits"] = _whole_rows(logits, rules).numpy()
         out["jax_loss"] = float(loss)
+        if cfg.is_moe:
+            out["jax_margin"] = -_max_over_ranks(-min(margins))
     return out
 
 
-def plane_reports(meshes, jax_params=None) -> list:
+def plane_reports(meshes, jax_params=None, names=DENSE) -> list:
     """:func:`plane_mesh_report` for each (data, model) mesh in turn; the
     JAX parameters go to the (2, 2) mesh's."""
     ref = {}
     return [plane_mesh_report(d, m, jax_params if (d, m) == (2, 2) else None,
-                              ref) for d, m in meshes]
+                              ref, names) for d, m in meshes]
 
 
-def plane_world(meshes, jax_params=None, pod_lab=None) -> dict:
-    """Every rank of one spawned group: :func:`plane_reports` over
-    ``meshes`` and, with ``pod_lab`` (a :class:`LabConfig`), the client
-    plane's :func:`parity_report` on a (pod 2, data 2) mesh, counted."""
-    out = {"plane": plane_reports(meshes, jax_params)}
+def plane_world(meshes, jax_params=None, pod_lab=None,
+                names=DENSE) -> dict:
+    """Every rank of one spawned group: :func:`plane_reports` of the
+    configs ``names`` over ``meshes`` and, with ``pod_lab`` (a
+    :class:`LabConfig`), the client plane's :func:`parity_report` on a
+    (pod 2, data 2) mesh, counted."""
+    out = {"plane": plane_reports(meshes, jax_params, names)}
     if pod_lab is not None:
         out["pod"] = parity_report(pod_lab, (2, 2), "cpu", count=True)
     return out

@@ -44,9 +44,10 @@ in order in the activation dtype, and the head's nq * V columns reshape to
 logits (B, S, nq, V), codebook-major.
 
 The model plane (``rules=``, a :class:`~repro_torch.sharding.ShardingRules`
-over a (data, model) or (pod, data, model) mesh) runs the dense family
-(``family="dense"``) on each rank's shards, as ``rules.spec`` places the
-parameters, the batch (B over the data axes) and the cache:
+over a (data, model) or (pod, data, model) mesh) runs the dense and MoE
+families (``family`` "dense" or "moe") on each rank's shards, as
+``rules.spec`` places the parameters, the batch (B over the data axes) and
+the cache:
 
   * FSDP: a unit's weights, stored split over the data axes along d_model,
     are all-gathered there before use, one packed buffer a unit (the
@@ -62,6 +63,15 @@ parameters, the batch (B over the data axes) and the cache:
     decode_attention_kv_seq``);
   * the MLP: ``wi_gate``/``wi_up`` column-parallel, ``wo`` row-parallel and
     all-reduced;
+  * the MoE (:meth:`_Plan.moe`): the router whole on every rank (gathered
+    over "model" through ``replicate`` where stored split there), routing
+    the whole rows alike on each; the routed experts split along E where
+    the rules put EXPERTS on "model", else along their d_ff (stored split,
+    or whole and cut); the shared experts column/row-parallel; the routed
+    and shared partial outputs summed, then all-reduced once. A capacity
+    group that spans data ranks ranks each rank's choices after the lower
+    ranks' (their counts all-gathered), and the aux loss's sums go over
+    the data axes;
   * the embedding: vocab-parallel, a masked local lookup then an
     all-reduce; the head: vocab-parallel logits (all-gathered where serving
     samples them), the loss ``common.cross_entropy``'s vocab-parallel form;
@@ -75,7 +85,8 @@ parameters, the batch (B over the data axes) and the cache:
 A weight whose storage does not match the rank's part (a dimension the
 mesh does not divide is stored whole) is taken whole and cut. A collective
 over axes of one rank is the identity, so on a one-rank mesh none runs and
-the results are the unsharded ones bit for bit. The other families under rules run as without
+the results are the unsharded ones bit for bit. The other families (the
+recurrent ones, the vision and audio frontends) under rules run as without
 them at one rank and raise ``NotImplementedError`` above it.
 """
 from __future__ import annotations
@@ -101,8 +112,7 @@ from repro_torch.models.rope import apply_mrope, apply_rope
 
 _LATER = "not ported yet: ROADMAP Queue 1, item {}"
 # the ROADMAP item of each family's model-plane port
-_PLANE_ITEMS = {"moe": "15 (MoE on the model axis)",
-                "ssm": "16 (the recurrent families on the model axis)",
+_PLANE_ITEMS = {"ssm": "16 (the recurrent families on the model axis)",
                 "hybrid": "16 (the recurrent families on the model axis)",
                 "vlm": "17 (the vision and audio frontends on the model axis)",
                 "audio": "17 (the vision and audio frontends on the model "
@@ -328,6 +338,9 @@ def _ffn(p, x, cfg, aux, plan=None):
     (x, aux) with the MoE router loss, weighted, added to ``aux``."""
     xin = cm.rms_norm(x, p["ln2"])
     if "moe" in p:
+        if plan is not None:
+            y, loss = plan.moe(p["moe"], xin)
+            return x + y, aux + loss * cfg.router_aux_weight
         out = moe_lib.moe_forward(p["moe"], xin, cfg)
         return x + out.y, aux + out.aux_loss * cfg.router_aux_weight
     return x + _mlp(p["mlp"], xin, plan), aux
@@ -618,17 +631,15 @@ def forward_decode(params, cache, batch, cfg, *, rules=None):
 # ---------------------------------------------------------------------------
 
 def plane_supported(cfg) -> bool:
-    """Whether the model plane runs ``cfg`` above one rank: the dense
-    family, attention blocks with an MLP and token inputs."""
-    return (cfg.family == "dense" and not cfg.is_moe
+    """Whether the model plane runs ``cfg`` above one rank: the dense and
+    MoE families, attention blocks with an MLP or an MoE, token inputs."""
+    return (cfg.family in ("dense", "moe")
             and cfg.frontend == "none"
             and set(cfg.layer_kinds) <= {"attn", "local_attn"})
 
 
 def plane_item(cfg) -> str:
     """The ROADMAP item that ports ``cfg``'s family to the model plane."""
-    if cfg.is_moe:
-        return _PLANE_ITEMS["moe"]
     if cfg.frontend != "none":
         return _PLANE_ITEMS["vlm"]
     return _PLANE_ITEMS.get(cfg.family, _PLANE_ITEMS["ssm"])
@@ -654,8 +665,9 @@ def _plan(cfg, rules, mode, batch):
 
 
 class _Plan:
-    """How one rank computes a dense step under the model plane: its query
-    heads, KV heads, d_ff columns and vocab rows on "model", whether the
+    """How one rank computes a dense or MoE step under the model plane: its
+    query heads, KV heads, d_ff columns, experts (or expert d_ff columns)
+    and vocab rows on "model", whether the
     KV heads lie whole on every rank (``kv_seq``: m does not divide them;
     the cache then lies over its slots) and whether the activations between
     units are split along S (``seq_shard``)."""
@@ -677,6 +689,15 @@ class _Plan:
         self.kv_index = None if even else torch.as_tensor(kv_of)
         self.ff = sh.split_range(cfg.d_ff, m, r)
         self.vocab = sh.split_range(cfg.vocab_size, m, r)
+        if cfg.is_moe:
+            # experts split along E where the rules put EXPERTS on
+            # "model", else along their d_ff (stored split or whole)
+            e, f = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+            self.moe_ep = plane.spec(("experts", "d_model", "d_ff"),
+                                     (e, cfg.d_model, f))[0] == "model"
+            self.experts = sh.split_range(e, m, r) if self.moe_ep else (0, e)
+            self.moe_ff = sh.split_range(f, m, r)
+            self.shared_ff = sh.split_range(cfg.n_shared_experts * f, m, r)
         self.seq_shard = (cfg.act_seq_shard and mode != "decode" and m > 1
                           and seq_len % m == 0)
         self._layouts = {}
@@ -684,7 +705,9 @@ class _Plan:
     # -- weights -----------------------------------------------------------
     def _need(self, path, spec):
         """(dim, lo, hi): the part of a weight along "model" that this rank
-        computes with, or None for a weight every rank uses whole."""
+        computes with; None for a weight every rank uses whole as stored
+        (split over "model" nowhere), "whole" for one every rank computes
+        with whole whatever its storage (the MoE router)."""
         hd = self.cfg.head_dim
         h0, h1 = self.heads
         if path == ("wq",):
@@ -697,6 +720,14 @@ class _Plan:
             return 1, self.kv_range[0] * hd, self.kv_range[1] * hd
         if path[0] == "mlp":
             return (0 if path[1] == "wo" else 1), *self.ff
+        if path[0] == "moe":
+            if path[1] == "router":
+                return "whole"
+            if path[1] == "shared":
+                return (0 if path[2] == "wo" else 1), *self.shared_ff
+            if self.moe_ep:
+                return 0, *self.experts
+            return (1 if path[1] == "wo" else 2), *self.moe_ff
         if path in (("embed", "tok"), ("head",)):
             return (0 if path == ("embed", "tok") else 1), *self.vocab
         return None
@@ -708,11 +739,14 @@ class _Plan:
         there (FSDP, one buffer), then cut to the rank's part along
         "model"; a leaf whose stored part is not that part is all-gathered
         over "model" (one buffer) or, stored whole, passed through ``copy``
-        (its gradient is then summed over "model"). The layout is worked
+        (its gradient is then summed over "model"); a leaf every rank
+        computes with whole and alike (``_need`` "whole") and stored split
+        over "model" is gathered through ``replicate`` (its gradient is
+        whole: the backward keeps this rank's slice). The layout is worked
         out once per ``key`` (a block kind, or the outer weights' names)."""
         if key not in self._layouts:
             self._layouts[key] = self._layout(specs())
-        dp_idx, dp_dims, gather, copy, needs = self._layouts[key]
+        dp_idx, dp_dims, gather, copy, needs, whole = self._layouts[key]
         plane = self.plane
         out = list(cm.tree_leaves(p_loc))
         for i, t in zip(dp_idx, plane.gather_packed(
@@ -728,13 +762,16 @@ class _Plan:
         for i in gather + copy:
             d, lo, hi = needs[i]
             out[i] = out[i].narrow(d, lo, hi - lo)
+        for i, d in whole:
+            out[i] = plane.replicate(out[i], "model", d)
         return cm.tree_unflatten(p_loc, out)
 
     def _layout(self, specs):
         """For the leaves of ``specs`` (``tree_leaves`` order): those stored
         split over the data axes and the dimension of each, those to
-        all-gather over "model", those to ``copy``, and each one's part
-        along "model" (``_need``)."""
+        all-gather over "model", those to ``copy``, each one's part
+        along "model" (``_need``), and (index, dim) of those to
+        ``replicate``."""
         plane = self.plane
         paths = list(cm.spec_paths(specs))
         specs_ = [plane.spec(sp.logical, sp.shape) for _, sp in paths]
@@ -746,9 +783,13 @@ class _Plan:
                     return d
             return None
         dp_idx = [i for i, e in enumerate(specs_) if dp_dim(e) is not None]
-        needs, gather, copy = {}, [], []
+        needs, gather, copy, whole = {}, [], [], []
         for i, (path, sp) in enumerate(paths):
             need = self._need(path, sp)
+            if need == "whole":
+                whole += [(i, d) for d, e in enumerate(specs_[i])
+                          if e == "model"]
+                continue
             if need is None:
                 continue
             d, lo, hi = need
@@ -759,7 +800,7 @@ class _Plan:
                                 plane.rank["model"]) != (lo, hi):
                 gather.append(i)
         return (dp_idx, [dp_dim(specs_[i]) for i in dp_idx], gather, copy,
-                needs)
+                needs, whole)
 
     def _outer(self, params, names):
         def specs():
@@ -781,6 +822,49 @@ class _Plan:
         if self.seq_shard:
             return self.plane.scatter(out, "model", 1)
         return self.plane.psum(out, "model")
+
+    def moe(self, p, xin):
+        """The MoE branch of (B, S, D) normed activations (this rank's part
+        of S under ``seq_shard``); returns (y, aux loss). Every rank of
+        "model" routes the whole rows alike: the router reads them
+        replicated (an all-gather along S under ``seq_shard``, whose
+        backward keeps this rank's slice: the router's gradient is whole
+        on every rank). The expert branch reads them and the gates through
+        ``copy`` (each rank's experts give them a partial gradient); the
+        routed and shared outputs, each this rank's partial sum, are
+        summed, then summed over "model" once (in float32 for the gather
+        dispatch above one rank). The aux loss's sums go over the data
+        ranks in a train step (serving drops the loss)."""
+        cfg, plane = self.cfg, self.plane
+        xw = plane.replicate(xin, "model", 1) if self.seq_shard else xin
+        b, s, _ = xw.shape
+        n = b * s
+        t = moe_lib.group_size(cfg, b * plane.k_dp, s)
+        if t % n and n % t:
+            raise ValueError(
+                f"an MoE group of {t} tokens neither tiles nor is tiled by "
+                f"a data rank's {n} tokens")
+        h = plane.copy(xw, "model")
+        part = moe_lib.Part(
+            self.experts, t, h, lambda gates: plane.copy(gates, "model"),
+            self._offsets(t // n) if t > n else None,
+            (lambda v: plane.psum(v, "dp")) if self.mode == "train" else None)
+        out = moe_lib.moe_forward(p, xw, cfg, part)
+        y = out.y if plane.m > 1 else out.y.to(xin.dtype)
+        if "shared" in p:
+            y = y + moe_lib.shared_branch(p, h)
+        return self.exit(y).to(xin.dtype), out.aux_loss
+
+    def _offsets(self, q: int):
+        """For a group spanning ``q`` data ranks (one segment of it on each):
+        this rank's (1, E) choice counts -> the counts of the lower ranks
+        of its group (one all-gather over the data axes)."""
+        r = self.plane.rank["dp"]
+
+        def offsets(counts):
+            every = self.plane.gather_counts(counts)        # (k_dp, 1, E)
+            return torch.sum(every[r - r % q:r], 0)
+        return offsets
 
     def kv_heads(self, k):
         """The KV heads this rank's query heads read, of k (B,S,Kv,hd)."""
@@ -882,7 +966,9 @@ def grad_sum_axes(cfg, rules, seq_len: int):
     (each rank's batch rows add a part), "model" for the norm scales under
     ``seq_shard`` (each rank normalises its part of S). The other
     leaves' gradients are whole already: the gathers' and copies'
-    backwards sum them."""
+    backwards sum them. The MoE router takes no "model" sum: every rank
+    computes it whole on the whole rows, so its gradient is whole on each
+    (``replicate`` keeps the rank's slice)."""
     if rules is None or not plane_supported(cfg):
         return None
     plane = sh.ModelPlane(rules)

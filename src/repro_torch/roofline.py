@@ -140,7 +140,10 @@ def wire_bytes(kind: str, n: int, nbytes: float) -> float:
 
 def collective_seconds(summary, mesh: Dict[str, int]) -> float:
     """The collective term of one device's step: ``summary`` is
-    ``sharding.CountingMesh.summary()`` ([{kind, axes, calls, bytes}])."""
+    ``sharding.CountingMesh.summary()`` ([{kind, axes, calls, bytes}]).
+    The MoE plane's router gather (``ModelPlane.replicate``) and choice
+    counts (``gather_counts``) record as all-gathers, whose ring moves
+    (n-1)/n of the result whatever the backward does."""
     t = 0.0
     for row in summary:
         n = math.prod(mesh[a] for a in row["axes"])

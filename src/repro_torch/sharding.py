@@ -58,7 +58,8 @@ the draws map their uniforms onto every client's size, and the exchange's
 result gather brings the new sizes, so keeping them whole costs no
 collective of its own.
 
-The model half (:class:`ModelPlane`) runs the dense transformer family on
+The model half (:class:`ModelPlane`) runs the dense and MoE transformer
+families on
 a (data, model) or (pod, data, model) mesh (``models.transformer``): each
 rank holds the shards ``ShardingRules.spec`` gives it (:func:`place_params`)
 and computes on them; every collective the layout needs goes through the
@@ -128,6 +129,47 @@ forward moves nothing.) ``tests/test_torch_model_plane.py`` holds every
 count to this table on gloo ranks. On a :class:`CountingMesh` the same
 calls record their bytes instead of running (``launch.dryrun``'s
 production meshes).
+
+An MoE unit (an attention block whose second branch is the MoE,
+``models.moe``) runs as a dense unit with the MoE in the MLP's place:
+the routed experts split along E over M where M divides them, else along
+their d_ff; the shared experts column/row-parallel; the router whole on
+every rank. With ``rg`` 1 when M divides the experts (the router is then
+stored split over M) and ``cg`` 1 when the step's capacity groups span
+data ranks (the gather dispatch's one group of the batch's tokens, a
+decode step's included, or a ``moe_group_size`` above a rank's tokens):
+
+========  ==================================================================
+prefill   as a dense unit (one all-reduce over M after the routed and
+          shared outputs' sum), plus an all-gather over M of the router
+          (rg; ``ModelPlane.replicate``) and one over D of the
+          per-(group, expert) choice counts (cg; ``gather_counts``)
+decode    as prefill
+train     the forward as prefill's, plus per unit one all-reduce over D
+          of the aux loss's two (E,) sums and token count; the backward:
+          an all-reduce over M of the gates' gradient (their ``copy``);
+          the router's gather has no backward collective (each rank keeps
+          its slice of the whole gradient)
+seq       the MoE's input is all-gathered along S through ``replicate``
+          (the router reads whole rows); the expert branch's ``copy`` of it
+          all-reduces its gradient over M where ``_mlp``'s input
+          reduce-scatters along S
+========  ==================================================================
+
+Added to the dense table's counts (remat recomputes the router's gather,
+the counts' gather and the aux sum):
+
+=================  ==========  ============
+                   D           M
+=================  ==========  ============
+prefill            AG cg L     AG rg L
+decode step        AG cg L     AG rg L
+train, remat       AG 2 cg L   AG 2 rg L
+                   AR 2L       AR L
+train, remat, seq  AG 2 cg L   AG 2 rg L
+                   AR 2L       RS -L
+                               AR 2L
+=================  ==========  ============
 
 The default process group is never initialised on import; the mesh
 constructors in ``launch.mesh`` do that.
@@ -666,14 +708,18 @@ class ModelPlane:
     "replica", holds independent copies). Each collective goes through one of the
     autograd functions below, whose backward is the collective's adjoint:
 
-    ============  =============================  ===========================
-    method        forward                        backward
-    ============  =============================  ===========================
-    ``gather``    all-gather along ``dim``       reduce-scatter along ``dim``
-    ``scatter``   reduce-scatter along ``dim``   all-gather along ``dim``
-    ``psum``      all-reduce (sum)               identity
-    ``copy``      identity                       all-reduce (sum)
-    ============  =============================  ===========================
+    =============  =============================  ==========================
+    method         forward                        backward
+    =============  =============================  ==========================
+    ``gather``     all-gather along ``dim``       reduce-scatter along it
+    ``scatter``    reduce-scatter along ``dim``   all-gather along it
+    ``psum``       all-reduce (sum)               identity
+    ``copy``       identity                       all-reduce (sum)
+    ``replicate``  all-gather along ``dim``       this rank's slice
+    =============  =============================  ==========================
+
+    ``gather_counts`` is a plain all-gather over the data axes (no
+    autograd) of a small int tensor.
 
     ``gather_packed`` and ``copy_packed`` move several tensors of one dtype
     in one buffer. Over axes of one rank every collective is the identity:
@@ -817,6 +863,21 @@ class ModelPlane:
             return x
         return _Copy.apply(x, self, axis)
 
+    def replicate(self, x, axis: str, dim: int):
+        """All-gather along ``dim`` for a tensor every rank then computes
+        with whole and alike (the MoE router's weight, its input under
+        ``act_seq_shard``): its gradient comes out whole and equal on every
+        rank, so the backward keeps this rank's slice (no collective)."""
+        if self.size[axis] == 1:
+            return x
+        return _Replicate.apply(x, self, axis, dim)
+
+    def gather_counts(self, x):
+        """An int tensor from every data rank, stacked in rank order on a
+        new leading dimension (no autograd): the MoE's per-(group, expert)
+        choice counts."""
+        return self.all_gather(x[None], "dp", 0)
+
     def gather_packed(self, leaves, dims, axis: str) -> list:
         """Each leaf all-gathered along its ``dims`` entry over ``axis``, all
         in one all-gather of one buffer (backward: one reduce-scatter)."""
@@ -866,6 +927,18 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane, axis, dim):
+        ctx.part = dim, plane.rank[axis] * x.shape[dim], x.shape[dim]
+        return plane.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, lo, n = ctx.part
+        return g.narrow(dim, lo, n).contiguous(), None, None, None
 
 
 class _Copy(torch.autograd.Function):

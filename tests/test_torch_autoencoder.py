@@ -14,6 +14,10 @@ from repro_torch import convert
 from repro_torch.models import autoencoder as tae
 from repro_torch.models.common import tree_leaves, value_and_grad
 
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 SHAPES = [(8, 8, 1, (4, 8), 8), (28, 28, 1, (4, 8), 8),
           (32, 32, 3, (4, 8), 6)]
 

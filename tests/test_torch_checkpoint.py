@@ -30,9 +30,11 @@ from repro_torch.dynamics.runstate import DEV_KEYS
 from repro_torch.faults import Preempted
 from repro_torch.models.common import tree_leaves
 
-from test_torch_draws import JaxReplayDraws
+from test_torch_draws import JaxReplayDraws, one_torch_thread  # noqa: F401
 from test_torch_orchestrator import (JC, TC, compare_runs, configs, jax_run,
                                      world)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,10 @@ from repro_torch.faults import plan as tplan
 from repro_torch.faults import retry as tretry
 from repro_torch.models.autoencoder import AEConfig as TAE
 
-from test_torch_draws import JaxReplayDraws, exchange_draws, t
+from test_torch_draws import (JaxReplayDraws, exchange_draws,
+                              one_torch_thread, t)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KEY = jax.random.PRNGKey(11)
 CH = tch.ChannelConfig()

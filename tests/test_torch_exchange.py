@@ -24,7 +24,9 @@ from repro_torch.core import exchange as tex
 from repro_torch.models.autoencoder import AEConfig as TAE
 from repro_torch.models.common import tree_leaves
 
-from test_torch_draws import exchange_draws
+from test_torch_draws import exchange_draws, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, K, R = 5, 3, 6
 JC = JAE(8, 8, 1, widths=(4, 8), latent_dim=8)

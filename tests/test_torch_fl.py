@@ -20,7 +20,9 @@ from repro_torch.fl import trainer as ttr
 from repro_torch.models import autoencoder as tae
 from repro_torch.models.common import tree_leaves
 
-from test_torch_draws import batch_indices
+from test_torch_draws import batch_indices, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JC = jae.AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
 TC = tae.AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)

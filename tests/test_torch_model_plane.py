@@ -214,9 +214,10 @@ def test_each_path_is_taken(reports):
 
 
 def expected_counts(step: str, layers: int, kvg: int, seq: bool,
-                    mesh=(2, 2)) -> dict:
+                    mesh=(2, 2), moe=None) -> dict:
     """``repro_torch.sharding``'s table: {kind: calls} of one step on a
-    (data, model) ``mesh``, whose one-rank axes run nothing."""
+    (data, model) ``mesh``, whose one-rank axes run nothing; with ``moe``
+    (rg, cg) an MoE config's, the MoE table's terms added."""
     L = layers
     if step == "prefill":
         by_axes = ({"D": {"all-gather": L + 2},
@@ -243,6 +244,17 @@ def expected_counts(step: str, layers: int, kvg: int, seq: bool,
                          "reduce-scatter": L * kvg,
                          "all-reduce": 5 * L + 4},
                    "DM": {"all-reduce": 1}}
+    if moe is not None:
+        rg, cg = moe
+        train = step == "train"
+        add = {"D": {"all-gather": (2 if train else 1) * cg * L,
+                     "all-reduce": 2 * L if train else 0},
+               "M": {"all-gather": (2 if train else 1) * rg * L,
+                     "all-reduce": (2 * L if seq else L) if train else 0,
+                     "reduce-scatter": -L if train and seq else 0}}
+        for axes, kinds in add.items():
+            for kind, n in kinds.items():
+                by_axes[axes][kind] = by_axes[axes].get(kind, 0) + n
     size = {"D": mesh[0], "M": mesh[1], "DM": mesh[0] * mesh[1]}
     out = {}
     for axes, kinds in by_axes.items():

@@ -31,7 +31,10 @@ from repro_torch.fl import fl_train as t_fl_train
 from repro_torch.fl import linear_evaluation as t_linear_eval
 from repro_torch.models.autoencoder import AEConfig as TAE
 
-from test_torch_draws import batch_indices, pipeline_draws
+from test_torch_draws import (batch_indices, one_torch_thread,  # noqa: F401
+                              pipeline_draws)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JC = jae.AEConfig(8, 8, 1, widths=(4, 8), latent_dim=8)
 TC = TAE(8, 8, 1, widths=(4, 8), latent_dim=8)

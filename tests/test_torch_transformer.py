@@ -167,8 +167,9 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 def test_unported_families_raise_naming_the_roadmap():
     """``act_seq_shard`` without a mesh changes nothing (as the reference's
-    constraint returns x outside a model axis); MoE on a model axis above
-    one rank raises, naming its ROADMAP item; MoE, the recurrent kinds
+    constraint returns x outside a model axis); a recurrent config on a
+    model axis above one rank raises, naming its ROADMAP item, and an MoE
+    prefill there is counted; MoE, the recurrent kinds
     (rglru, mlstm, slstm), the vision stub with M-RoPE and the audio codec
     build, MoE and the frontends with JAX's parameter counts."""
     moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4,
@@ -212,10 +213,15 @@ def test_unported_families_raise_naming_the_roadmap():
     from repro_torch import sharding as sh
     pod = sh.ShardingRules.default(sh.CountingMesh({"data": 16,
                                                     "model": 16}))
-    mm = build_model(moe)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        mm.prefill(mm.param_shapes(pod), {"tokens": torch.zeros(
-            (1, 4), dtype=torch.long, device="meta")}, rules=pod)
+    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long, device="meta")}
+    rm = build_model(get_smoke_config("recurrentgemma-2b"))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        rm.prefill(rm.param_shapes(pod), toks, rules=pod)
+    # 16 heads: one a rank of the model axis
+    mm = build_model(dataclasses.replace(moe, n_heads=16, n_kv_heads=16))
+    logits, _ = mm.prefill(mm.param_shapes(pod), toks, rules=pod)
+    assert tuple(logits.shape) == (1, 1, moe.vocab_size)
+    assert pod.mesh.calls[("all-reduce", ("model",))] == 2 * moe.n_layers + 1
 
 
 def test_tree_helpers_walk_tuples_in_jax_order():

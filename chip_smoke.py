@@ -213,9 +213,26 @@
    (``attention.decode_attention_kv_seq``) over 16 slices of a 4 x 2,080
    cache, one thread a slice, against ``decode_attention``; (d) the dry
    run of Llama-3.2-1B's four shapes on both production meshes.
+17. The MoE family on the model plane: qwen2-moe-a2.7b at full depth
+   served and trained at 4 of 24 layers, moonshot's 8-layer cut with the
+   gather dispatch served, each on a one-rank NCCL mesh against
+   ``rules=None`` bit for bit; the tensor-core flash kernel at
+   qwen2-moe's per-rank heads; the dry run of two MoE steps.
+18. The recurrent families on the model plane, on a one-rank NCCL mesh
+   against ``rules=None`` from one parameter tree: (a) recurrentgemma-2b
+   at full width and depth served at 4 x 4,096 + 32 tokens (8
+   ``flash_attention_sm90`` launches a prefill, nothing else) and
+   trained at phase 13's cut (26 layers, 1 x 2,048, 3 donated AdamW
+   steps); (b) xlstm-125m served at 4 x 2,048 + 32 (no launch) and
+   trained at 2 x 64; logits, tokens, losses and final parameters bit for
+   bit, no collective; (c) the tensor-core flash kernel at
+   recurrentgemma's per-rank local attention for model 2, 4 and 16 (5, 3
+   and 1 of its 10 query heads, window 2,048) against the plain version,
+   timed beside its bound and one SDPA call.
 
 Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12, 13
-(b, c), 14 (a, b), 15 (a, b, c) and 16 (a) set every kernel's launch count to 0
+(b, c), 14 (a, b), 15 (a, b, c), 16 (a), 17 (a, b) and 18 (a, b) set every
+kernel's launch count to 0
 just before each run they drive
 (the main path, the bf16 serve, the f32 serve, the two online runs, the two
 training runs, the federated-LLM run, the eager and scan runs, the
@@ -240,7 +257,9 @@ and ``musicgen_serve_launches`` in phase 12, as ``family_train_launches``
 (per arch, train_e2e's under xlstm-125m) in phase 13, as
 ``quickstart_launches`` and ``moonshot_full_serve_launches`` in phase 14,
 as ``client_plane_launches`` (its lab, main path and online runs) in phase
-15, as ``model_plane_launches`` in phase 16 (a), the online shapes' errors, the
+15, as ``model_plane_launches`` in phase 16 (a), ``moe_plane_launches`` in
+phase 17 (a) and ``recurrent_plane_launches`` in phase 18 (a), the online
+shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
 recurrentgemma's among both flash rows', qwen2-moe's, qwen2-vl's and
@@ -4384,6 +4403,183 @@ def moe_plane_phase(torch, ops, ref, fa_mod, dev):
     return launches, shapes
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the recurrent families on the model plane
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-2b's local attention a rank at model 2, 4 and 16: 10 query
+# heads over the ranks (split_range's largest part), its one KV head whole
+RECURRENT_PLANE_HEADS = (("model 2", 5), ("model 4", 3), ("model 16", 1))
+# the serves (arch, batch, prompt, decode steps + 1, sm90 launches a
+# prefill: phase 10's) and the train steps at phase 13's cuts (arch,
+# batch, tokens: recurrentgemma at full depth, xlstm at train_e2e --quick's
+# shape)
+RECURRENT_PLANE_SERVES = (("recurrentgemma-2b", 4, 4096, 33, 8),
+                          ("xlstm-125m", 4, 2048, 33, 0))
+RECURRENT_PLANE_TRAIN = (("recurrentgemma-2b", 1, 2048), ("xlstm-125m", 2, 64))
+
+
+def recurrent_plane_serve(torch, ops, dev, rules, arch, b, s, gen, n_flash):
+    """Phase 18 (a, b): ``arch`` at full width and depth (seed 0's f32
+    weights, bf16 activations) served at ``b`` x ``s`` + ``gen`` tokens
+    (one Gumbel draw) with ``rules=None`` and under the one-rank mesh's
+    rules from one parameter tree: logits and tokens bit for bit,
+    ``n_flash`` sm90 launches a prefill and nothing else, no collective in
+    a prefill or a decode step. Returns (the rules serve's launches, the
+    checks)."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import gumbel_noise
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params, g = _draw(torch, model, dev)
+    placed = sh.place_params(params, model.param_logical(), rules)
+    same_tree = all(a.data_ptr() == c.data_ptr() and a.shape == c.shape
+                    for a, c in zip(tree_leaves(params), tree_leaves(placed)))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    noise = gumbel_noise(g, (gen, b, 1, cfg.vocab_size))
+    runs, pre, dec = _plane_serves(torch, ops, model, params, placed, rules,
+                                   tokens, noise, dev)
+    checks = _plane_checks(torch, arch, runs, pre, dec, n_flash)
+    checks[f"{arch}: place_params copied nothing"] = same_tree
+    log(f"  one-rank collectives: prefill {pre[0]} ({pre[1]} bytes); decode "
+        f"step {dec[0]} ({dec[1]} bytes)")
+    launches = runs["mesh (1, 1)"][1]
+    del params, placed, runs
+    _release(torch)
+    return launches, checks
+
+
+def recurrent_plane_train(torch, ops, dev, rules, arch, b, s):
+    """Phase 18 (a, b): 3 donated AdamW steps of ``arch`` at full depth on
+    ``b`` x ``s`` tokens with ``rules=None`` and under the rules (the first
+    run's final parameters kept on the host): losses and parameters bit
+    for bit, no collective in a step, no kernel launched. Returns the
+    checks."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    tc = TrainConfig(total_steps=10, warmup_steps=2)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+        for _ in range(3))]
+    l0, p0, sec0, _ = _train_llama(torch, model, tc, batches, dev, None)
+    p0 = tree_map(lambda a: a.cpu(), p0)
+    _release(torch)
+    base = reset_peak(torch, f"{arch} mesh (1, 1) train")
+    _zero_launches(ops)
+    l1, p1, sec1, (calls, nbytes) = _train_llama(torch, model, tc, batches,
+                                                 dev, rules)
+    launches = _launch_counts(ops)
+    peak = peak_text(torch, base)
+    checks = {
+        f"train {arch}: final parameters bit for bit": all(
+            torch.equal(a, c.cpu()) for a, c in zip(tree_leaves(p0),
+                                                    tree_leaves(p1))),
+        f"train {arch}: losses bit for bit": torch.equal(l0, l1),
+        f"train {arch}: no collective in a step": not calls,
+        f"train {arch}: no kernel launched": not any(launches.values()),
+        f"train {arch}: losses finite": bool(l1.isfinite().all()),
+    }
+    del p0, p1
+    _release(torch)
+    log(f"  train {arch} ({cfg.n_layers} layers) {b}x{s}, 3 donated AdamW "
+        f"steps: rules=None losses {[round(float(x), 6) for x in l0]}, "
+        f"seconds {[round(x, 3) for x in sec0]}; mesh (1, 1) losses "
+        f"{[round(float(x), 6) for x in l1]}, seconds "
+        f"{[round(x, 3) for x in sec1]}; {peak}; launches {launches}; "
+        f"collectives {calls} ({nbytes} bytes)")
+    return checks
+
+
+def recurrent_plane_flash(torch, ops, ref, fa_mod, dev):
+    """Phase 18 (c): the tensor-core flash kernel at recurrentgemma-2b's
+    local attention a rank would launch at model 2, 4 and 16 (q (4, 4,096,
+    h, 256), k/v (4, 4,096, 1, 256) bf16, causal, window 2,048;
+    ``RECURRENT_PLANE_HEADS``) against the plain version (``check_flash``),
+    timed beside the plain version, one SDPA call (the window as a boolean
+    mask, ``enable_gqa``) and the bound of the keys each query sees.
+    Returns the rows for the sm90 row's ``shapes``."""
+    import torch.nn.functional as F
+    b, s, kv, hd, window = 4, 4096, 1, 256, 2048
+    g = torch.Generator(device=dev).manual_seed(18)
+    pos = torch.arange(s, device=dev)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                             < window)
+    out = []
+    for label, h in RECURRENT_PLANE_HEADS:
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for shape in
+                   ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+        if fa_mod.route(q, k, v) != "sm90":
+            raise AssertionError(f"{label}: route did not pick sm90")
+        err = check_flash(ops, ref, q, k, v, f"recurrentgemma-2b {label} per "
+                          f"rank ({b},{s},{h}/{kv},{hd}) window {window} bf16",
+                          "flash_attention_sm90", window=window)
+        flops, moved = flash_work(b, s, h, kv, hd, window, q.element_size())
+        b_ms, b_by = bound(moved, flops, "bfloat16")
+
+        def kernel():
+            return fa_mod.flash_attention_sm90(q, k, v, window=window)
+        ms = graph_ms(kernel, iters=10, replays=3)
+        call = cuda_ms(kernel, iters=20)
+        plain = graph_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                         window=window),
+                         iters=2, replays=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=3, replays=2)
+        log(f"  flash_attention_sm90 recurrentgemma-2b {label} per rank: "
+            f"{flops / 1e9:.1f} GFLOP of visible keys; device {ms:.5f} ms, "
+            f"per call {call:.5f} ms, plain {plain:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}); SDPA {sdpa:.5f} ms")
+        out.append({"shape": f"recurrentgemma-2b {label}: q ({b}, {s}, {h}, "
+                    f"{hd}), k/v ({b}, {s}, {kv}, {hd}) bf16, causal, "
+                    f"window {window}",
+                    "max_abs_err": err, "ms": ms, "call_ms": call,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": sdpa})
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def recurrent_plane_phase(torch, ops, ref, fa_mod, dev):
+    """Phase 18: (a) recurrentgemma-2b and (b) xlstm-125m served and
+    trained under ``launch.mesh.host_rules`` (a one-rank NCCL group made
+    over a ``HashStore``, destroyed after), then (c). Returns (a)'s serve
+    launches and (c)'s rows."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import host_rules
+    torch.cuda.set_device(0)
+    checks, launches = {}, None
+    with host_rules(device=dev) as rules:
+        log(f"  mesh {rules.shape} on backend {dist.get_backend()}, "
+            f"{dist.get_world_size()} rank")
+        for (arch, b, s, gen, n_flash), (_, tb, ts), part in zip(
+                RECURRENT_PLANE_SERVES, RECURRENT_PLANE_TRAIN, "ab"):
+            t0 = time.perf_counter()
+            served, c = recurrent_plane_serve(torch, ops, dev, rules, arch,
+                                              b, s, gen, n_flash)
+            checks.update(c)
+            checks.update(recurrent_plane_train(torch, ops, dev, rules,
+                                                arch, tb, ts))
+            launches = launches or served
+            log(f"  phase 18 ({part}) {time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 18 (a, b) checks failed: {failed}")
+    t0 = time.perf_counter()
+    shapes = recurrent_plane_flash(torch, ops, ref, fa_mod, dev)
+    log(f"  phase 18 (c) {time.perf_counter() - t0:.1f} s")
+    return launches, shapes
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4522,6 +4718,13 @@ def main() -> int:
     moe_plane_launches, moe_plane_shapes = moe_plane_phase(torch, ops, ref,
                                                            fa_mod, dev)
     log(f"  phase 17 {time.perf_counter() - t17:.1f} s")
+
+    log("== phase 18: the model plane (recurrent families) on a one-rank "
+        "NCCL mesh")
+    t18 = time.perf_counter()
+    rec_plane_launches, rec_plane_shapes = recurrent_plane_phase(
+        torch, ops, ref, fa_mod, dev)
+    log(f"  phase 18 {time.perf_counter() - t18:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -4551,6 +4754,7 @@ def main() -> int:
                                         plane.items()}
         row["model_plane_launches"] = plane_launches[name]
         row["moe_plane_launches"] = moe_plane_launches[name]
+        row["recurrent_plane_launches"] = rec_plane_launches[name]
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -4558,6 +4762,7 @@ def main() -> int:
     rows["recon_gate"]["shapes"] = [cifar_shape]
     rows["flash_attention_sm90"]["shapes"].extend(plane_shapes)
     rows["flash_attention_sm90"]["shapes"].extend(moe_plane_shapes)
+    rows["flash_attention_sm90"]["shapes"].extend(rec_plane_shapes)
     for shape in rows["flash_attention"]["shapes"]:
         if "model" in shape:
             shape["launches_in_phase"] = f32_launches[shape["model"]]
@@ -4570,7 +4775,8 @@ def main() -> int:
             "qwen2_vl_serve_launches", "musicgen_serve_launches",
             "family_train_launches", "quickstart_launches",
             "moonshot_full_serve_launches", "client_plane_launches",
-            "model_plane_launches", "moe_plane_launches", "max_abs_err",
+            "model_plane_launches", "moe_plane_launches",
+            "recurrent_plane_launches", "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms",
             "floor_ms", "shapes")

@@ -78,7 +78,7 @@ def _train(args, cfg, model, tc, dev, rules) -> list:
         toks = step_tokens(gen, i, batch=args.batch, seq_len=args.seq,
                            vocab=cfg.vocab_size).long()
         params, opt, m = step(params, opt, place_batch(
-            {"tokens": toks, "labels": toks}, rules))
+            {"tokens": toks, "labels": toks}, rules), global_batch=args.batch)
         losses.append(float(m["loss"]))
         if i % 10 == 0 or i == args.steps - 1:
             rate = (i + 1) * args.batch * args.seq / (time.time() - t0)

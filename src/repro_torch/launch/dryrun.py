@@ -45,22 +45,26 @@ collective of the model plane records its kind, mesh axes and result bytes
 instead of running; the record, ``<arch>--<shape>--pod16x16.json`` or
 ``--pod2x16x16.json``, adds ``collectives`` (bytes by the reference's
 kinds), ``collective_calls`` (per kind and axes) and, with ``--roofline``,
-the collective term (``roofline.collective_seconds``). The dense and MoE
-families run on the model plane; the recurrent families and the vision
-and audio frontends print a ``[SKIP]`` line naming their ROADMAP item.
+the collective term (``roofline.collective_seconds``). The dense, MoE
+and recurrent families run on the model plane; the vision and audio
+frontends print a ``[SKIP]`` line naming their ROADMAP item.
 
-The count runs the port's Python as a real step does, op by op: the layers,
-the chunked attention's loop and the sLSTM's loop over time, so every
-layer is counted and nothing is extrapolated. It takes seconds a step for
-most combinations; xlstm-125m's sLSTM loop runs 32,768 steps at
-prefill_32k and 4,096 forward and backward at train_4k, op by op, which
-takes tens of minutes, so a sweep skips those two (``SLOW``; the README
-gives the times).
+The count runs the port's Python as a real step does, op by op: the layers
+and the chunked attention's loop, so every layer is counted. It takes
+seconds a step. The sLSTM's loop over time is the one exception: run op by
+op it took 969 s to count at train_4k (4,096 steps forward and backward)
+and 1,513 s at prefill_32k, so :func:`count_step` counts it cut to 6 and
+to 7 steps (:func:`slstm_steps`) and multiplies one step's work (their
+difference) out to S; the peak comes from the 7-step count, in which the
+storages that one inner step keeps stand for those of the S - 7 steps cut
+(``tests/test_torch_dryrun.py`` holds both equal to the whole loop's count
+at small shapes, one of them with the peak inside the loop).
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -81,6 +85,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import transformer as tf
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.registry import build_model, make_train_step
 
 # the meshes a record can be for: one card is the launchers' one-rank
@@ -89,11 +94,6 @@ MESHES = {"h100": {"data": 1, "model": 1},
           "pod16x16": make_production_mesh(),
           "pod2x16x16": make_production_mesh(multi_pod=True)}
 
-# combinations whose count takes tens of minutes: the sLSTM's loop over
-# time runs op by op on meta tensors (32,768 steps at prefill_32k, 4,096
-# forward and backward at train_4k). A sweep skips them with a printed
-# line; naming both --arch and --shape runs one.
-SLOW = {("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")}
 # ops that allocate without writing
 _NO_DATA = {torch.ops.aten.empty, torch.ops.aten.empty_like,
             torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
@@ -214,6 +214,16 @@ class StepCounter(TorchDispatchMode):
             self.live_bytes -= entry[0]
             del self.live[key]
 
+    def repeat(self, entries: dict, k: int) -> None:
+        """Counts each storage of ``entries`` (``live``'s items when they
+        were made) that is still live as ``k`` more copies of itself, until
+        it dies."""
+        for key, entry in entries.items():
+            if self.live.get(key) is entry:
+                self.live_bytes += k * entry[0]
+                entry[0] *= k + 1
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
     def kernel(self, name: str, dtype: str, flops: int, nbytes: int, plain):
         """A hand kernel's launch on meta tensors: its ``flops`` (on
         ``dtype`` operands) and ``nbytes`` counted, ``plain()`` run for the
@@ -243,18 +253,22 @@ def build_step(cfg, shape, *, max_len=None, rules=None):
     model = build_model(cfg)
     params = model.param_shapes(rules)
     batch = sp.input_specs(cfg, shape, rules)
+    rows = shape.global_batch
     if shape.kind == "train":
         tc = TrainConfig()
         state = optim.init_opt_state(params, tc.optimizer)
-        return (make_train_step(model, tc, donate=True, rules=rules),
-                (params, state, batch))
+        step = make_train_step(model, tc, donate=True, rules=rules)
+        return (lambda p, o, b: step(p, o, b, global_batch=rows)), \
+            (params, state, batch)
     if shape.kind == "prefill":
         return (lambda p, b: model.prefill(p, b, max_len=max_len,
-                                           use_flash=True, rules=rules)), \
+                                           use_flash=True, rules=rules,
+                                           global_batch=rows)), \
             (params, batch)
     cache = model.init_cache(shape.global_batch, shape.seq_len,
                              device="meta", rules=rules)
-    return (lambda p, c, b: model.decode(p, c, b, rules=rules)), \
+    return (lambda p, c, b: model.decode(p, c, b, rules=rules,
+                                         global_batch=rows)), \
         (params, cache, batch)
 
 
@@ -267,7 +281,87 @@ def mesh_rules(mesh_name: str):
 def count_step(cfg, shape, *, max_len=None, rules=None) -> dict:
     """Runs the step once on meta tensors under :class:`StepCounter`;
     returns its record (``memory``, ``cost``, ``kernels``, ``count_s``;
-    on a counting mesh also ``collectives`` and ``collective_calls``)."""
+    on a counting mesh also ``collectives`` and ``collective_calls``).
+
+    An sLSTM config's train or prefill step (whose loop over time would
+    run S steps op by op) is counted twice, with the loop cut to 6 and to
+    7 steps (:func:`slstm_steps`). The work (FLOPs, bytes, ops, kernels,
+    collectives) is affine in the steps run, so the second count less the
+    first is one step's, and the record takes the first plus S - 6 steps.
+    A peak is a max, not affine: ``memory`` is the 7-step count's, in
+    which the storages of one inner step that the loop keeps count as the
+    S - 7 steps' the cut leaves out (``slstm_steps``: [6, 7])."""
+    s = shape.seq_len
+    if "slstm" not in cfg.layer_kinds or shape.kind == "decode" or s <= 7:
+        return _count_once(cfg, shape, max_len, rules)
+    fresh = rules if rules is None or not isinstance(
+        rules.mesh, sh.CountingMesh) else \
+        sh.ShardingRules(sh.CountingMesh(dict(rules.mesh)), rules.rules)
+    with slstm_steps(6):
+        six = _count_once(cfg, shape, max_len, fresh)
+    with slstm_steps(7):
+        seven = _count_once(cfg, shape, max_len, rules)
+    rec = _affine(six, seven, s - 6)
+    rec["memory"] = seven["memory"]
+    rec["count_s"] = six["count_s"] + seven["count_s"]
+    rec["slstm_steps"] = [6, 7]
+    return rec
+
+
+@contextlib.contextmanager
+def slstm_steps(n: int):
+    """Within it, ``xlstm.slstm_sequence`` runs ``n`` (at least 5) steps of
+    its loop over S, the rest of its output standing in without a
+    gradient, and the active :class:`StepCounter` counts the storages of
+    the third step that are still live at the end of the step before the
+    last as S - n more copies: those of the steps the cut leaves out.
+    The steps away from the loop's ends are alike (the first step's state
+    needs no gradient, and a storage made in a step that the loop does not
+    keep dies within two steps), so from then on the live bytes are the
+    whole loop's at its end, forward and backward. The steps' ops are
+    alike, so the work counted is affine in ``n``."""
+    plain = xlstm_lib.slstm_sequence
+
+    def cut(x, state, p, n_heads, wx=None):
+        if wx is None:
+            wx = xlstm_lib._input_gates(x, p)
+        s = x.shape[1]
+        counter = ops.DRY_RUN_COUNTERS[-1]
+        hs = []
+        for t in range(min(n, s)):
+            if t == 2:
+                before = dict(counter.live)
+            state, h = xlstm_lib.slstm_step(None, state, p, n_heads,
+                                            wx[:, t])
+            hs.append(h)
+            if t == 2:
+                third = {k: e for k, e in counter.live.items()
+                         if before.get(k) is not e}
+            elif t == n - 2:
+                counter.repeat(third, s - n)
+        counter._paused = True          # an op the whole loop does not run
+        rest = [hs[-1].detach()] * (s - len(hs))
+        counter._paused = False
+        return torch.stack(hs + rest, dim=1), state
+    xlstm_lib.slstm_sequence = cut
+    try:
+        yield
+    finally:
+        xlstm_lib.slstm_sequence = plain
+
+
+def _affine(a, b, k):
+    """a + k (b - a) leaf by leaf over two records of the same layout."""
+    if isinstance(a, dict):
+        return {key: _affine(a[key], b[key], k) for key in a}
+    if isinstance(a, list):
+        return [_affine(x, y, k) for x, y in zip(a, b)]
+    if isinstance(a, (int, float)) and not isinstance(a, bool):
+        return a + k * (b - a)
+    return a
+
+
+def _count_once(cfg, shape, max_len, rules) -> dict:
     fn, args = build_step(cfg, shape, max_len=max_len, rules=rules)
     arg_bytes = tree_bytes(args)
     counter = StepCounter(args)
@@ -389,7 +483,6 @@ def main(argv=None):
     meshes = (["pod16x16", "pod2x16x16"] if args.both_meshes else
               ["pod2x16x16"] if args.multi_pod else ["h100"])
 
-    named = bool(args.arch and args.shape and not args.all)
     n_fail = 0
     for arch in archs:
         cfg = get_config(arch)
@@ -397,13 +490,8 @@ def main(argv=None):
             for mesh in meshes:
                 if mesh != "h100" and not tf.plane_supported(cfg):
                     print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the model "
-                          "plane runs the dense and MoE families; ROADMAP "
-                          f"Queue 1, item {tf.plane_item(cfg)}", flush=True)
-                    continue
-                if (arch, shape) in SLOW and not named:
-                    print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the sLSTM "
-                          "loop takes tens of minutes to count; name it with "
-                          "--arch and --shape", flush=True)
+                          "plane runs token inputs; ROADMAP Queue 1, item "
+                          f"{tf.plane_item(cfg)}", flush=True)
                     continue
                 rec = run_one(arch, shape, args.out, args.roofline, mesh)
                 n_fail += rec["status"] != "ok"

@@ -99,6 +99,7 @@ def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
     dev = resolve_device(device)
     batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    rows = next(iter(batch.values())).shape[0]
     if rules is not None:
         batch = place_batch(batch, rules)
         if gumbel is not None:
@@ -117,7 +118,8 @@ def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
 
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, max_len=s + gen,
-                                  use_flash=True, rules=rules)
+                                  use_flash=True, rules=rules,
+                                  global_batch=rows)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     first_logits = logits
@@ -126,7 +128,7 @@ def serve(model: Model, params, prompt, gen: int, *, temperature=1.0,
     t0 = time.perf_counter()
     for i in range(gen - 1):
         logits, cache = model.decode(params, cache, {feed: tok},
-                                     rules=rules)
+                                     rules=rules, global_batch=rows)
         tok = sample(logits, temperature, noise(i + 1, logits.shape))
         out.append(tok)
     _sync(dev)

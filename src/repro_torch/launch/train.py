@@ -111,7 +111,8 @@ def _run(args, cfg, model, tc, dev, rules) -> TrainResult:
         ts = time.perf_counter()
         batch = place_batch(synth_batch(cfg, gen, args.batch, args.seq),
                             rules)
-        params, opt_state, metrics = step(params, opt_state, batch)
+        params, opt_state, metrics = step(params, opt_state, batch,
+                                          global_batch=args.batch)
         _sync(dev)
         res.seconds.append(time.perf_counter() - ts)
         res.loss.append(float(metrics["loss"]))

@@ -679,6 +679,10 @@ def spawn_parity_report(cfg, mesh_size: int, device="cpu",
 # the smoke Llama's run: batch x prompt, decode steps, AdamW steps
 PLANE_B, PLANE_S, PLANE_GEN, PLANE_STEPS = 4, 16, 4, 2
 PLANE_WINDOW = 8      # the sliding config's window: a ring at prompt 16
+# the recurrent configs' prompt: past recurrentgemma's 64-token local
+# window (the ring wraps in the prefill and again while decoding), a
+# ragged mLSTM chunk, and divisible by the model axis (act_seq_shard)
+RECURRENT_S = 72
 RECORDED = {"all_gather_single": "all-gather",
             "all_gather_into_tensor": "all-gather",
             "reduce_scatter_single": "reduce-scatter",
@@ -729,9 +733,10 @@ def record_collectives(calls: Counter, nbytes: Counter):
             setattr(dist, name, fn)
 
 
-# the dense configs' and the MoE configs' names in ``plane_configs``
+# the dense, MoE and recurrent configs' names in ``plane_configs``
 DENSE = ("base", "sliding", "seq")
 MOE = ("moe_gather", "moe_einsum", "moe_grouped_seq")
+RECURRENT = ("recurrentgemma", "xlstm", "recurrentgemma_seq", "xlstm_seq")
 
 
 def plane_configs():
@@ -749,12 +754,24 @@ def plane_configs():
       * ``moe_grouped_seq``: the gather dispatch in groups of 16 tokens
         (a train or prefill group inside a rank's 32 tokens at data 2, a
         decode step's 4 tokens one group across the data ranks) under
-        ``act_seq_shard``: ``perf``'s ``moe_gather_grouped_seq`` shape."""
+        ``act_seq_shard``: ``perf``'s ``moe_gather_grouped_seq`` shape;
+
+    and the recurrent families in float32, each also under
+    ``act_seq_shard`` (``<name>_seq``): the smoke recurrentgemma at 3
+    layers, one (rglru, rglru, local_attn) unit (2 query heads, 1 KV head,
+    local window 64), and the smoke xlstm (one mLSTM and one sLSTM
+    block)."""
     import dataclasses as dc
     from repro_torch.configs import get_smoke_config
     base = dc.replace(get_smoke_config("llama3.2-1b"), dtype="float32")
     moe = dc.replace(get_smoke_config("qwen2-moe-a2.7b"), dtype="float32")
+    rg = dc.replace(get_smoke_config("recurrentgemma-2b"), dtype="float32",
+                    n_layers=3)
+    xl = dc.replace(get_smoke_config("xlstm-125m"), dtype="float32")
     return {"base": base,
+            "recurrentgemma": rg, "xlstm": xl,
+            "recurrentgemma_seq": dc.replace(rg, act_seq_shard=True),
+            "xlstm_seq": dc.replace(xl, act_seq_shard=True),
             "sliding": dc.replace(base, attention="sliding",
                                   window=PLANE_WINDOW),
             "seq": dc.replace(base, act_seq_shard=True),
@@ -766,6 +783,12 @@ def plane_configs():
                                           act_seq_shard=True)}
 
 
+def plane_prompt_len(cfg) -> int:
+    """The lab's prompt length: ``RECURRENT_S`` for the recurrent
+    families, else ``PLANE_S``."""
+    return RECURRENT_S if cfg.family in ("ssm", "hybrid") else PLANE_S
+
+
 def plane_inputs(cfg, seed: int = 0):
     """Whole parameters, prompt, labels and Gumbel noise from seeded host
     generators (the same on every rank)."""
@@ -773,7 +796,8 @@ def plane_inputs(cfg, seed: int = 0):
     from repro_torch.models.registry import build_model
     g = torch.Generator().manual_seed(seed)
     params = build_model(cfg).init(g, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (PLANE_B, PLANE_S), generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (PLANE_B, plane_prompt_len(cfg)),
+                         generator=g)
     noise = gumbel_noise(g, (PLANE_GEN, PLANE_B, 1, cfg.vocab_size))
     return params, toks, noise
 
@@ -788,8 +812,8 @@ def _serve_run(model, params, toks, noise, rules):
     counts = {}
     with _recording(counts, "prefill", rules):
         logits, cache = model.prefill(params, {"tokens": rows},
-                                      max_len=PLANE_S + PLANE_GEN,
-                                      rules=rules)
+                                      max_len=toks.shape[1] + PLANE_GEN,
+                                      rules=rules, global_batch=len(toks))
     outs, tokens = [logits], []
     for i in range(PLANE_GEN):
         tok = sample(logits, 1.0, noise[i])
@@ -798,7 +822,8 @@ def _serve_run(model, params, toks, noise, rules):
             break
         with _recording(counts, "decode", rules):
             logits, cache = model.decode(params, cache, {"token": tok},
-                                         rules=rules)
+                                         rules=rules,
+                                         global_batch=len(toks))
         outs.append(logits)
     return torch.cat(outs, 1), torch.cat(tokens, 1), counts
 
@@ -819,7 +844,8 @@ def _train_run(model, params, toks, rules):
     for _ in range(PLANE_STEPS):
         with _recording(counts, "train", rules):
             params, state, m = step(params, state, {"tokens": rows,
-                                                    "labels": rows})
+                                                    "labels": rows},
+                                    global_batch=len(toks))
         losses.append(m["loss"])
     return torch.stack(losses), params, counts
 
@@ -835,7 +861,8 @@ def _grads(model, params, toks, rules):
     rows = _rows(toks, rules)
     batch = {"tokens": rows, "labels": rows}
     _, grads = cm.value_and_grad(
-        lambda p: model.loss_fn(p, batch, remat=True, rules=rules)[0],
+        lambda p: model.loss_fn(p, batch, remat=True, rules=rules,
+                                global_batch=len(toks))[0],
         params)
     if rules is not None:
         grads, _ = registry._plane_grads(model, sh.ModelPlane(rules), grads,
@@ -873,6 +900,14 @@ def _max_over_ranks(v: float) -> float:
     t = torch.tensor([v], dtype=torch.float64)
     torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
     return float(t)
+
+
+def _gather_ints(v: int) -> list:
+    """``v`` from every rank of the group, in rank order."""
+    out = [torch.zeros(1, dtype=torch.int64)
+           for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(out, torch.tensor([v]))
+    return [int(t) for t in out]
 
 
 def _sum_over_ranks(v: int) -> int:
@@ -955,9 +990,11 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
     step by kind (``record_collectives``), which paths the mesh took and,
     for the MoE configs, the smallest router margin of the ``rules=None``
     runs and the choices dropped only for a lower data rank's (summed over
-    the ranks); with ``jax_params`` (a numpy tree of the reference's
-    layout) also the first config's prefill logits and first loss from
-    those parameters (``convert.lm_params``), whole. ``ref`` keeps the
+    the ranks); with ``jax_params`` ({config name: a numpy tree of the
+    reference's layout}) also each such config's prefill logits and first
+    loss from those parameters (``convert.lm_params``), whole, keyed
+    ``<name>_jax_...``. A config ``<name>_seq`` other than an MoE one is
+    held to ``<name>``'s ``rules=None`` runs. ``ref`` keeps the
     ``rules=None`` runs for the next mesh."""
     from repro_torch import convert
     from repro_torch.models import common as cm
@@ -975,7 +1012,8 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
         params, toks, noise = plane_inputs(cfg)
         logical = mdl.param_logical()
         placed = sh.place_params(params, logical, rules)
-        key = "base" if name == "seq" else name
+        key = "base" if name == "seq" else name.removesuffix("_seq") \
+            if not cfg.is_moe else name
         margins, dropped = [], []
         with router_margins(margins, cfg.experts_per_token):
             if key not in ref:
@@ -1030,6 +1068,7 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
                                                   cm.tree_leaves(base_params))))
         out[f"{name}_train_counts"] = counts
     m = plane.m
+    from repro_torch.models import transformer as tf
     if "base" in names:
         base = cfgs["base"]
         hd = base.head_dim
@@ -1037,29 +1076,36 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
             "half_head": (base.n_kv_heads * hd // m) % hd != 0,
             "kv_seq": base.n_kv_heads % m != 0,
             "ring": cfgs["sliding"].window < PLANE_S + PLANE_GEN}
+    elif "recurrentgemma" in names:
+        rg = cfgs["recurrentgemma"]
+        h0, h1 = tf._Plan(rg, plane, "train", RECURRENT_S).heads
+        out["paths"] = {
+            "kv_seq": rg.n_kv_heads % m != 0,
+            "ring": rg.local_window < RECURRENT_S,
+            "heads": sorted(_gather_ints(h1 - h0)),
+            "slstm_heads_split": cfgs["xlstm"].n_heads % m == 0}
     else:
-        from repro_torch.models import transformer as tf
         out["paths"] = {
             name: "experts" if tf._Plan(cfgs[name], plane, "train",
                                         PLANE_S).moe_ep else "d_ff"
             for name in names}
-    if jax_params is not None:
-        cfg = cfgs[names[0]]
+    for name, jp in (jax_params or {}).items():
+        cfg = cfgs[name]
         mdl = build_model(cfg)
-        local = convert.lm_params(jax_params, rules=rules,
+        local = convert.lm_params(jp, rules=rules,
                                   logical=mdl.param_logical())
         _, toks, _ = plane_inputs(cfg)
         margins = []
         with router_margins(margins, cfg.experts_per_token):
             logits, _ = mdl.prefill(local, {"tokens": _rows(toks, rules)},
-                                    rules=rules)
+                                    rules=rules, global_batch=len(toks))
             loss, _ = mdl.loss_fn(local, {"tokens": _rows(toks, rules),
                                           "labels": _rows(toks, rules)},
-                                  rules=rules)
-        out["jax_prefill_logits"] = _whole_rows(logits, rules).numpy()
-        out["jax_loss"] = float(loss)
+                                  rules=rules, global_batch=len(toks))
+        out[f"{name}_jax_prefill_logits"] = _whole_rows(logits, rules).numpy()
+        out[f"{name}_jax_loss"] = float(loss)
         if cfg.is_moe:
-            out["jax_margin"] = -_max_over_ranks(-min(margins))
+            out[f"{name}_jax_margin"] = -_max_over_ranks(-min(margins))
     return out
 
 
@@ -1071,13 +1117,63 @@ def plane_reports(meshes, jax_params=None, names=DENSE) -> list:
                               ref, names) for d, m in meshes]
 
 
+def replicated_batch_report(name: str, data: int = 2) -> dict:
+    """One batch row of config ``name`` on a (``data``, 1) mesh, where the
+    data axes do not divide the batch and every data rank holds it whole
+    (``launch.specs.place_batch``): the prefill's and a decode step's
+    logits and a plain train step's loss and aux loss against
+    ``rules=None``'s, the largest differences over the ranks, with the
+    batch's rows (``global_batch=1``) and, to show what they fix, the
+    logits with the rows taken as split (``global_batch=data``)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.specs import place_batch
+    from repro_torch.models.registry import build_model, make_train_step
+    from repro_torch import optim
+    cfg = plane_configs()[name]
+    mdl = build_model(cfg)
+    params, toks, _ = plane_inputs(cfg)
+    row = toks[:1]
+    rules = make_model_rules(data, 1, "cpu")
+    placed = sh.place_params(params, mdl.param_logical(), rules)
+    batch = place_batch({"tokens": row}, rules)
+
+    def serve(p, r, **kw):
+        logits, cache = mdl.prefill(p, batch if r else {"tokens": row},
+                                    max_len=row.shape[1] + 1, rules=r, **kw)
+        step, _ = mdl.decode(p, cache, {"token": row[:, -1:]}, rules=r,
+                             **kw)
+        return torch.cat([logits, step], 1)
+
+    def train(p, r, **kw):
+        tc = TrainConfig(warmup_steps=1, total_steps=10)
+        step = make_train_step(mdl, tc, rules=r)
+        state = optim.init_opt_state(p, tc.optimizer)
+        _, _, m = step(p, state, {"tokens": row, "labels": row}, **kw)
+        return m["loss"], m["aux"]
+
+    base = serve(params, None)
+    loss, aux = train(params, None)
+    got = serve(placed, rules, global_batch=1)
+    loss_r, aux_r = train(placed, rules, global_batch=1)
+    return {"replicated": rules.spec((sh.BATCH,), (1,))[0] is None,
+            "logits": _max_over_ranks(_diff(got, base)),
+            "loss": _max_over_ranks(abs(float(loss_r - loss))),
+            "aux": _max_over_ranks(abs(float(aux_r - aux))),
+            "aux_value": float(aux),
+            "logits_as_split": _max_over_ranks(
+                _diff(serve(placed, rules, global_batch=data), base))}
+
+
 def plane_world(meshes, jax_params=None, pod_lab=None,
-                names=DENSE) -> dict:
+                names=DENSE, replicated=None) -> dict:
     """Every rank of one spawned group: :func:`plane_reports` of the
-    configs ``names`` over ``meshes`` and, with ``pod_lab`` (a
+    configs ``names`` over ``meshes``; with ``pod_lab`` (a
     :class:`LabConfig`), the client plane's :func:`parity_report` on a
-    (pod 2, data 2) mesh, counted."""
+    (pod 2, data 2) mesh, counted; with ``replicated`` (a config name),
+    its :func:`replicated_batch_report`."""
     out = {"plane": plane_reports(meshes, jax_params, names)}
     if pod_lab is not None:
         out["pod"] = parity_report(pod_lab, (2, 2), "cpu", count=True)
+    if replicated is not None:
+        out["replicated"] = replicated_batch_report(replicated)
     return out

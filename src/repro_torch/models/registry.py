@@ -13,7 +13,11 @@ decode step.
 Each entry point takes ``rules=`` (a ``sharding.ShardingRules`` over a
 (data, model) mesh): the parameters, moments, batch and cache are then
 this rank's shards (``sharding.place_params``) and the step runs the model
-plane (``models.transformer``).
+plane (``models.transformer``). A batch whose rows the data axes do not
+divide is replicated there (``launch.specs.place_batch``). Above one data
+rank a caller passes ``global_batch=`` (the whole batch's rows), which
+tells a split batch from a replicated one (the MoE's capacity groups
+differ); an entry point without it raises there.
 """
 from __future__ import annotations
 
@@ -72,17 +76,20 @@ class Model:
 
     # ---- forwards ----
     def loss_fn(self, params, batch, *, remat=False, use_flash=False,
-                rules=None):
+                rules=None, global_batch=None):
         return tf.forward_train(params, batch, self.cfg, remat=remat,
-                                use_flash=use_flash, rules=rules)
+                                use_flash=use_flash, rules=rules,
+                                global_batch=global_batch)
 
     def prefill(self, params, batch, *, max_len=None, use_flash=False,
-                rules=None):
+                rules=None, global_batch=None):
         return tf.forward_prefill(params, batch, self.cfg, max_len=max_len,
-                                  use_flash=use_flash, rules=rules)
+                                  use_flash=use_flash, rules=rules,
+                                  global_batch=global_batch)
 
-    def decode(self, params, cache, batch, *, rules=None):
-        return tf.forward_decode(params, cache, batch, self.cfg, rules=rules)
+    def decode(self, params, cache, batch, *, rules=None, global_batch=None):
+        return tf.forward_decode(params, cache, batch, self.cfg, rules=rules,
+                                 global_batch=global_batch)
 
     def init_cache(self, batch: int, seq_len: int, device="cuda",
                    rules=None):
@@ -116,7 +123,9 @@ def make_train_step(model: Model, tc: TrainConfig, *,
     moments once (16 bytes a float32 parameter under AdamW) and one leaf's
     temporaries. The results are bit for bit those of the plain step.
 
-    Under ``rules`` the trees and the batch are this rank's shards. The
+    Under ``rules`` the trees and the batch are this rank's shards
+    (``global_batch``, the whole batch's rows, as ``Model.loss_fn`` takes
+    it: required above one data rank). The
     gradients of leaves stored split over the data axes come out of the
     FSDP gathers' backward reduce-scattered (summed over the data axes);
     the others are all-reduced here over the axes
@@ -131,11 +140,12 @@ def make_train_step(model: Model, tc: TrainConfig, *,
     plane = None if rules is None or not tf.plane_supported(model.cfg) \
         else sh.ModelPlane(rules)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, global_batch=None):
         parts = {}
 
         def lf(p):
-            loss, metrics = model.loss_fn(p, batch, remat=remat, rules=rules)
+            loss, metrics = model.loss_fn(p, batch, remat=remat, rules=rules,
+                                          global_batch=global_batch)
             parts.update((k, v.detach()) for k, v in metrics.items())
             return loss
         loss, grads = cm.value_and_grad(lf, params)

@@ -53,11 +53,17 @@ def rglru_init_state(b, dr, cw, dtype=torch.float32, device=None):
                                   device=device))
 
 
-def _gates(x, p):
-    """x: (..., Dr) conv output -> (log_a, gated input) both f32."""
+def _gates(x, p, mix=None):
+    """x: (..., Dr) conv output -> (log_a, gated input) both f32. ``mix``
+    (under the model plane, x this rank's channels and w_a, w_i their
+    rows): the (2, ..., Dr) partial products -> the sums' columns of this
+    rank's channels, a and i."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"])
-    i = torch.sigmoid(xf @ p["w_i"].float() + p["b_i"])
+    pa, pi = xf @ p["w_a"].float(), xf @ p["w_i"].float()
+    if mix is not None:
+        pa, pi = mix(torch.stack([pa, pi]))
+    r = torch.sigmoid(pa + p["b_a"])
+    i = torch.sigmoid(pi + p["b_i"])
     log_a = -_C * F.softplus(p["lam"].float()) * r
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * (i * xf)
@@ -78,9 +84,9 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_scan(x, p, h0):
+def rglru_scan(x, p, h0, mix=None):
     """x: (B,S,Dr) conv output; h0: (B,Dr). Parallel scan over time."""
-    log_a, b = _gates(x, p)                          # (B,S,Dr) each
+    log_a, b = _gates(x, p, mix)                     # (B,S,Dr) each
     a = torch.exp(log_a)
     # fold h0 into the first step: b_0 += a_0 * h0
     b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], 1)
@@ -88,31 +94,42 @@ def rglru_scan(x, p, h0):
     return h, h[:, -1]
 
 
-def rglru_step(x_t, p, h_prev):
+def rglru_step(x_t, p, h_prev, mix=None):
     """x_t: (B,Dr) conv output; one decode step."""
-    log_a, b = _gates(x_t, p)
+    log_a, b = _gates(x_t, p, mix)
     h = torch.exp(log_a) * h_prev.float() + b
     return h, h
 
 
-def rglru_block(p, x, cfg, state: RGLRUState | None = None):
+def rglru_block(p, x, cfg, state: RGLRUState | None = None, plan=None):
     """Full recurrent block: LN -> (conv -> RG-LRU) * GeLU gate -> out proj.
 
-    x: (B,S,D). Returns (y, new_state)."""
-    b, s, d = x.shape
+    x: (B,S,D). Returns (y, new_state).
+
+    Under the model plane (``plan``, ``transformer._Plan``) the block runs
+    on this rank's ``D_FF`` channels: ``w_x``/``w_gate`` column-parallel
+    (their input through ``plan.enter``), the conv, Λ, the scan and its
+    state on the rank's channels, the gates' products by the rank's rows of
+    w_a and w_i reduce-scattered to its channels (``plan.channel_sums``),
+    ``w_out`` row-parallel (``plan.exit``)."""
+    b = x.shape[0]
     if state is None:
-        state = rglru_init_state(b, cfg.rglru_d_rnn, cfg.rglru_conv_width,
+        state = rglru_init_state(b, p["w_x"].shape[1], cfg.rglru_conv_width,
                                  device=x.device)
     xin = cm.rms_norm(x, p["ln"])
+    mix = None
+    if plan is not None:
+        xin, mix = plan.enter(xin), plan.channel_sums()
     xr = cm.dense(xin, p["w_x"].to(x.dtype))         # (B,S,Dr)
     gate = F.gelu(cm.dense(xin, p["w_gate"].to(x.dtype)), approximate="tanh")
     xc, conv_state = causal_conv(xr, p["conv_w"].to(x.dtype),
                                  p["conv_b"].to(x.dtype), state.conv)
-    if s == 1:
-        h, h_last = rglru_step(xc[:, 0], p, state.h)
+    if xc.shape[1] == 1:
+        h, h_last = rglru_step(xc[:, 0], p, state.h, mix)
         h = h[:, None]
     else:
-        h, h_last = rglru_scan(xc, p, state.h)
+        h, h_last = rglru_scan(xc, p, state.h, mix)
     y = h.to(x.dtype) * gate
-    out = x + cm.dense(y, p["w_out"].to(x.dtype))
-    return out, RGLRUState(h_last, conv_state)
+    out = cm.dense(y, p["w_out"].to(x.dtype))
+    return x + (out if plan is None else plan.exit(out)), \
+        RGLRUState(h_last, conv_state)

@@ -44,10 +44,12 @@ in order in the activation dtype, and the head's nq * V columns reshape to
 logits (B, S, nq, V), codebook-major.
 
 The model plane (``rules=``, a :class:`~repro_torch.sharding.ShardingRules`
-over a (data, model) or (pod, data, model) mesh) runs the dense and MoE
-families (``family`` "dense" or "moe") on each rank's shards, as
-``rules.spec`` places the parameters, the batch (B over the data axes) and
-the cache:
+over a (data, model) or (pod, data, model) mesh) runs the dense, MoE and
+recurrent families (every config on token inputs) on each rank's shards,
+as ``rules.spec`` places the parameters, the batch (B over the data axes,
+replicated there when they do not divide it; above one data rank the
+callers pass ``global_batch``, the whole rows, which tells the two apart)
+and the cache:
 
   * FSDP: a unit's weights, stored split over the data axes along d_model,
     are all-gathered there before use, one packed buffer a unit (the
@@ -72,6 +74,21 @@ the cache:
     group that spans data ranks ranks each rank's choices after the lower
     ranks' (their counts all-gathered), and the aux loss's sums go over
     the data axes;
+  * the recurrent blocks on their D_FF channels (``rglru.rglru_block``,
+    ``xlstm.mlstm_block``, ``xlstm.slstm_block`` take the plan): the RG-LRU
+    whole on the rank's channels, its gates' partial products
+    reduce-scattered to them (``channel_sums``); the mLSTM's ``w_up``
+    all-gathered over "model" and cut to the rank's columns of x_i and of
+    z (``_need`` gives several ranges of one dimension), rather than
+    computed with the stored columns (at m = 2 rank 0 stores all of x_i)
+    and the activations exchanged: the (d, 2 d_inner) weight moves fewer
+    bytes than the (B, S, 2 d_inner) activations at any train or prefill
+    shape, and it takes an all-gather the plane has; its partial q, k, v
+    and gates summed in one all-reduce and the cell run whole on every
+    rank; the sLSTM's ``W x`` all-gathered along its columns once a block
+    and its loop over time run whole on every rank, no collective inside
+    it. A recurrent block under ``act_seq_shard`` starts with ``enter``
+    (the whole S) and needs no carry between ranks;
   * the embedding: vocab-parallel, a masked local lookup then an
     all-reduce; the head: vocab-parallel logits (all-gathered where serving
     samples them), the loss ``common.cross_entropy``'s vocab-parallel form;
@@ -85,9 +102,9 @@ the cache:
 A weight whose storage does not match the rank's part (a dimension the
 mesh does not divide is stored whole) is taken whole and cut. A collective
 over axes of one rank is the identity, so on a one-rank mesh none runs and
-the results are the unsharded ones bit for bit. The other families (the
-recurrent ones, the vision and audio frontends) under rules run as without
-them at one rank and raise ``NotImplementedError`` above it.
+the results are the unsharded ones bit for bit. The vision and audio
+frontends under rules run as without them at one rank and raise
+``NotImplementedError`` above it.
 """
 from __future__ import annotations
 
@@ -112,9 +129,7 @@ from repro_torch.models.rope import apply_mrope, apply_rope
 
 _LATER = "not ported yet: ROADMAP Queue 1, item {}"
 # the ROADMAP item of each family's model-plane port
-_PLANE_ITEMS = {"ssm": "16 (the recurrent families on the model axis)",
-                "hybrid": "16 (the recurrent families on the model axis)",
-                "vlm": "17 (the vision and audio frontends on the model axis)",
+_PLANE_ITEMS = {"vlm": "17 (the vision and audio frontends on the model axis)",
                 "audio": "17 (the vision and audio frontends on the model "
                          "axis)"}
 
@@ -285,10 +300,14 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
         plane = sh.ModelPlane(rules)
         whole = init_cache(cfg, batch, seq_len, dtype, "meta")
         logical = cache_logical(cfg, seq_len, plane.m)
-        return sh._map_logical(
+        local = sh._map_logical(
             lambda t, lg: torch.zeros(plane.local_shape(lg, t.shape),
                                       dtype=t.dtype, device=device),
             whole, logical)
+        for block in local["scan"] + local["tail"]:
+            if "m" in block:    # the xLSTM stabilisers start at -1e9
+                block["m"].fill_(-1e9)
+        return local
     period, n_units, tail_kinds = scan_meta(cfg)
     scan_caches = tuple(
         init_block_cache(cfg, kind, batch, seq_len, dtype, (n_units,), device)
@@ -363,8 +382,9 @@ def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
     q, k, v = _project_qkv(p, h, cfg)
     q, k = _apply_rope(q, k, positions, cfg)
     kq, vq = (k, v) if plan is None else (plan.kv_heads(k), plan.kv_heads(v))
-    y = attn.attention(q, kq, vq, causal=True, window=window,
-                       use_flash=use_flash)
+    # a model rank of more ranks than query heads may hold none
+    y = q if q.shape[2] == 0 else attn.attention(
+        q, kq, vq, causal=True, window=window, use_flash=use_flash)
     b, s, _, _ = y.shape
     out = cm.dense(y.reshape(b, s, -1), p["wo"].to(x.dtype))
     x = x + (out if plan is None else plan.exit(out))
@@ -428,8 +448,8 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos, aux,
                                                              cache["conv"])
         x, st = rglru_lib.rglru_block(
             {k: v for k, v in p.items() if k not in ("ln2", "mlp")}, x, cfg,
-            st)
-        x = x + _mlp(p["mlp"], cm.rms_norm(x, p["ln2"]))
+            st, plan)
+        x = x + _mlp(p["mlp"], cm.rms_norm(x, p["ln2"]), plan)
         if cache is not None:
             _store(cache, st._asdict())
         return x, aux
@@ -438,14 +458,14 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos, aux,
         if cache is not None:
             st = xlstm_lib.MLSTMState(cache["C"], cache["n"], cache["m"])
             conv = cache["conv"]
-        x, (st, conv) = xlstm_lib.mlstm_block(p, x, cfg, st, conv)
+        x, (st, conv) = xlstm_lib.mlstm_block(p, x, cfg, st, conv, plan)
         if cache is not None:
             _store(cache, dict(st._asdict(), conv=conv))
         return x, aux
     if kind == "slstm":
         st = None if cache is None else xlstm_lib.SLSTMState(
             cache["c"], cache["n"], cache["m"], cache["h"])
-        x, st = xlstm_lib.slstm_block(p, x, cfg, st)
+        x, st = xlstm_lib.slstm_block(p, x, cfg, st, plan)
         if cache is not None:
             _store(cache, st._asdict())
         return x, aux
@@ -555,13 +575,16 @@ def _run_stack(params, cache, x, cfg, positions, *, mode, pos=0,
 
 
 def forward_train(params, batch, cfg, *, remat=False, use_flash=False,
-                  rules=None):
+                  rules=None, global_batch=None):
     """Returns (loss, {"ce", "aux"}): loss = ce + aux, ce the mean CE of
     the logits at positions 0..S-2 against ``batch["labels"]`` at 1..S-1,
     aux the MoE layers' router losses times ``cfg.router_aux_weight`` (0
     for the other families). Under ``rules`` the batch is this rank's rows
-    and ce the mean over the whole batch's tokens."""
-    plan = _plan(cfg, rules, "train", batch)
+    and ce the mean over the whole batch's tokens; ``global_batch``, the
+    whole batch's rows, says whether they are split over the data axes or
+    replicated there (``launch.specs.place_batch``); it is required above
+    one data rank."""
+    plan = _plan(cfg, rules, "train", batch, global_batch)
     if plan is not None:
         x, positions = plan.embed_tokens(params, batch["tokens"])
         x, aux = _run_stack(params, None, x, cfg, positions, mode="train",
@@ -581,14 +604,15 @@ def forward_train(params, batch, cfg, *, remat=False, use_flash=False,
 
 
 def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False,
-                    rules=None):
+                    rules=None, global_batch=None):
     """Returns (last_token_logits, cache).
 
     ``max_len``: cache capacity (prompt + expected decode steps). Defaults
     to the prompt length; serving callers pass prompt_len + generation
     budget. Under ``rules`` the batch and the returned cache are this
-    rank's shards and the logits this rank's rows over the whole vocab."""
-    plan = _plan(cfg, rules, "prefill", batch)
+    rank's shards and the logits this rank's rows over the whole vocab
+    (``global_batch`` as in :func:`forward_train`)."""
+    plan = _plan(cfg, rules, "prefill", batch, global_batch)
     if plan is not None:
         x, positions = plan.embed_tokens(params, batch["tokens"])
         b, s = positions.shape
@@ -606,12 +630,14 @@ def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False,
     return logits_from_hidden(params, x[:, -1:], cfg), dict(cache, pos=s)
 
 
-def forward_decode(params, cache, batch, cfg, *, rules=None):
+def forward_decode(params, cache, batch, cfg, *, rules=None,
+                   global_batch=None):
     """One new token. batch: {"token": (B,1)} or, audio, {"codes": (B,1,nq)}.
     Returns (logits, cache): the cache's buffers are updated in place and
-    its position advanced."""
+    its position advanced (``rules``, ``global_batch`` as in
+    :func:`forward_train`)."""
     pos = cache["pos"]
-    plan = _plan(cfg, rules, "decode", batch)
+    plan = _plan(cfg, rules, "decode", batch, global_batch)
     if plan is not None:
         x, _ = plan.embed_tokens(params, batch["token"])
         x, _ = _run_stack(params, cache, x, cfg, None, mode="decode",
@@ -631,60 +657,77 @@ def forward_decode(params, cache, batch, cfg, *, rules=None):
 # ---------------------------------------------------------------------------
 
 def plane_supported(cfg) -> bool:
-    """Whether the model plane runs ``cfg`` above one rank: the dense and
-    MoE families, attention blocks with an MLP or an MoE, token inputs."""
-    return (cfg.family in ("dense", "moe")
-            and cfg.frontend == "none"
-            and set(cfg.layer_kinds) <= {"attn", "local_attn"})
+    """Whether the model plane runs ``cfg`` above one rank: the dense, MoE,
+    xLSTM and RG-LRU hybrid families on token inputs."""
+    return cfg.frontend == "none" and set(cfg.layer_kinds) <= {
+        "attn", "local_attn", "rglru", "mlstm", "slstm"}
 
 
 def plane_item(cfg) -> str:
     """The ROADMAP item that ports ``cfg``'s family to the model plane."""
-    if cfg.frontend != "none":
-        return _PLANE_ITEMS["vlm"]
-    return _PLANE_ITEMS.get(cfg.family, _PLANE_ITEMS["ssm"])
+    return _PLANE_ITEMS["vlm" if cfg.frontend == "vision_stub" else "audio"]
 
 
-def _plan(cfg, rules, mode, batch):
+def _plan(cfg, rules, mode, batch, global_batch=None):
     """The step's :class:`_Plan`, or None: no rules, or a family the model
     plane does not run on a one-rank mesh (it runs as without rules). A
-    plan is made once per (config, step kind, sequence length) and kept on
-    ``rules``, so a step repeats none of its layout work."""
+    plan is made once per (config, step kind, sequence length, batch
+    layout) and kept on ``rules``, so a step repeats none of its layout
+    work. ``global_batch`` (the whole batch's rows; above one data rank
+    the caller must pass it) says whether the batch is replicated over the
+    data axes, as ``rules.spec`` places a BATCH the axes do not divide
+    (``launch.specs.place_batch``)."""
     if rules is None:
         return None
     if not plane_supported(cfg):
         if sh.ModelPlane(rules).size["all"] > 1:
             raise NotImplementedError(_LATER.format(plane_item(cfg)))
         return None
-    seq = next(iter(batch.values())).shape[1]
+    rows, seq = next(iter(batch.values())).shape[:2]
     plans = rules.__dict__.setdefault("_plans", {})
-    key = (cfg, mode, seq)
+    plane = sh.ModelPlane(rules)
+    if global_batch is None:
+        if plane.k_dp > 1:
+            raise ValueError(
+                f"a batch over {plane.k_dp} data ranks needs global_batch=, "
+                "its whole rows: split or replicated there is rules.spec's "
+                "placement of them (launch.specs.place_batch)")
+        global_batch = rows
+    replicated = plane.spec((sh.BATCH,), (global_batch,))[0] is None
+    if global_batch != rows * (1 if replicated else plane.k_dp):
+        raise ValueError(f"{rows} rows a rank do not make a batch of "
+                         f"{global_batch} over {plane.k_dp} data ranks")
+    key = (cfg, mode, seq, replicated)
     if key not in plans:
-        plans[key] = _Plan(cfg, sh.ModelPlane(rules), mode, seq)
+        plans[key] = _Plan(cfg, plane, mode, seq, replicated)
     return plans[key]
 
 
 class _Plan:
-    """How one rank computes a dense or MoE step under the model plane: its
-    query heads, KV heads, d_ff columns, experts (or expert d_ff columns)
-    and vocab rows on "model", whether the
-    KV heads lie whole on every rank (``kv_seq``: m does not divide them;
-    the cache then lies over its slots) and whether the activations between
-    units are split along S (``seq_shard``)."""
+    """How one rank computes a step under the model plane: its query heads,
+    KV heads, d_ff columns, experts (or expert d_ff columns), recurrent
+    channels and vocab rows on "model", whether the KV heads lie whole on
+    every rank (``kv_seq``: m does not divide them; the cache then lies
+    over its slots), whether the activations between units are split along
+    S (``seq_shard``) and whether the batch is replicated over the data
+    axes (``replicated``)."""
 
-    def __init__(self, cfg, plane: sh.ModelPlane, mode: str, seq_len: int):
+    def __init__(self, cfg, plane: sh.ModelPlane, mode: str, seq_len: int,
+                 replicated: bool = False):
         self.cfg, self.plane, self.mode = cfg, plane, mode
+        self.replicated = replicated
         m, r = plane.m, plane.rank["model"]
         heads, kv = cfg.n_heads, cfg.n_kv_heads
         self.heads = sh.split_range(heads, m, r)
         self.kv_seq = kv % m != 0
         g = heads // kv
         kv_of = [h // g for h in range(*self.heads)]
-        self.kv_range = (kv_of[0], kv_of[-1] + 1)
+        # a rank of more model ranks than query heads may hold none
+        self.kv_range = (kv_of[0], kv_of[-1] + 1) if kv_of else (0, 0)
         n = self.kv_range[1] - self.kv_range[0]
         # the query heads' KV heads as a slice when each is read by an equal
         # run of them (a uniform GQA group); else one KV head per query head
-        even = len(kv_of) % n == 0 and kv_of == [
+        even = not kv_of or len(kv_of) % n == 0 and kv_of == [
             k for k in range(*self.kv_range) for _ in range(len(kv_of) // n)]
         self.kv_index = None if even else torch.as_tensor(kv_of)
         self.ff = sh.split_range(cfg.d_ff, m, r)
@@ -703,34 +746,72 @@ class _Plan:
         self._layouts = {}
 
     # -- weights -----------------------------------------------------------
-    def _need(self, path, spec):
-        """(dim, lo, hi): the part of a weight along "model" that this rank
-        computes with; None for a weight every rank uses whole as stored
-        (split over "model" nowhere), "whole" for one every rank computes
-        with whole whatever its storage (the MoE router)."""
+    def _need(self, kind, path, spec):
+        """(dim, ((lo, hi), ...)): the part of a weight of a ``kind`` block
+        (None for the outer weights) along "model" that this rank computes
+        with, one or more ranges of one dimension concatenated in order;
+        None for a weight every rank uses whole as stored (split over
+        "model" nowhere), "whole" for one every rank computes with whole
+        whatever its storage (the MoE router; the sLSTM's recurrence and
+        bias, and the mLSTM's group norm, whose cells run whole)."""
+        if kind in ("rglru", "mlstm", "slstm") and path[0] != "mlp":
+            return self._need_recurrent(kind, path, spec)
         hd = self.cfg.head_dim
         h0, h1 = self.heads
         if path == ("wq",):
-            return 1, h0 * hd, h1 * hd
+            return 1, ((h0 * hd, h1 * hd),)
         if path == ("wo",):
-            return 0, h0 * hd, h1 * hd
+            return 0, ((h0 * hd, h1 * hd),)
         if path in (("wk",), ("wv",)):
             if self.kv_seq:
-                return 1, 0, spec.shape[1]
-            return 1, self.kv_range[0] * hd, self.kv_range[1] * hd
+                return 1, ((0, spec.shape[1]),)
+            return 1, ((self.kv_range[0] * hd, self.kv_range[1] * hd),)
         if path[0] == "mlp":
-            return (0 if path[1] == "wo" else 1), *self.ff
+            return (0 if path[1] == "wo" else 1), (self.ff,)
         if path[0] == "moe":
             if path[1] == "router":
                 return "whole"
             if path[1] == "shared":
-                return (0 if path[2] == "wo" else 1), *self.shared_ff
+                return (0 if path[2] == "wo" else 1), (self.shared_ff,)
             if self.moe_ep:
-                return 0, *self.experts
-            return (1 if path[1] == "wo" else 2), *self.moe_ff
+                return 0, (self.experts,)
+            return (1 if path[1] == "wo" else 2), (self.moe_ff,)
         if path in (("embed", "tok"), ("head",)):
-            return (0 if path == ("embed", "tok") else 1), *self.vocab
+            return (0 if path == ("embed", "tok") else 1), (self.vocab,)
         return None
+
+    def _need_recurrent(self, kind, path, spec):
+        """``_need`` of a recurrent block's own weights: the rank's
+        ``split_range`` of the rows or columns that carry D_FF (the
+        RG-LRU's and the sLSTM's even: their gate sums and W x meet in
+        equal parts); the mLSTM's ``w_up`` its part of each half, x_i and
+        z (stored in contiguous parts of the concatenated columns: at m = 2
+        rank 0 stores all of x_i, so the rank's columns are gathered over
+        "model" and cut, not used as stored)."""
+        name = path[0]
+        if name in ("ln", "ln2", "b_if"):
+            return None
+        if kind == "slstm":
+            if name in ("r_gates", "b_gates"):
+                return "whole"
+            if name not in ("w_gates", "ffn_up", "ffn_down"):
+                return None
+        elif name == "gn":
+            return "whole"
+        d = 1 if name in ("w_x", "w_gate", "conv_w", "w_up", "w_gates",
+                          "ffn_up") else 0
+        m, r = self.plane.m, self.plane.rank["model"]
+        width = spec.shape[d]
+        if name in ("w_x", "w_gates") and width % m:
+            raise ValueError(f"the {kind} block's {width} channels must "
+                             f"divide the model axis ({m})")
+        if name != "w_up":
+            return d, (sh.split_range(width, m, r),)
+        di = width // 2
+        lo, hi = sh.split_range(di, m, r)
+        # on one model rank the two halves are the stored whole
+        return d, ((lo, hi), (di + lo, di + hi)) if hi - lo < di else \
+            ((0, 2 * di),)
 
     def weights(self, key, specs, p_loc):
         """``p_loc`` (this rank's stored shards of the weights that the spec
@@ -745,7 +826,8 @@ class _Plan:
         whole: the backward keeps this rank's slice). The layout is worked
         out once per ``key`` (a block kind, or the outer weights' names)."""
         if key not in self._layouts:
-            self._layouts[key] = self._layout(specs())
+            self._layouts[key] = self._layout(
+                specs(), key if isinstance(key, str) else None)
         dp_idx, dp_dims, gather, copy, needs, whole = self._layouts[key]
         plane = self.plane
         out = list(cm.tree_leaves(p_loc))
@@ -760,17 +842,18 @@ class _Plan:
                                                 "model")):
             out[i] = t
         for i in gather + copy:
-            d, lo, hi = needs[i]
-            out[i] = out[i].narrow(d, lo, hi - lo)
+            d, ranges = needs[i]
+            parts = [out[i].narrow(d, lo, hi - lo) for lo, hi in ranges]
+            out[i] = parts[0] if len(parts) == 1 else torch.cat(parts, d)
         for i, d in whole:
             out[i] = plane.replicate(out[i], "model", d)
         return cm.tree_unflatten(p_loc, out)
 
-    def _layout(self, specs):
-        """For the leaves of ``specs`` (``tree_leaves`` order): those stored
-        split over the data axes and the dimension of each, those to
-        all-gather over "model", those to ``copy``, each one's part
-        along "model" (``_need``), and (index, dim) of those to
+    def _layout(self, specs, kind):
+        """For the leaves of ``specs`` (``tree_leaves`` order) of a ``kind``
+        block: those stored split over the data axes and the dimension of
+        each, those to all-gather over "model", those to ``copy``, each
+        one's part along "model" (``_need``), and (index, dim) of those to
         ``replicate``."""
         plane = self.plane
         paths = list(cm.spec_paths(specs))
@@ -785,19 +868,18 @@ class _Plan:
         dp_idx = [i for i, e in enumerate(specs_) if dp_dim(e) is not None]
         needs, gather, copy, whole = {}, [], [], []
         for i, (path, sp) in enumerate(paths):
-            need = self._need(path, sp)
+            need = self._need(kind, path, sp)
             if need == "whole":
                 whole += [(i, d) for d, e in enumerate(specs_[i])
                           if e == "model"]
                 continue
             if need is None:
                 continue
-            d, lo, hi = need
-            needs[i] = need
+            d, ranges = needs[i] = need
             if specs_[i][d] is None:
                 copy.append(i)
-            elif sh.split_range(sp.shape[d], plane.m,
-                                plane.rank["model"]) != (lo, hi):
+            elif ranges != (sh.split_range(sp.shape[d], plane.m,
+                                           plane.rank["model"]),):
                 gather.append(i)
         return (dp_idx, [dp_dim(specs_[i]) for i in dp_idx], gather, copy,
                 needs, whole)
@@ -823,6 +905,15 @@ class _Plan:
             return self.plane.scatter(out, "model", 1)
         return self.plane.psum(out, "model")
 
+    def channel_sums(self):
+        """The RG-LRU gates' sums: (2, ..., Dr) partial products of this
+        rank's channels by its rows of w_a and w_i -> their sums over
+        "model", this rank's channels of each (one reduce-scatter along
+        the last dim); None on one model rank (nothing to sum)."""
+        if self.plane.m == 1:
+            return None
+        return lambda t: self.plane.scatter(t, "model", t.dim() - 1).unbind(0)
+
     def moe(self, p, xin):
         """The MoE branch of (B, S, D) normed activations (this rank's part
         of S under ``seq_shard``); returns (y, aux loss). Every rank of
@@ -834,12 +925,16 @@ class _Plan:
         routed and shared outputs, each this rank's partial sum, are
         summed, then summed over "model" once (in float32 for the gather
         dispatch above one rank). The aux loss's sums go over the data
-        ranks in a train step (serving drops the loss)."""
+        ranks in a train step (serving drops the loss). A batch replicated
+        over the data axes is the whole batch on every data rank: its
+        groups are the whole batch's, and no rank ranks its choices after
+        another's (each holds every token)."""
         cfg, plane = self.cfg, self.plane
         xw = plane.replicate(xin, "model", 1) if self.seq_shard else xin
         b, s, _ = xw.shape
         n = b * s
-        t = moe_lib.group_size(cfg, b * plane.k_dp, s)
+        t = moe_lib.group_size(cfg, b if self.replicated else b * plane.k_dp,
+                               s)
         if t % n and n % t:
             raise ValueError(
                 f"an MoE group of {t} tokens neither tiles nor is tiled by "
@@ -918,12 +1013,13 @@ class _Plan:
         """This rank's empty cache shards for its ``b`` rows."""
         cache = init_cache(self.cfg, b * self.plane.k_dp, cap,
                            self.cfg.act_dtype, device, rules=self.plane.rules)
-        w = attn_cache_len(self.cfg, "attn", cap)
-        if self.kv_seq and w % self.plane.m:
-            raise ValueError(
-                f"the cache's {w} slots must divide the model axis "
-                f"({self.plane.m}) when its {self.cfg.n_kv_heads} KV heads "
-                "do not")
+        for kind in set(self.cfg.layer_kinds) & {"attn", "local_attn"}:
+            w = attn_cache_len(self.cfg, kind, cap)
+            if self.kv_seq and w % self.plane.m:
+                raise ValueError(
+                    f"the {kind} cache's {w} slots must divide the model "
+                    f"axis ({self.plane.m}) when its {self.cfg.n_kv_heads} "
+                    "KV heads do not")
         return cache
 
     def _slots(self, cache):
@@ -980,7 +1076,7 @@ def grad_sum_axes(cfg, rules, seq_len: int):
         if not any(e is not None and sh._axes(e) == plane.axes["dp"]
                    for e in entries):
             axes.append("dp")
-        if seq and path[-1] in ("ln1", "ln2", "final_norm"):
+        if seq and path[-1] in ("ln", "ln1", "ln2", "final_norm"):
             axes.append("model")
         out.append(tuple(axes))
     return out

@@ -222,10 +222,12 @@ def slstm_step(x_t, state: SLSTMState, p, n_heads, wx=None):
     return SLSTMState(c, n, m_new, h), h
 
 
-def slstm_sequence(x, state: SLSTMState, p, n_heads):
+def slstm_sequence(x, state: SLSTMState, p, n_heads, wx=None):
     """x: (B,S,D) -> (h: (B,S,D) f32, final state). A loop over time after
-    one GEMM for every step's W x_t."""
-    wx = _input_gates(x, p)                                # (B,S,4D)
+    one GEMM for every step's W x_t (``wx``, (B,S,4D), when the caller
+    computed it)."""
+    if wx is None:
+        wx = _input_gates(x, p)                            # (B,S,4D)
     hs = []
     for t in range(x.shape[1]):
         state, h = slstm_step(None, state, p, n_heads, wx[:, t])
@@ -256,22 +258,40 @@ def causal_conv(x, w, b, state=None):
     return y.to(x.dtype), new_state
 
 
-def mlstm_block(p, x, cfg, state=None, conv_state=None):
-    """x: (B,S,D). Returns (y, (MLSTMState, conv_state))."""
-    b, s, d = x.shape
+def mlstm_block(p, x, cfg, state=None, conv_state=None, plan=None):
+    """x: (B,S,D). Returns (y, (MLSTMState, conv_state)).
+
+    Under the model plane (``plan``, ``transformer._Plan``) ``w_up`` holds
+    this rank's ``D_FF`` channels of x_i and of z (``[xi_r | z_r]``), and
+    the conv and the rows of ``wq``/``wk``/``wv``/``w_if`` are the rank's:
+    their partial products are summed over "model" in one all-reduce, the
+    cell and the per-head group norm run whole on every rank (the state
+    has no model axis), and the rank keeps its channels of the output
+    (``ModelPlane.split``) for ``* silu(z)`` and the row-parallel
+    ``w_down``."""
+    b = x.shape[0]
     h = cfg.n_heads
-    di = p["wq"].shape[0]
+    di = p["wq"].shape[1]
     dh = di // h
     xin = cm.rms_norm(x, p["ln"])
+    if plan is not None:
+        xin = plan.enter(xin)
+    s = xin.shape[1]
     up = cm.dense(xin, p["w_up"].to(x.dtype))
     xi, z = up.chunk(2, dim=-1)
     xc, conv_state = causal_conv(xi, p["conv_w"].to(x.dtype),
                                  p["conv_b"].to(x.dtype), conv_state)
     xc = F.silu(xc)
-    q = cm.dense(xc, p["wq"].to(x.dtype)).reshape(b, s, h, dh) * dh ** -0.5
-    k = cm.dense(xc, p["wk"].to(x.dtype)).reshape(b, s, h, dh) * dh ** -0.5
-    v = cm.dense(xi, p["wv"].to(x.dtype)).reshape(b, s, h, dh)
-    gates = cm.dense(xc, p["w_if"].to(x.dtype)) + p["b_if"].to(x.dtype)
+    q = cm.dense(xc, p["wq"].to(x.dtype))
+    k = cm.dense(xc, p["wk"].to(x.dtype))
+    v = cm.dense(xi, p["wv"].to(x.dtype))
+    gates = cm.dense(xc, p["w_if"].to(x.dtype))
+    if plan is not None:
+        q, k, v, gates = plan.plane.psum_packed([q, k, v, gates], "model")
+    q = q.reshape(b, s, h, dh) * dh ** -0.5
+    k = k.reshape(b, s, h, dh) * dh ** -0.5
+    v = v.reshape(b, s, h, dh)
+    gates = gates + p["b_if"].to(x.dtype)
     i_pre, f_pre = gates.chunk(2, dim=-1)                  # (B,S,H)
     f_pre = f_pre + 3.0                                    # remember-bias
     if state is None:
@@ -283,28 +303,50 @@ def mlstm_block(p, x, cfg, state=None, conv_state=None):
     else:
         hy, state = mlstm_chunkwise(q, k, v, i_pre, f_pre, state)
     hy = cm.group_norm_heads(hy, p["gn"].reshape(h, dh), h).reshape(b, s, di)
+    if plan is not None:
+        hy = plan.plane.split(hy, "model", 2)
     out = hy.to(x.dtype) * F.silu(z)
-    y = x + cm.dense(out, p["w_down"].to(x.dtype))
-    return y, (state, conv_state)
+    y = cm.dense(out, p["w_down"].to(x.dtype))
+    return x + (y if plan is None else plan.exit(y)), (state, conv_state)
 
 
-def slstm_block(p, x, cfg, state=None):
+def slstm_block(p, x, cfg, state=None, plan=None):
+    """x: (B,S,D). Returns (y, SLSTMState).
+
+    Under the model plane (``plan``) each rank computes its columns of
+    ``W x`` (``w_gates`` column-parallel, stored gate-major in contiguous
+    parts), all-gathered along the last dim once a block
+    (``ModelPlane.replicate``); ``r_gates`` and ``b_gates`` come whole
+    (``replicate``), and the loop over time runs whole on every rank, no
+    collective inside it (the state has no model axis). Under
+    ``act_seq_shard`` the rank keeps its part of S of the cell's output
+    (``ModelPlane.split``). The post-FFN is the dense MLP's column/row
+    pair."""
     b, s, d = x.shape
     nh = cfg.n_heads
     xin = cm.rms_norm(x, p["ln"])
+    wx = None
+    if plan is not None:
+        xin = plan.enter(xin)
+        s = xin.shape[1]
+        xw = xin[:, 0] if s == 1 else xin
+        wx = plan.plane.replicate(_input_gates(xw, p), "model", xw.dim() - 1)
     if state is None:
         state = slstm_init_state(b, d, device=x.device)
     if s == 1:
-        state, h = slstm_step(xin[:, 0], state, p, nh)
+        state, h = slstm_step(xin[:, 0], state, p, nh, wx)
         h = h[:, None]
     else:
-        h, state = slstm_sequence(xin, state, p, nh)
+        h, state = slstm_sequence(xin, state, p, nh, wx)
     h = cm.group_norm_heads(h.reshape(b, s, nh, d // nh),
                             p["gn"].reshape(nh, d // nh), nh).reshape(b, s, d)
+    if plan is not None and plan.seq_shard:
+        h = plan.plane.split(h, "model", 1)
     x = x + h.to(x.dtype)
     # post-FFN (GeLU in its tanh form, as jax.nn.gelu; pf 4/3)
     xin2 = cm.rms_norm(x, p["ln2"])
+    if plan is not None:
+        xin2 = plan.enter(xin2)
     f = cm.dense(xin2, p["ffn_up"].to(x.dtype))
-    y = x + cm.dense(F.gelu(f, approximate="tanh"),
-                     p["ffn_down"].to(x.dtype))
-    return y, state
+    out = cm.dense(F.gelu(f, approximate="tanh"), p["ffn_down"].to(x.dtype))
+    return x + (out if plan is None else plan.exit(out)), state

@@ -58,12 +58,12 @@ the draws map their uniforms onto every client's size, and the exchange's
 result gather brings the new sizes, so keeping them whole costs no
 collective of its own.
 
-The model half (:class:`ModelPlane`) runs the dense and MoE transformer
-families on
-a (data, model) or (pod, data, model) mesh (``models.transformer``): each
-rank holds the shards ``ShardingRules.spec`` gives it (:func:`place_params`)
-and computes on them; every collective the layout needs goes through the
-plane's autograd functions, whose backward is the adjoint collective. Per
+The model half (:class:`ModelPlane`) runs the dense, MoE and recurrent
+transformer families on a (data, model) or (pod, data, model) mesh
+(``models.transformer``): each rank holds the shards ``ShardingRules.spec``
+gives it (:func:`place_params`) and computes on them; every collective the
+layout needs goes through the plane's autograd functions, whose backward
+is the adjoint collective. Per
 unit (one attention block with its MLP) of L, with "D" the data axes and
 "M" the model axis; ``kvg`` is 1 when M does not divide the KV heads (their
 columns are then all-gathered over M, and the cache lies over its slots):
@@ -170,6 +170,60 @@ train, remat, seq  AG 2 cg L   AG 2 rg L
                    AR 2L       RS -L
                                AR 2L
 =================  ==========  ============
+
+The recurrent blocks (``models.rglru``, ``models.xlstm``) run on their
+D_FF channels over M, each with the dense unit's column- and row-parallel
+pair: "enter" (forward nothing, backward an all-reduce over M; under seq
+an all-gather along S, a reduce-scatter backward) and "exit" (an
+all-reduce over M, nothing backward; under seq a reduce-scatter along S,
+an all-gather backward). Their state lies as the cache does
+(``transformer.cache_logical``): the RG-LRU's on the rank's channels; the
+mLSTM's and sLSTM's whole, each rank computing the cell alike, with no
+collective inside a loop over time. recurrentgemma's local attention is a
+dense unit's attention block (one KV head: kvg is 1 above one rank). Per
+block, with "g" 1 when M divides the mLSTM's inner width and "h" 1 when M
+divides the sLSTM's heads (both then stored split over M):
+
+========  ==========================================  =======================
+block     forward                                     backward (train)
+========  ==========================================  =======================
+rglru     AG D (weights); enter; RS M (the gates'     RS D; AG M (the gates'
+          products by the rank's rows of w_a, w_i,    sums); AR M (b_a, b_i,
+          to its channels); exit; the MLP's pair      cut from whole: copy);
+                                                      the pairs'
+mlstm     AG D; enter; AG M (w_up: the rank's x_i     RS D; RS M (w_up); AG M
+          and z columns); g AG M (gn, replicate);     (the output's ``split``
+          AR M (the partial q, k, v, i, f, one        to the rank's channels);
+          buffer); the cell whole; exit               the pair's
+slstm     AG D; enter; AG M (W x's columns,           RS D; the pairs'; under
+          replicate); AG M (b_gates); h AG M          seq AG M (the output's
+          (r_gates); the loop whole; the FFN's pair   split along S)
+========  ==========================================  =======================
+
+Summed over a unit of b blocks, the unit's closing exit not recomputed
+under remat (recurrentgemma's: rglru, rglru, local_attn, b = 3; xlstm's:
+mlstm, slstm, b = 2):
+
+=================  =====  =========================  =====================
+                   D      M, recurrentgemma          M, xlstm
+=================  =====  =========================  =====================
+prefill            AG b   AG kvg; RS 2; AR 6         AG 3 + g + h; AR 3
+prefill, seq       AG b   AG 6 + kvg; RS 8           AG 6 + g + h; AR 1;
+                                                     RS 2
+decode step        AG b   AG 2 kvg; RS 2;            AG 3 + g + h; AR 3
+                          AR 6 + 3 kvg
+train, remat       AG 2b  AG 2 + 2 kvg; RS 4 + kvg;  AG 7 + 2g + 2h; RS 1;
+                   RS b   AR 19                      AR 8
+train, remat, seq  AG 2b  AG 20 + 2 kvg;             AG 16 + 2g + 2h; AR 2;
+                   RS b   RS 21 + kvg; AR 2          RS 7
+=================  =====  =========================  =====================
+
+A step adds the dense
+table's step terms and, in training, one all-reduce over D of the
+gradients of the leaves stored whole there (the recurrent blocks' conv,
+gate and bias weights); under seq the norm scales' all-reduce over M
+covers the blocks' own ``ln``. ``tests/test_torch_recurrent_plane.py``
+holds every count to these tables on gloo ranks.
 
 The default process group is never initialised on import; the mesh
 constructors in ``launch.mesh`` do that.
@@ -716,15 +770,17 @@ class ModelPlane:
     ``psum``       all-reduce (sum)               identity
     ``copy``       identity                       all-reduce (sum)
     ``replicate``  all-gather along ``dim``       this rank's slice
+    ``split``      this rank's slice              all-gather along ``dim``
     =============  =============================  ==========================
 
     ``gather_counts`` is a plain all-gather over the data axes (no
     autograd) of a small int tensor.
 
-    ``gather_packed`` and ``copy_packed`` move several tensors of one dtype
-    in one buffer. Over axes of one rank every collective is the identity:
-    it returns its input, copies nothing and runs (or records) nothing, so
-    a one-rank mesh computes the unsharded step on the same tensors."""
+    ``gather_packed``, ``copy_packed`` and ``psum_packed`` move several
+    tensors of one dtype in one buffer. Over axes of one rank every
+    collective is the identity: it returns its input, copies nothing and
+    runs (or records) nothing, so a one-rank mesh computes the unsharded
+    step on the same tensors."""
 
     def __init__(self, rules: ShardingRules):
         shape = rules.shape
@@ -863,6 +919,28 @@ class ModelPlane:
             return x
         return _Copy.apply(x, self, axis)
 
+    def split(self, x, axis: str, dim: int):
+        """This rank's part ``split_range`` along ``dim`` of a tensor every
+        rank holds whole and alike (a recurrent cell's output, computed
+        whole on every rank): no collective forward; the backward
+        all-gathers the parts' gradients, so every rank differentiates
+        the whole cell alike."""
+        if self.size[axis] == 1:
+            return x
+        return _Split.apply(x, self, axis, dim)
+
+    def psum_packed(self, leaves, axis: str) -> list:
+        """Each leaf summed over ``axis``, all in one all-reduce of one
+        buffer (backward: the identity, as ``psum``'s)."""
+        if not leaves or self.size[axis] == 1:
+            return list(leaves)
+        flat = self.psum(_flat_cat(leaves), axis)
+        out, off = [], 0
+        for x in leaves:
+            out.append(flat[off:off + x.numel()].view(x.shape))
+            off += x.numel()
+        return out
+
     def replicate(self, x, axis: str, dim: int):
         """All-gather along ``dim`` for a tensor every rank then computes
         with whole and alike (the MoE router's weight, its input under
@@ -939,6 +1017,21 @@ class _Replicate(torch.autograd.Function):
     def backward(ctx, g):
         dim, lo, n = ctx.part
         return g.narrow(dim, lo, n).contiguous(), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane, axis, dim):
+        n = x.shape[dim]
+        lo, hi = split_range(n, plane.size[axis], plane.rank[axis])
+        ctx.plane, ctx.axis, ctx.dim, ctx.n = plane, axis, dim, n
+        return x.narrow(dim, lo, hi - lo).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.plane.all_gather_uneven(g.contiguous(), ctx.axis,
+                                            ctx.dim, ctx.n),
+                None, None, None)
 
 
 class _Copy(torch.autograd.Function):

@@ -25,6 +25,9 @@ from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = {"float32": (1e-5, 2e-5), "bfloat16": (1e-2, 3e-2)}
 

@@ -37,7 +37,9 @@ from repro.launch import perf as jperf
 from repro.launch import specs as jsp
 from repro.models.registry import build_model as jbuild
 from repro_torch import roofline as rl
-from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+from repro_torch import sharding as sh
+from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, InputShape,
+                                 get_config)
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch import perf
@@ -231,3 +233,51 @@ def test_dryrun_main_writes_one_record(tmp_path):
     assert e.value.code == 0
     (path,) = tmp_path.iterdir()
     assert path.name == "llama3.2-1b--long_500k--h100.json"
+
+
+ONE_RANK, COUNTED = {"data": 1, "model": 1}, {"data": 2, "model": 2}
+
+
+@pytest.mark.parametrize("kind,seq,meshes", [
+    ("prefill", 40, (ONE_RANK, COUNTED)), ("train", 40, (ONE_RANK, COUNTED)),
+    ("train", 200, (ONE_RANK,))])
+def test_slstm_step_count_multiplied_equals_the_whole_loop(kind, seq,
+                                                           meshes):
+    """The smoke xlstm (one mLSTM, one sLSTM block) at batch 2 and ``seq``
+    tokens, on one rank and on a counted (data 2, model 2) mesh: the count
+    from the loop cut to 6 and 7 steps, one step multiplied out to S and
+    the peak from the inner step's storages repeated, equals the count of
+    all S steps in FLOPs, bytes, ops, peak and collectives. At 2 x 200 on
+    one rank the train step's peak lies in the loop's backward, where a
+    peak taken affine from 2- and 3-step counts falls short."""
+    cfg = get_smoke_config("xlstm-125m")
+    shape = InputShape("slstm", seq, 2, kind)
+    for mesh in meshes:
+        def rules():
+            return sh.ShardingRules.default(sh.CountingMesh(mesh))
+        whole = dr._count_once(cfg, shape, None, rules())
+        cut = dr.count_step(cfg, shape, rules=rules())
+        assert cut["slstm_steps"] == [6, 7]
+        for key in ("cost", "memory", "ops", "kernels", "collectives",
+                    "collective_calls"):
+            assert cut[key] == whole[key], (mesh, key)
+
+
+def test_dryrun_sweep_counts_every_recurrent_step(tmp_path, capsys,
+                                                  monkeypatch):
+    """``--all --both-meshes`` skips no recurrent config: here on the smoke
+    xlstm and recurrentgemma (the sweep's loop, with the configs swapped
+    for their smoke sizes and each shape cut to 4 x 64 tokens), every
+    shape on both production meshes, the sLSTM's train and prefill counted
+    at 6 and 7 steps."""
+    monkeypatch.setattr(dr, "ARCH_IDS", ("xlstm-125m", "recurrentgemma-2b"))
+    monkeypatch.setattr(dr, "get_config", get_smoke_config)
+    monkeypatch.setattr(dr, "INPUT_SHAPES", {
+        name: dataclasses.replace(shape, seq_len=64, global_batch=4)
+        for name, shape in INPUT_SHAPES.items()})
+    with pytest.raises(SystemExit) as e:
+        dr.main(["--all", "--both-meshes", "--out", str(tmp_path)])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "[SKIP]" not in out and "failures: 0" in out
+    assert out.count("[OK ]") == 2 * len(INPUT_SHAPES) * 2

@@ -26,6 +26,9 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30

@@ -14,6 +14,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import kmeans_assign as km_kernel
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _case(seed, n, d, k, lead=()):

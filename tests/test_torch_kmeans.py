@@ -16,7 +16,10 @@ from repro.core import pipeline as jpl
 from repro_torch.core import kmeans as tkm
 from repro_torch.core import pipeline as tpl
 
+from test_torch_draws import one_torch_thread  # noqa: F401
 from test_torch_draws import kmeans_draws
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _blobs(seed, n=5, cap=40, d=6, k=3):

@@ -18,7 +18,10 @@ from repro_torch.core import pipeline as tpl
 from repro_torch.core import rewards as trw
 from repro_torch.core import trust as ttr
 
+from test_torch_draws import one_torch_thread  # noqa: F401
 from test_torch_draws import t, trust_uniforms
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 7
 

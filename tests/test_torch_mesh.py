@@ -24,6 +24,9 @@ import pytest
 import torch
 
 from repro_torch import meshlab
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PATHS = ("gate", "pretrain", "fl", "cluster", "disc", "disc_ucb",
          "disc_warm")

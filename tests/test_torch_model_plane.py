@@ -165,7 +165,8 @@ def world2():
 @pytest.fixture(scope="module")
 def world4():
     jparams, logits, loss = _jax_setup()
-    out = meshlab.spawn(meshlab.plane_world, 4, WORLD4, jparams, LAB)
+    out = meshlab.spawn(meshlab.plane_world, 4, WORLD4, {"base": jparams},
+                        LAB)
     out["jax"] = (logits, loss)
     return out
 
@@ -287,9 +288,9 @@ def test_jax_prefill_and_loss_at_2x2(world4):
     rep = world4["plane"][1]
     assert rep["mesh"] == (2, 2)
     logits, loss = world4["jax"]
-    np.testing.assert_allclose(rep["jax_prefill_logits"], logits, rtol=0,
-                               atol=TOL)
-    assert abs(rep["jax_loss"] - loss) <= TOL
+    np.testing.assert_allclose(rep["base_jax_prefill_logits"], logits,
+                               rtol=0, atol=TOL)
+    assert abs(rep["base_jax_loss"] - loss) <= TOL
 
 
 def test_counted_bytes_equal_the_gloo_run(world4):

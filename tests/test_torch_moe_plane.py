@@ -18,6 +18,9 @@ reference.
   router margin of the ``rules=None`` runs exceeds the tolerance. Each
   step's collectives equal the tables in ``repro_torch.sharding``'s
   docstring.
+* One batch row on a gloo (2, 1) mesh, replicated over the data ranks:
+  the gather dispatch's logits, loss and aux loss equal ``rules=None``'s
+  within 1e-5 (``meshlab.replicated_batch_report``, in the same spawn).
 * The (2, 2) prefill logits and loss from JAX's parameters (through
   ``convert.lm_params``) equal JAX's unsharded ``model.prefill`` and
   ``loss_fn`` within 1e-5.
@@ -74,8 +77,9 @@ def _jax_setup():
 @pytest.fixture(scope="module")
 def world():
     jparams, logits, loss = _jax_setup()
-    out = meshlab.spawn(meshlab.plane_world, 4, MESHES, jparams, None,
-                        meshlab.MOE)
+    out = meshlab.spawn(meshlab.plane_world, 4, MESHES,
+                        {meshlab.MOE[0]: jparams}, None, meshlab.MOE,
+                        meshlab.MOE[0])
     out["reports"] = {tuple(r["mesh"]): r for r in out["plane"]}
     out["jax"] = (logits, loss)
     return out
@@ -105,6 +109,22 @@ def test_mesh_matches_unsharded(mesh, name, world):
     assert max(diffs.values()) <= TOL, diffs
 
 
+def test_replicated_batch_routes_as_unsharded(world):
+    """One batch row on a (2, 1) mesh: the data axes do not divide it, so
+    each data rank holds it whole. Given the whole batch's rows, each
+    rank's capacity groups are the whole batch's and nothing ranks after
+    another rank's copy: the prefill's and a decode step's logits, and a
+    train step's loss and aux loss, equal ``rules=None``'s within 1e-5.
+    Taken for a split batch (the default), the gather dispatch's one
+    group holds both ranks' copies and the logits differ."""
+    rep = world["replicated"]
+    assert rep["replicated"]
+    assert rep["logits"] <= TOL
+    assert rep["loss"] <= TOL
+    assert rep["aux"] <= TOL and rep["aux_value"] > 0
+    assert rep["logits_as_split"] > 100 * TOL
+
+
 def test_router_margins_exceed_the_tolerance(world):
     """Every token's k-th router probability exceeds its (k+1)-th by more
     than the tolerance in the ``rules=None`` runs and the JAX-parameter
@@ -112,7 +132,7 @@ def test_router_margins_exceed_the_tolerance(world):
     rep = world["reports"][(1, 1)]
     for name in meshlab.MOE:
         assert rep[f"{name}_margin"] > TOL, name
-    assert world["reports"][(2, 2)]["jax_margin"] > TOL
+    assert world["reports"][(2, 2)][f"{meshlab.MOE[0]}_jax_margin"] > TOL
 
 
 def test_both_expert_layouts_are_taken(world):
@@ -168,9 +188,10 @@ def test_collectives_equal_the_docstring_table(mesh, name, world):
 def test_jax_prefill_and_loss_at_2x2(world):
     rep = world["reports"][(2, 2)]
     logits, loss = world["jax"]
-    np.testing.assert_allclose(rep["jax_prefill_logits"], logits, rtol=0,
-                               atol=TOL)
-    assert abs(rep["jax_loss"] - loss) <= TOL
+    name = meshlab.MOE[0]
+    np.testing.assert_allclose(rep[f"{name}_jax_prefill_logits"], logits,
+                               rtol=0, atol=TOL)
+    assert abs(rep[f"{name}_jax_loss"] - loss) <= TOL
 
 
 @pytest.mark.parametrize("name", meshlab.MOE)

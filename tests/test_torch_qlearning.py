@@ -16,7 +16,10 @@ from repro.core import rewards as jrw
 from repro_torch import convert
 from repro_torch.core import qlearning as tql
 
+from test_torch_draws import one_torch_thread  # noqa: F401
 from test_torch_draws import rl_draws
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 6
 

@@ -21,6 +21,9 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as srv
 from repro_torch.models.registry import build_model
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MARGIN = 1e-4
 

@@ -34,6 +34,9 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.registry import build_model
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = {"float32": dict(logits=1e-5, cache=1e-5),
        "bfloat16": dict(logits=2e-2, cache=2e-2)}
@@ -167,9 +170,10 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 def test_unported_families_raise_naming_the_roadmap():
     """``act_seq_shard`` without a mesh changes nothing (as the reference's
-    constraint returns x outside a model axis); a recurrent config on a
-    model axis above one rank raises, naming its ROADMAP item, and an MoE
-    prefill there is counted; MoE, the recurrent kinds
+    constraint returns x outside a model axis); a frontend config on a
+    model axis above one rank raises, naming its ROADMAP item, and a
+    recurrent and an MoE prefill there are counted; MoE, the recurrent
+    kinds
     (rglru, mlstm, slstm), the vision stub with M-RoPE and the audio codec
     build, MoE and the frontends with JAX's parameter counts."""
     moe = dataclasses.replace(get_smoke_config("llama3.2-1b"), n_experts=4,
@@ -214,14 +218,51 @@ def test_unported_families_raise_naming_the_roadmap():
     pod = sh.ShardingRules.default(sh.CountingMesh({"data": 16,
                                                     "model": 16}))
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long, device="meta")}
+    am = build_model(get_smoke_config("musicgen-medium"))
+    codes = {"codes": torch.zeros((1, 4, am.cfg.n_codebooks),
+                                  dtype=torch.long, device="meta")}
+    with pytest.raises(NotImplementedError, match="item 17"):
+        am.prefill(am.param_shapes(pod), codes, rules=pod)
+    # the smoke recurrentgemma's two RG-LRU blocks: each reduce-scatters
+    # its gates' sums over "model"
+    rpod = sh.ShardingRules.default(sh.CountingMesh({"data": 16,
+                                                     "model": 16}))
     rm = build_model(get_smoke_config("recurrentgemma-2b"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        rm.prefill(rm.param_shapes(pod), toks, rules=pod)
+    logits, _ = rm.prefill(rm.param_shapes(rpod), toks, rules=rpod,
+                           global_batch=1)
+    assert tuple(logits.shape) == (1, 1, rm.cfg.vocab_size)
+    assert rpod.mesh.calls[("reduce-scatter", ("model",))] == 2
     # 16 heads: one a rank of the model axis
     mm = build_model(dataclasses.replace(moe, n_heads=16, n_kv_heads=16))
-    logits, _ = mm.prefill(mm.param_shapes(pod), toks, rules=pod)
+    logits, _ = mm.prefill(mm.param_shapes(pod), toks, rules=pod,
+                           global_batch=1)
     assert tuple(logits.shape) == (1, 1, moe.vocab_size)
     assert pod.mesh.calls[("all-reduce", ("model",))] == 2 * moe.n_layers + 1
+
+
+def test_plane_above_one_data_rank_requires_global_batch():
+    """Above one data rank a rank's rows do not say whether the batch is
+    split over the data axes or replicated there, so an entry point
+    without ``global_batch`` raises instead of guessing (a replicated
+    batch taken as split misroutes the MoE's gather dispatch); with it,
+    and on one data rank without it, the step runs."""
+    from repro_torch import sharding as sh
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    m = build_model(cfg)
+    toks = {"tokens": torch.zeros((1, 16), dtype=torch.long, device="meta")}
+    for data, model in ((2, 1), (16, 16)):
+        rules = sh.ShardingRules.default(sh.CountingMesh(
+            {"data": data, "model": model}))
+        params = m.param_shapes(rules)
+        with pytest.raises(ValueError, match="global_batch"):
+            m.prefill(params, toks, rules=rules)
+        with pytest.raises(ValueError, match="global_batch"):
+            m.loss_fn(params, dict(toks, labels=toks["tokens"]), rules=rules)
+        logits, _ = m.prefill(params, toks, rules=rules, global_batch=1)
+        assert tuple(logits.shape) == (1, 1, cfg.vocab_size)
+    one = sh.ShardingRules.default(sh.CountingMesh({"data": 1, "model": 2}))
+    logits, _ = m.prefill(m.param_shapes(one), toks, rules=one)
+    assert tuple(logits.shape) == (1, 1, cfg.vocab_size)
 
 
 def test_tree_helpers_walk_tuples_in_jax_order():

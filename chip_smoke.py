@@ -229,9 +229,21 @@
    recurrentgemma's per-rank local attention for model 2, 4 and 16 (5, 3
    and 1 of its 10 query heads, window 2,048) against the plain version,
    timed beside its bound and one SDPA call.
+19. The vision and audio frontends on the model plane, on a one-rank NCCL
+   mesh against ``rules=None`` from one parameter tree: (a) qwen2-vl-72b
+   at full width cut to 8 of 80 layers served at phase 12's 4 x 2,048
+   (256 bf16 patches on Qwen2-VL's grid positions) + 32 tokens (8
+   ``flash_attention_sm90`` launches a prefill, nothing else) and trained
+   at phase 13's cut (1 layer, 1 x 2,048, 3 donated AdamW steps); (b)
+   musicgen-medium at full depth served at 4 x 1,500 frames + 32 (48
+   launches a prefill) and trained at 4 x 1,500; logits, tokens, losses
+   and final parameters bit for bit, no collective; (c) the tensor-core
+   flash kernel at both models' per-rank attention for model 2, 4 and 16
+   against the plain version, timed beside its bound and one SDPA call.
 
 Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12, 13
-(b, c), 14 (a, b), 15 (a, b, c), 16 (a), 17 (a, b) and 18 (a, b) set every
+(b, c), 14 (a, b), 15 (a, b, c), 16 (a), 17 (a, b), 18 (a, b) and 19 (a,
+b) set every
 kernel's launch count to 0
 just before each run they drive
 (the main path, the bf16 serve, the f32 serve, the two online runs, the two
@@ -258,7 +270,8 @@ and ``musicgen_serve_launches`` in phase 12, as ``family_train_launches``
 ``quickstart_launches`` and ``moonshot_full_serve_launches`` in phase 14,
 as ``client_plane_launches`` (its lab, main path and online runs) in phase
 15, as ``model_plane_launches`` in phase 16 (a), ``moe_plane_launches`` in
-phase 17 (a) and ``recurrent_plane_launches`` in phase 18 (a), the online
+phase 17 (a), ``recurrent_plane_launches`` in phase 18 (a) and
+``frontend_plane_launches`` (per arch) in phase 19 (a, b), the online
 shapes' errors, the
 federated shape (e) and the clustering loop's (f) among the kmeans row's
 ``shapes``, the CIFAR-like shape among the recon_gate row's,
@@ -1237,12 +1250,10 @@ def vl_positions(torch, b, n_img, n_txt, grid_w, dev):
     """Qwen2-VL's (t, h, w) positions (b, n_img + n_txt, 3) for one image
     of n_img patches in rows of ``grid_w`` followed by n_txt text tokens:
     patch i at (0, i // grid_w, i % grid_w), text token j at m + j in all
-    three streams, m one past the grid's largest index."""
-    i = torch.arange(n_img, device=dev)
-    img = torch.stack([torch.zeros_like(i), i // grid_w, i % grid_w], -1)
-    start = int(img.max()) + 1
-    txt = (start + torch.arange(n_txt, device=dev))[:, None].expand(n_txt, 3)
-    return torch.cat([img, txt])[None].expand(b, n_img + n_txt, 3)
+    three streams, m one past the grid's largest index
+    (``meshlab.grid_positions``), on ``dev``."""
+    from repro_torch.meshlab import grid_positions
+    return grid_positions(b, n_img, n_txt, grid_w).to(dev)
 
 
 def frontend_prompt(torch, cfg, b, s, g, dev, grid_w=16):
@@ -3977,22 +3988,25 @@ def _train_llama(torch, model, tc, batches, dev, rules):
 
 
 def _plane_serves(torch, ops, model, params, placed, rules, tokens, noise,
-                  dev):
-    """``launch.serve.serve`` of ``tokens`` + ``len(noise)`` tokens with
-    ``rules=None`` on ``params`` and under ``rules`` on ``placed`` (each
-    after a warm-up on the first 256 positions and 2 tokens, its launch
-    counts set to 0 just before and read just after), then a prefill and a
-    decode step under the rules with their collectives counted. Returns
-    ({tag: (result, launches)}, (prefill calls, bytes), (decode calls,
-    bytes))."""
+                  dev, warm=None):
+    """``launch.serve.serve`` of ``tokens`` (a (B, S) token tensor, or a
+    frontend's prefill batch with its 256-position ``warm`` prompt) +
+    ``len(noise)`` tokens with ``rules=None`` on ``params`` and under
+    ``rules`` on ``placed`` (each after a warm-up on the first 256
+    positions and 2 tokens, its launch counts set to 0 just before and read
+    just after), then a prefill and a decode step under the rules with
+    their collectives counted. Returns ({tag: (result, launches)},
+    (prefill calls, bytes), (decode calls, bytes))."""
     from repro_torch.launch.serve import serve
-    b, s = tokens.shape
+    from repro_torch.models.transformer import batch_rows_len
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    warm = tokens[:, :256] if warm is None else warm
+    b, s = batch_rows_len(batch)
     gen = noise.shape[0]
     runs = {}
     for tag, r, p in (("rules=None", None, params), ("mesh (1, 1)", rules,
                                                      placed)):
-        serve(model, p, tokens[:, :256], 2, gumbel=noise[:2], device=dev,
-              rules=r)
+        serve(model, p, warm, 2, gumbel=noise[:2], device=dev, rules=r)
         _zero_launches(ops)
         res = serve(model, p, tokens, gen, gumbel=noise, device=dev, rules=r)
         runs[tag] = (res, _launch_counts(ops))
@@ -4000,10 +4014,11 @@ def _plane_serves(torch, ops, model, params, placed, rules, tokens, noise,
             f"decode {res.decode_s * 1e3 / (gen - 1):.3f} ms a step over "
             f"{gen - 1} steps; launches {runs[tag][1]}")
     (_, cache), pre_calls, pre_bytes = _collectives(torch, lambda: model.prefill(
-        placed, {"tokens": tokens}, max_len=s + gen, use_flash=True,
-        rules=rules))
+        placed, batch, max_len=s + gen, use_flash=True, rules=rules))
+    feed = {"codes": batch["codes"][:, :1]} if "codes" in batch else \
+        {"token": batch["tokens"][:, :1]}
     _, dec_calls, dec_bytes = _collectives(torch, lambda: model.decode(
-        placed, cache, {"token": tokens[:, :1]}, rules=rules))
+        placed, cache, feed, rules=rules))
     del cache
     return runs, (pre_calls, pre_bytes), (dec_calls, dec_bytes)
 
@@ -4082,27 +4097,27 @@ def plane_llama(torch, ops, dev, rules):
 
 
 def plane_flash(torch, ops, ref, fa_mod, dev, heads=PLANE_HEADS, hd=64,
-                arch="Llama-3.2-1B"):
-    """Phase 16 (b), 17 (c): both flash kernels at a model's per-rank
-    attention (4, 2,048 tokens; ``heads``: (label, query heads, KV heads)
-    a rank; Llama-3.2-1B's at model 2, 4 and 16 by default), the
+                arch="Llama-3.2-1B", s=2048, f32_heads=16, seed=16):
+    """Phase 16 (b), 17 (c), 19 (c): both flash kernels at a model's
+    per-rank attention (4 x ``s`` tokens; ``heads``: (label, query heads,
+    KV heads) a rank; Llama-3.2-1B's at model 2, 4 and 16 by default), the
     tensor-core kernel against the plain version at phase 2's tolerances
     (``check_flash``), each timed beside its plain version, one SDPA call
-    (``enable_gqa``) and its bound; the CUDA-core kernel at 16 heads in
-    float32."""
+    (``enable_gqa``) and its bound; the CUDA-core kernel at ``f32_heads``
+    heads (None: none) in float32."""
     import torch.nn.functional as F
-    g = torch.Generator(device=dev).manual_seed(16)
+    g = torch.Generator(device=dev).manual_seed(seed)
     out = []
     for label, h, kv in heads:
         q, k, v = (torch.randn(shape, generator=g, device=dev)
                    .to(torch.bfloat16) for shape in
-                   ((4, 2048, h, hd), (4, 2048, kv, hd), (4, 2048, kv, hd)))
+                   ((4, s, h, hd), (4, s, kv, hd), (4, s, kv, hd)))
         if fa_mod.route(q, k, v) != "sm90":
             raise AssertionError(f"{label}: route did not pick sm90")
         err = check_flash(ops, ref, q, k, v, f"{arch} {label} per rank "
-                          f"(4,2048,{h}/{kv},{hd}) bf16",
+                          f"(4,{s},{h}/{kv},{hd}) bf16",
                           "flash_attention_sm90")
-        flops = 4 * hd * 4 * h * 2048 * 2049 // 2
+        flops = 4 * hd * 4 * h * s * (s + 1) // 2
         moved = 2 * (2 * q.numel() + 2 * k.numel())
         b_ms, b_by = bound(moved, flops, "bfloat16")
         ms = graph_ms(lambda: fa_mod.flash_attention_sm90(q, k, v), iters=20,
@@ -4116,12 +4131,12 @@ def plane_flash(torch, ops, ref, fa_mod, dev, heads=PLANE_HEADS, hd=64,
         log(f"  flash_attention_sm90 {arch} {label} per rank: device "
             f"{ms:.5f} ms, per call {call:.5f} ms, plain {plain:.5f} ms, "
             f"bound {b_ms:.5f} ms ({b_by}); SDPA {sdpa:.5f} ms")
-        out.append({"shape": f"{arch} {label}: q (4, 2048, {h}, {hd}), k/v "
-                    f"(4, 2048, {kv}, {hd}) bf16, causal",
+        out.append({"shape": f"{arch} {label}: q (4, {s}, {h}, {hd}), k/v "
+                    f"(4, {s}, {kv}, {hd}) bf16, causal",
                     "max_abs_err": err, "ms": ms,
                     "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": sdpa})
-        if h == 16:
+        if h == f32_heads:
             q32, k32, v32 = (t[:1].float() for t in (q, k, v))
             check_flash(ops, ref, q32, k32, v32, f"{label} per rank "
                         "(1,2048,16/4,64) f32", "flash_attention")
@@ -4455,21 +4470,30 @@ def recurrent_plane_serve(torch, ops, dev, rules, arch, b, s, gen, n_flash):
 
 
 def recurrent_plane_train(torch, ops, dev, rules, arch, b, s):
-    """Phase 18 (a, b): 3 donated AdamW steps of ``arch`` at full depth on
-    ``b`` x ``s`` tokens with ``rules=None`` and under the rules (the first
-    run's final parameters kept on the host): losses and parameters bit
-    for bit, no collective in a step, no kernel launched. Returns the
-    checks."""
-    from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.models.common import tree_leaves, tree_map
+    """Phase 18 (a, b): ``plane_train`` of ``arch`` at full depth on ``b``
+    x ``s`` tokens drawn from seed 1. Returns the checks."""
+    from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
     cfg = get_config(arch)
-    model = build_model(cfg)
-    tc = TrainConfig(total_steps=10, warmup_steps=2)
     g = torch.Generator(device=dev).manual_seed(1)
     batches = [{"tokens": t, "labels": t} for t in (
         torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
         for _ in range(3))]
+    return plane_train(torch, ops, dev, rules, build_model(cfg), batches)
+
+
+def plane_train(torch, ops, dev, rules, model, batches):
+    """Phases 18 (a, b), 19 (a, b): 3 donated AdamW steps of ``model`` on
+    ``batches`` with ``rules=None`` and under the rules (the first run's
+    final parameters kept on the host): losses and parameters bit for bit,
+    no collective in a step, no kernel launched. Returns the checks."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import batch_rows_len
+    cfg = model.cfg
+    arch = cfg.name
+    b, s = batch_rows_len(batches[0])
+    tc = TrainConfig(total_steps=10, warmup_steps=2)
     l0, p0, sec0, _ = _train_llama(torch, model, tc, batches, dev, None)
     p0 = tree_map(lambda a: a.cpu(), p0)
     _release(torch)
@@ -4579,6 +4603,108 @@ def recurrent_plane_phase(torch, ops, ref, fa_mod, dev):
     shapes = recurrent_plane_flash(torch, ops, ref, fa_mod, dev)
     log(f"  phase 18 (c) {time.perf_counter() - t0:.1f} s")
     return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the vision and audio frontends on the model plane
+# ---------------------------------------------------------------------------
+
+# the per-rank attention a model-N mesh launches: (arch, head_dim, prompt,
+# ((label, query heads, KV heads), ...)). qwen2-vl's 8 KV heads do not
+# divide 16: every rank computes them all and reads its 4 query heads' one;
+# musicgen's 24 heads split 1 or 2 a rank at model 16 (KV_SEQ too)
+FRONTEND_PLANE_HEADS = (
+    ("qwen2-vl-72b", 128, 2048, (("model 2", 32, 4), ("model 4", 16, 2),
+                                 ("model 16", 4, 1))),
+    ("musicgen-medium", 64, 1500, (("model 2", 12, 12), ("model 4", 6, 6),
+                                   ("model 16, 2 heads", 2, 2),
+                                   ("model 16, 1 head", 1, 1))))
+
+
+def frontend_plane_serve(torch, ops, dev, rules, arch, layers, b, s, gen):
+    """Phase 19 (a, b): ``arch`` at full width cut to ``layers`` (phase
+    12's seed 0 f32 weights, bf16 activations and prompt: ``frontend_prompt``
+    with Qwen2-VL's grid positions, or codes) served at ``b`` x ``s`` +
+    ``gen`` tokens (one Gumbel draw) with ``rules=None`` and under the
+    one-rank mesh's rules from one parameter tree: logits and tokens bit
+    for bit, one sm90 launch a layer in the prefill and nothing else, no
+    collective. Returns (the rules serve's launches, the checks)."""
+    import dataclasses
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import gumbel_noise
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build_model
+    model = build_model(dataclasses.replace(get_config(arch),
+                                            n_layers=layers))
+    cfg = model.cfg
+    params, g = _draw(torch, model, dev)
+    placed = sh.place_params(params, model.param_logical(), rules)
+    same_tree = all(a.data_ptr() == c.data_ptr() and a.shape == c.shape
+                    for a, c in zip(tree_leaves(params), tree_leaves(placed)))
+    prompt = frontend_prompt(torch, cfg, b, s, g, dev)
+    warm = frontend_prompt(torch, cfg, b, 256, g, dev)
+    nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    noise = gumbel_noise(g, (gen, b, 1) + nq + (cfg.vocab_size,))
+    runs, pre, dec = _plane_serves(torch, ops, model, params, placed, rules,
+                                   prompt, noise, dev, warm)
+    checks = _plane_checks(torch, arch, runs, pre, dec, layers)
+    checks[f"{arch}: place_params copied nothing"] = same_tree
+    log(f"  one-rank collectives: prefill {pre[0]} ({pre[1]} bytes); decode "
+        f"step {dec[0]} ({dec[1]} bytes)")
+    launches = runs["mesh (1, 1)"][1]
+    del params, placed, runs
+    _release(torch)
+    return launches, checks
+
+
+def frontend_plane_phase(torch, ops, ref, fa_mod, dev):
+    """Phase 19: (a) qwen2-vl-72b (8 of 80 layers) and (b) musicgen-medium
+    served at phase 12's shapes (``FRONTEND_SERVES``) and trained at phase
+    13's cuts (``FAMILY_FULL``, seed 1's batches, a vision batch on
+    Qwen2-VL's grid) under ``launch.mesh.host_rules`` (a one-rank NCCL
+    group made over a ``HashStore``, destroyed after), each against
+    ``rules=None``; then (c) the tensor-core flash kernel at both models'
+    per-rank attention (``FRONTEND_PLANE_HEADS``). Returns {arch: the
+    serve's launches} and (c)'s rows."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import host_rules
+    from repro_torch.models.registry import build_model
+    torch.cuda.set_device(0)
+    trains = {arch: (layers, b, s) for arch, layers, b, s in FAMILY_FULL}
+    checks, launches = {}, {}
+    with host_rules(device=dev) as rules:
+        log(f"  mesh {rules.shape} on backend {dist.get_backend()}, "
+            f"{dist.get_world_size()} rank")
+        for (arch, layers, b, s, gen, _), part in zip(FRONTEND_SERVES, "ab"):
+            t0 = time.perf_counter()
+            launches[arch], c = frontend_plane_serve(
+                torch, ops, dev, rules, arch, layers, b, s, gen)
+            checks.update(c)
+            layers, b, s = trains[arch]
+            model = build_model(dataclasses.replace(get_config(arch),
+                                                    n_layers=layers))
+            g = torch.Generator(device=dev).manual_seed(1)
+            batches = [_family_batch(torch, model.cfg, b, s, g, dev,
+                                     grid_w=8) for _ in range(3)]
+            checks.update(plane_train(torch, ops, dev, rules, model,
+                                      batches))
+            del batches
+            _release(torch)
+            log(f"  phase 19 ({part}) {time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 19 (a, b) checks failed: {failed}")
+    t0 = time.perf_counter()
+    shapes = []
+    for arch, hd, s, heads in FRONTEND_PLANE_HEADS:
+        shapes += plane_flash(torch, ops, ref, fa_mod, dev, heads, hd, arch,
+                              s, f32_heads=None, seed=19)
+    log(f"  phase 19 (c) {time.perf_counter() - t0:.1f} s")
+    return launches, shapes
+
 
 def main() -> int:
     import torch
@@ -4725,6 +4851,13 @@ def main() -> int:
     rec_plane_launches, rec_plane_shapes = recurrent_plane_phase(
         torch, ops, ref, fa_mod, dev)
     log(f"  phase 18 {time.perf_counter() - t18:.1f} s")
+
+    log("== phase 19: the model plane (vision and audio frontends) on a "
+        "one-rank NCCL mesh")
+    t19 = time.perf_counter()
+    front_plane_launches, front_plane_shapes = frontend_plane_phase(
+        torch, ops, ref, fa_mod, dev)
+    log(f"  phase 19 {time.perf_counter() - t19:.1f} s")
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     for name, row in rows.items():
@@ -4755,6 +4888,8 @@ def main() -> int:
         row["model_plane_launches"] = plane_launches[name]
         row["moe_plane_launches"] = moe_plane_launches[name]
         row["recurrent_plane_launches"] = rec_plane_launches[name]
+        row["frontend_plane_launches"] = {arch: v[name] for arch, v in
+                                          front_plane_launches.items()}
         if name in online_errs:
             row["online_max_abs_err"] = online_errs[name]
     rows["kmeans_assign"]["shapes"].append(fed_shape)
@@ -4763,6 +4898,7 @@ def main() -> int:
     rows["flash_attention_sm90"]["shapes"].extend(plane_shapes)
     rows["flash_attention_sm90"]["shapes"].extend(moe_plane_shapes)
     rows["flash_attention_sm90"]["shapes"].extend(rec_plane_shapes)
+    rows["flash_attention_sm90"]["shapes"].extend(front_plane_shapes)
     for shape in rows["flash_attention"]["shapes"]:
         if "model" in shape:
             shape["launches_in_phase"] = f32_launches[shape["model"]]
@@ -4776,7 +4912,8 @@ def main() -> int:
             "family_train_launches", "quickstart_launches",
             "moonshot_full_serve_launches", "client_plane_launches",
             "model_plane_launches", "moe_plane_launches",
-            "recurrent_plane_launches", "max_abs_err",
+            "recurrent_plane_launches", "frontend_plane_launches",
+            "max_abs_err",
             "online_max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "cold_ms",
             "floor_ms", "shapes")

@@ -45,9 +45,9 @@ collective of the model plane records its kind, mesh axes and result bytes
 instead of running; the record, ``<arch>--<shape>--pod16x16.json`` or
 ``--pod2x16x16.json``, adds ``collectives`` (bytes by the reference's
 kinds), ``collective_calls`` (per kind and axes) and, with ``--roofline``,
-the collective term (``roofline.collective_seconds``). The dense, MoE
-and recurrent families run on the model plane; the vision and audio
-frontends print a ``[SKIP]`` line naming their ROADMAP item.
+the collective term (``roofline.collective_seconds``). Every family runs
+on the model plane: the dense, MoE, recurrent, vision-stub and
+audio-codec configs.
 
 The count runs the port's Python as a real step does, op by op: the layers
 and the chunked attention's loop, so every layer is counted. It takes
@@ -84,7 +84,6 @@ from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, TrainConfig, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.registry import build_model, make_train_step
 
@@ -485,14 +484,8 @@ def main(argv=None):
 
     n_fail = 0
     for arch in archs:
-        cfg = get_config(arch)
         for shape in shapes:
             for mesh in meshes:
-                if mesh != "h100" and not tf.plane_supported(cfg):
-                    print(f"[SKIP] {arch:22s} {shape:12s} {mesh}: the model "
-                          "plane runs token inputs; ROADMAP Queue 1, item "
-                          f"{tf.plane_item(cfg)}", flush=True)
-                    continue
                 rec = run_one(arch, shape, args.out, args.roofline, mesh)
                 n_fail += rec["status"] != "ok"
     print(f"done; failures: {n_fail}")

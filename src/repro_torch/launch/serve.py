@@ -23,9 +23,8 @@ step samples every codebook, so its tokens are (B, gen, nq).
 ``main`` builds the host mesh and ``ShardingRules.default`` of it, as the
 reference does (``launch.mesh.host_rules``: one rank made on the spot when
 no process group exists, NCCL on the card and gloo with ``--device cpu``),
-and serves under those rules (the dense and MoE families on the model
-plane, the others as without rules): on one rank the unsharded run, bit
-for bit.
+and serves under those rules (every family on the model plane, the
+frontends included): on one rank the unsharded run, bit for bit.
 """
 from __future__ import annotations
 

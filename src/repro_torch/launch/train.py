@@ -15,9 +15,9 @@ As the reference does, the run builds the host mesh (``launch.mesh.
 host_rules``: the process group's ranks, one rank made on the spot when
 there is none: NCCL on the card, gloo with ``--device cpu``) and passes
 ``ShardingRules.default`` of it to the step; the parameters and each
-batch are placed on it (``sharding.place_params``); the dense and MoE
-families run on the model plane. On one rank that is the unsharded run,
-bit for bit.
+batch are placed on it (``sharding.place_params``); every family runs
+on the model plane, the frontends included. On one rank that is the
+unsharded run, bit for bit.
 """
 from __future__ import annotations
 

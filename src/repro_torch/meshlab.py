@@ -683,6 +683,10 @@ PLANE_WINDOW = 8      # the sliding config's window: a ring at prompt 16
 # window (the ring wraps in the prefill and again while decoding), a
 # ragged mLSTM chunk, and divisible by the model axis (act_seq_shard)
 RECURRENT_S = 72
+# the vision prompt: PLANE_IMG patches on Qwen2-VL's grid in rows of
+# PLANE_GRID, then PLANE_S - PLANE_IMG text tokens (under act_seq_shard at
+# model 4 the image rows span the first two ranks' parts of S)
+PLANE_IMG, PLANE_GRID = 8, 4
 RECORDED = {"all_gather_single": "all-gather",
             "all_gather_into_tensor": "all-gather",
             "reduce_scatter_single": "reduce-scatter",
@@ -733,10 +737,11 @@ def record_collectives(calls: Counter, nbytes: Counter):
             setattr(dist, name, fn)
 
 
-# the dense, MoE and recurrent configs' names in ``plane_configs``
+# the dense, MoE, recurrent and frontend configs' names in ``plane_configs``
 DENSE = ("base", "sliding", "seq")
 MOE = ("moe_gather", "moe_einsum", "moe_grouped_seq")
 RECURRENT = ("recurrentgemma", "xlstm", "recurrentgemma_seq", "xlstm_seq")
+FRONTEND = ("vlm", "audio", "vlm_seq", "audio_seq")
 
 
 def plane_configs():
@@ -756,11 +761,14 @@ def plane_configs():
         decode step's 4 tokens one group across the data ranks) under
         ``act_seq_shard``: ``perf``'s ``moe_gather_grouped_seq`` shape;
 
-    and the recurrent families in float32, each also under
-    ``act_seq_shard`` (``<name>_seq``): the smoke recurrentgemma at 3
-    layers, one (rglru, rglru, local_attn) unit (2 query heads, 1 KV head,
-    local window 64), and the smoke xlstm (one mLSTM and one sLSTM
-    block)."""
+    the recurrent families in float32, each also under ``act_seq_shard``
+    (``<name>_seq``): the smoke recurrentgemma at 3 layers, one (rglru,
+    rglru, local_attn) unit (2 query heads, 1 KV head, local window 64),
+    and the smoke xlstm (one mLSTM and one sLSTM block); and the frontends
+    in float32, each also under ``act_seq_shard``: the smoke qwen2-vl
+    (``vlm``: 4 query heads, 2 KV heads, so model 4 takes the KV_SEQ
+    cache; projector width 128; M-RoPE) and the smoke musicgen
+    (``audio``: 2 codebooks of 512)."""
     import dataclasses as dc
     from repro_torch.configs import get_smoke_config
     base = dc.replace(get_smoke_config("llama3.2-1b"), dtype="float32")
@@ -768,10 +776,15 @@ def plane_configs():
     rg = dc.replace(get_smoke_config("recurrentgemma-2b"), dtype="float32",
                     n_layers=3)
     xl = dc.replace(get_smoke_config("xlstm-125m"), dtype="float32")
+    vlm = dc.replace(get_smoke_config("qwen2-vl-72b"), dtype="float32")
+    audio = dc.replace(get_smoke_config("musicgen-medium"), dtype="float32")
     return {"base": base,
             "recurrentgemma": rg, "xlstm": xl,
             "recurrentgemma_seq": dc.replace(rg, act_seq_shard=True),
             "xlstm_seq": dc.replace(xl, act_seq_shard=True),
+            "vlm": vlm, "audio": audio,
+            "vlm_seq": dc.replace(vlm, act_seq_shard=True),
+            "audio_seq": dc.replace(audio, act_seq_shard=True),
             "sliding": dc.replace(base, attention="sliding",
                                   window=PLANE_WINDOW),
             "seq": dc.replace(base, act_seq_shard=True),
@@ -789,31 +802,75 @@ def plane_prompt_len(cfg) -> int:
     return RECURRENT_S if cfg.family in ("ssm", "hybrid") else PLANE_S
 
 
+def grid_positions(b: int, n_img: int, n_txt: int, grid_w: int):
+    """Qwen2-VL's (t, h, w) positions (b, n_img + n_txt, 3) of one image of
+    ``n_img`` patches in rows of ``grid_w`` (patch i at (0, i // grid_w,
+    i % grid_w)) followed by ``n_txt`` text tokens, each at one past the
+    grid's largest index plus j in all three streams."""
+    i = torch.arange(n_img)
+    img = torch.stack([torch.zeros_like(i), i // grid_w, i % grid_w], -1)
+    txt = (int(img.max()) + 1 + torch.arange(n_txt))[:, None].expand(n_txt, 3)
+    return torch.cat([img, txt])[None].expand(b, n_img + n_txt, 3)
+
+
 def plane_inputs(cfg, seed: int = 0):
-    """Whole parameters, prompt, labels and Gumbel noise from seeded host
-    generators (the same on every rank)."""
+    """Whole parameters, prompt and Gumbel noise from seeded host
+    generators (the same on every rank). The prompt is a (B, S) token
+    tensor, or a frontend's batch: vision ``PLANE_IMG`` patch embeddings,
+    the text tokens, ``grid_positions`` and (B, S) labels; audio (B, S,
+    nq) codes (their own labels), whose noise is (gen, B, 1, nq, V)."""
     from repro_torch.launch.serve import gumbel_noise
     from repro_torch.models.registry import build_model
     g = torch.Generator().manual_seed(seed)
     params = build_model(cfg).init(g, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (PLANE_B, plane_prompt_len(cfg)),
-                         generator=g)
-    noise = gumbel_noise(g, (PLANE_GEN, PLANE_B, 1, cfg.vocab_size))
-    return params, toks, noise
+    b, s, v = PLANE_B, plane_prompt_len(cfg), cfg.vocab_size
+    nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    if cfg.frontend == "audio_codec":
+        prompt = {"codes": torch.randint(0, v, (b, s) + nq, generator=g)}
+    elif cfg.frontend == "vision_stub":
+        prompt = {
+            "embeds": torch.randn((b, PLANE_IMG, cfg.frontend_dim),
+                                  generator=g),
+            "tokens": torch.randint(0, v, (b, s - PLANE_IMG), generator=g),
+            "positions": grid_positions(b, PLANE_IMG, s - PLANE_IMG,
+                                        PLANE_GRID),
+            "labels": torch.randint(0, v, (b, s), generator=g)}
+    else:
+        prompt = torch.randint(0, v, (b, s), generator=g)
+    noise = gumbel_noise(g, (PLANE_GEN, b, 1) + nq + (v,))
+    return params, prompt, noise
 
 
-def _serve_run(model, params, toks, noise, rules):
+def prefill_batch(prompt) -> dict:
+    """A ``plane_inputs`` prompt as the prefill's batch."""
+    if isinstance(prompt, torch.Tensor):
+        return {"tokens": prompt}
+    return {k: x for k, x in prompt.items() if k != "labels"}
+
+
+def train_batch(prompt) -> dict:
+    """A ``plane_inputs`` prompt as a train step's batch (tokens or codes
+    their own labels)."""
+    if isinstance(prompt, torch.Tensor):
+        return {"tokens": prompt, "labels": prompt}
+    return dict(prompt, labels=prompt.get("labels", prompt.get("codes")))
+
+
+def _serve_run(model, params, prompt, noise, rules):
     """Prefill, then ``PLANE_GEN`` tokens sampled with ``noise`` (each
     rank's rows), one decode step after each; returns (the logits of every
     step, the tokens, per-step collectives {step: (calls, bytes)})."""
     from repro_torch.launch.serve import sample
-    rows = _rows(toks, rules)
+    from repro_torch.models.transformer import batch_rows_len
+    batch = prefill_batch(prompt)
+    rows = _rows(batch, rules)
     noise = _rows(noise.transpose(0, 1), rules).transpose(0, 1)
+    feed = "codes" if model.cfg.n_codebooks else "token"
     counts = {}
     with _recording(counts, "prefill", rules):
-        logits, cache = model.prefill(params, {"tokens": rows},
-                                      max_len=toks.shape[1] + PLANE_GEN,
-                                      rules=rules, global_batch=len(toks))
+        logits, cache = model.prefill(
+            params, rows, max_len=batch_rows_len(batch)[1] + PLANE_GEN,
+            rules=rules, global_batch=PLANE_B)
     outs, tokens = [logits], []
     for i in range(PLANE_GEN):
         tok = sample(logits, 1.0, noise[i])
@@ -821,14 +878,13 @@ def _serve_run(model, params, toks, noise, rules):
         if i == PLANE_GEN - 1:
             break
         with _recording(counts, "decode", rules):
-            logits, cache = model.decode(params, cache, {"token": tok},
-                                         rules=rules,
-                                         global_batch=len(toks))
+            logits, cache = model.decode(params, cache, {feed: tok},
+                                         rules=rules, global_batch=PLANE_B)
         outs.append(logits)
     return torch.cat(outs, 1), torch.cat(tokens, 1), counts
 
 
-def _train_run(model, params, toks, rules):
+def _train_run(model, params, prompt, rules):
     """``PLANE_STEPS`` donated AdamW steps on the whole batch's rows of this
     rank; returns (losses, the final parameters, per-step collectives)."""
     from repro_torch import optim
@@ -839,13 +895,12 @@ def _train_run(model, params, toks, rules):
     params = sh._map(lambda x: x.clone() if isinstance(x, torch.Tensor)
                      else x, params)
     state = optim.init_opt_state(params, tc.optimizer)
-    rows = _rows(toks, rules)
+    rows = _rows(train_batch(prompt), rules)
     losses, counts = [], {}
     for _ in range(PLANE_STEPS):
         with _recording(counts, "train", rules):
-            params, state, m = step(params, state, {"tokens": rows,
-                                                    "labels": rows},
-                                    global_batch=len(toks))
+            params, state, m = step(params, state, rows,
+                                    global_batch=PLANE_B)
         losses.append(m["loss"])
     return torch.stack(losses), params, counts
 
@@ -853,20 +908,20 @@ def _train_run(model, params, toks, rules):
 GRAD_FLOOR = 1e-6
 
 
-def _grads(model, params, toks, rules):
+def _grads(model, params, prompt, rules):
     """The first train step's gradients as the step uses them (summed over
     the axes ``transformer.grad_sum_axes`` names)."""
     from repro_torch.models import common as cm
     from repro_torch.models import registry
-    rows = _rows(toks, rules)
-    batch = {"tokens": rows, "labels": rows}
+    from repro_torch.models.transformer import batch_rows_len
+    batch = _rows(train_batch(prompt), rules)
     _, grads = cm.value_and_grad(
         lambda p: model.loss_fn(p, batch, remat=True, rules=rules,
-                                global_batch=len(toks))[0],
+                                global_batch=PLANE_B)[0],
         params)
     if rules is not None:
         grads, _ = registry._plane_grads(model, sh.ModelPlane(rules), grads,
-                                         rows.shape[1])
+                                         batch_rows_len(batch)[1])
     return grads
 
 
@@ -882,9 +937,12 @@ def _recording(counts: dict, step: str, rules):
 
 
 def _rows(x, rules):
-    """This rank's rows of a whole batch (dim 0 over the data axes)."""
+    """This rank's rows of a whole batch (dim 0 over the data axes), a
+    tensor or a dict of them."""
     if rules is None:
         return x
+    if isinstance(x, dict):
+        return {k: _rows(v, rules) for k, v in x.items()}
     return sh.place_params(x, (sh.BATCH,) + (None,) * (x.dim() - 1), rules)
 
 
@@ -1009,7 +1067,7 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
         if cfg.act_seq_shard and plane.m == 1 and not cfg.is_moe:
             continue
         mdl = build_model(cfg)
-        params, toks, noise = plane_inputs(cfg)
+        params, prompt, noise = plane_inputs(cfg)
         logical = mdl.param_logical()
         placed = sh.place_params(params, logical, rules)
         key = "base" if name == "seq" else name.removesuffix("_seq") \
@@ -1017,18 +1075,18 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
         margins, dropped = [], []
         with router_margins(margins, cfg.experts_per_token):
             if key not in ref:
-                ref[key] = {"serve": _serve_run(mdl, params, toks, noise,
+                ref[key] = {"serve": _serve_run(mdl, params, prompt, noise,
                                                 None)}
             if name != "sliding" and "train" not in ref[key]:
-                ref[key]["train"] = _train_run(mdl, params, toks, None)
-                ref[key]["grads"] = _grads(mdl, params, toks, None)
+                ref[key]["train"] = _train_run(mdl, params, prompt, None)
+                ref[key]["grads"] = _grads(mdl, params, prompt, None)
         if cfg.is_moe:
             out[f"{name}_margin"] = min(margins) if margins else \
                 ref[key].get("margin")
             ref[key]["margin"] = out[f"{name}_margin"]
         base_logits, base_tok, _ = ref[key]["serve"]
         with dropped_across(dropped):
-            logits, tok, counts = _serve_run(mdl, placed, toks, noise, rules)
+            logits, tok, counts = _serve_run(mdl, placed, prompt, noise, rules)
         logits, tok = _whole_rows(logits, rules), _whole_rows(tok, rules)
         out[f"{name}_logits"] = _max_over_ranks(_diff(logits, base_logits))
         out[f"{name}_tokens_equal"] = bool(torch.equal(tok, base_tok))
@@ -1038,9 +1096,9 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
         if name == "sliding":
             continue
         with dropped_across(dropped):
-            grads = sh.whole_params(_grads(mdl, placed, toks, rules),
+            grads = sh.whole_params(_grads(mdl, placed, prompt, rules),
                                     logical, params, rules)
-            losses, trained, counts = _train_run(mdl, placed, toks, rules)
+            losses, trained, counts = _train_run(mdl, placed, prompt, rules)
         if cfg.is_moe:
             out[f"{name}_dropped_across"] = _sum_over_ranks(sum(dropped))
         trained = sh.whole_params(trained, logical, params, rules)
@@ -1084,29 +1142,70 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
             "ring": rg.local_window < RECURRENT_S,
             "heads": sorted(_gather_ints(h1 - h0)),
             "slstm_heads_split": cfgs["xlstm"].n_heads % m == 0}
+    elif "vlm" in names:
+        plan = tf._Plan(cfgs["audio"], plane, "train", PLANE_S)
+        out["paths"] = {
+            "kv_seq": cfgs["vlm"].n_kv_heads % m != 0,
+            # the model ranks whose part of S holds image rows under seq
+            "image_ranks": -(-PLANE_IMG * m // PLANE_S),
+            "head_ranges": len(plan._need(None, ("head",), None)[1])}
     else:
         out["paths"] = {
             name: "experts" if tf._Plan(cfgs[name], plane, "train",
                                         PLANE_S).moe_ep else "d_ff"
             for name in names}
+    if "base" in names:
+        out["positions"] = positions_report(rules, ref)
     for name, jp in (jax_params or {}).items():
         cfg = cfgs[name]
         mdl = build_model(cfg)
         local = convert.lm_params(jp, rules=rules,
                                   logical=mdl.param_logical())
-        _, toks, _ = plane_inputs(cfg)
+        _, prompt, _ = plane_inputs(cfg)
         margins = []
         with router_margins(margins, cfg.experts_per_token):
-            logits, _ = mdl.prefill(local, {"tokens": _rows(toks, rules)},
-                                    rules=rules, global_batch=len(toks))
-            loss, _ = mdl.loss_fn(local, {"tokens": _rows(toks, rules),
-                                          "labels": _rows(toks, rules)},
-                                  rules=rules, global_batch=len(toks))
+            logits, _ = mdl.prefill(local, _rows(prefill_batch(prompt), rules),
+                                    rules=rules, global_batch=PLANE_B)
+            loss, _ = mdl.loss_fn(local, _rows(train_batch(prompt), rules),
+                                  rules=rules, global_batch=PLANE_B)
         out[f"{name}_jax_prefill_logits"] = _whole_rows(logits, rules).numpy()
         out[f"{name}_jax_loss"] = float(loss)
         if cfg.is_moe:
             out[f"{name}_jax_margin"] = -_max_over_ranks(-min(margins))
     return out
+
+
+def positions_report(rules, ref=None) -> dict:
+    """The smoke Llama's prefill logits and loss with the batch's positions
+    3 t + 5 under ``rules`` against ``rules=None``'s with the same
+    positions (the largest differences over the ranks, and bit equality),
+    and how far those logits are from the token indices' (the positions
+    reach the result). ``ref`` keeps the ``rules=None`` runs."""
+    from repro_torch.models.registry import build_model
+    cfg = plane_configs()["base"]
+    mdl = build_model(cfg)
+    params, toks, _ = plane_inputs(cfg)
+    pos = (3 * torch.arange(toks.shape[1]) + 5)[None].expand(toks.shape)
+    batch = {"tokens": toks, "positions": pos, "labels": toks}
+    ref = {} if ref is None else ref
+
+    def run(p, b, r):
+        logits, _ = mdl.prefill(p, {k: b[k] for k in ("tokens", "positions")
+                                    if k in b}, rules=r, global_batch=PLANE_B)
+        loss, _ = mdl.loss_fn(p, b, rules=r, global_batch=PLANE_B)
+        return logits, loss
+    if "positions" not in ref:
+        ref["positions"] = run(params, batch, None), run(
+            params, {"tokens": toks, "labels": toks}, None)[0]
+    (logits0, loss0), indices = ref["positions"]
+    placed = sh.place_params(params, mdl.param_logical(), rules)
+    logits, loss = run(placed, _rows(batch, rules), rules)
+    logits = _whole_rows(logits, rules)
+    return {"logits": _max_over_ranks(_diff(logits, logits0)),
+            "loss": _max_over_ranks(abs(float(loss - loss0))),
+            "bitwise": bool(torch.equal(logits, logits0)
+                            and torch.equal(loss, loss0)),
+            "from_indices": _diff(logits0, indices)}
 
 
 def plane_reports(meshes, jax_params=None, names=DENSE) -> list:

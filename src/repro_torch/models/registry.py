@@ -152,7 +152,7 @@ def make_train_step(model: Model, tc: TrainConfig, *,
         norm_kw = {}
         if plane is not None:
             grads, norm_kw = _plane_grads(model, plane, grads,
-                                          batch["tokens"].shape[1])
+                                          tf.batch_rows_len(batch)[1])
         grads, gnorm = optim.clip_by_global_norm(grads, tc.grad_clip,
                                                  donate=donate, **norm_kw)
         lr = optim.cosine_warmup(opt_state.step, base_lr=tc.learning_rate,

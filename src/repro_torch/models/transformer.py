@@ -44,9 +44,9 @@ in order in the activation dtype, and the head's nq * V columns reshape to
 logits (B, S, nq, V), codebook-major.
 
 The model plane (``rules=``, a :class:`~repro_torch.sharding.ShardingRules`
-over a (data, model) or (pod, data, model) mesh) runs the dense, MoE and
-recurrent families (every config on token inputs) on each rank's shards,
-as ``rules.spec`` places the parameters, the batch (B over the data axes,
+over a (data, model) or (pod, data, model) mesh) runs every family, the
+frontends included, on each rank's shards, as ``rules.spec`` places the
+parameters, the batch (B over the data axes,
 replicated there when they do not divide it; above one data rank the
 callers pass ``global_batch``, the whole rows, which tells the two apart)
 and the cache:
@@ -89,9 +89,22 @@ and the cache:
     and its loop over time run whole on every rank, no collective inside
     it. A recurrent block under ``act_seq_shard`` starts with ``enter``
     (the whole S) and needs no carry between ranks;
-  * the embedding: vocab-parallel, a masked local lookup then an
-    all-reduce; the head: vocab-parallel logits (all-gathered where serving
-    samples them), the loss ``common.cross_entropy``'s vocab-parallel form;
+  * the embedding (:meth:`_Plan.embed`): vocab-parallel, a masked local
+    lookup then an all-reduce; the head: vocab-parallel logits
+    (all-gathered where serving samples them), the loss
+    ``common.cross_entropy``'s vocab-parallel form. The positions are the
+    batch's when it has them, else built as ``embed_inputs`` builds them;
+  * the frontends: the vision stub's projector is FSDP over the data axes
+    and whole over "model", gathered with the embedding; its image rows,
+    whole on every rank, go ahead of the vocab-parallel text rows after
+    their sum (under ``act_seq_shard`` they enter the sum on model rank 0
+    alone, and the projector's gradient is summed over "model"). The audio
+    codec's table lies over "model" along V (dim 1): the codebooks'
+    masked lookups are summed over "model" in one (nq, B, S, D) stack, then
+    added in codebook order; its head's nq * V columns are gathered over
+    "model" and cut to the rank's V columns of every codebook, so the
+    logits are (B, S, nq, V_r) and the vocab-parallel loss and the serve
+    gather run as for a token model;
   * ``act_seq_shard`` (train and prefill, when m > 1 divides S): between
     units the activations are (B, S/m, D) on each rank; the row-parallel
     products end in a reduce-scatter along S instead of an all-reduce and
@@ -102,9 +115,7 @@ and the cache:
 A weight whose storage does not match the rank's part (a dimension the
 mesh does not divide is stored whole) is taken whole and cut. A collective
 over axes of one rank is the identity, so on a one-rank mesh none runs and
-the results are the unsharded ones bit for bit. The vision and audio
-frontends under rules run as without them at one rank and raise
-``NotImplementedError`` above it.
+the results are the unsharded ones bit for bit.
 """
 from __future__ import annotations
 
@@ -117,6 +128,7 @@ import torch
 # imported here, it runs before any training frame exists
 import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as sh
@@ -126,12 +138,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.rope import apply_mrope, apply_rope
-
-_LATER = "not ported yet: ROADMAP Queue 1, item {}"
-# the ROADMAP item of each family's model-plane port
-_PLANE_ITEMS = {"vlm": "17 (the vision and audio frontends on the model axis)",
-                "audio": "17 (the vision and audio frontends on the model "
-                         "axis)"}
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +304,11 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     over the data axes when ``batch`` divides them."""
     if rules is not None:
         plane = sh.ModelPlane(rules)
-        whole = init_cache(cfg, batch, seq_len, dtype, "meta")
+        # the whole cache's shapes, as meta tensors made outside any
+        # dispatch mode: the dry run's counter would count them as the
+        # step's memory (a prefill's whole-batch cache, every layer's)
+        with _disable_current_modes():
+            whole = init_cache(cfg, batch, seq_len, dtype, "meta")
         logical = cache_logical(cfg, seq_len, plane.m)
         local = sh._map_logical(
             lambda t, lg: torch.zeros(plane.local_shape(lg, t.shape),
@@ -500,13 +510,31 @@ def embed_inputs(params, batch, cfg):
         x = torch.cat([ximg, xtxt], dim=1)
     else:
         x = cm.embed_lookup(batch["tokens"], emb["tok"], dtype)
-    b, s = x.shape[:2]
+    return x, batch_positions(batch, cfg, x.device), batch.get("labels")
+
+
+def batch_rows_len(batch) -> tuple:
+    """(rows, S) of a step's batch: S the positions the step embeds (a
+    vision batch's patches and text tokens together)."""
+    if "embeds" in batch:
+        return (batch["embeds"].shape[0],
+                batch["embeds"].shape[1] + batch["tokens"].shape[1])
+    for key in ("codes", "tokens", "token"):
+        if key in batch:
+            return tuple(batch[key].shape[:2])
+    raise KeyError(f"a batch of {sorted(batch)} holds no input")
+
+
+def batch_positions(batch, cfg, device):
+    """The batch's "positions", or the token indices (B, S), each of
+    M-RoPE's three streams at the index (B, S, 3)."""
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        b, s = batch_rows_len(batch)
+        positions = torch.arange(s, device=device)[None].expand(b, s)
         if cfg.mrope_sections:
             positions = positions[..., None].expand(b, s, 3)
-    return x, positions, batch.get("labels")
+    return positions
 
 
 def logits_from_hidden(params, x, cfg):
@@ -586,7 +614,7 @@ def forward_train(params, batch, cfg, *, remat=False, use_flash=False,
     one data rank."""
     plan = _plan(cfg, rules, "train", batch, global_batch)
     if plan is not None:
-        x, positions = plan.embed_tokens(params, batch["tokens"])
+        x, positions = plan.embed(params, batch)
         x, aux = _run_stack(params, None, x, cfg, positions, mode="train",
                             use_flash=use_flash, remat=remat, plan=plan)
         logits = plan.logits(params, x)
@@ -614,8 +642,8 @@ def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False,
     (``global_batch`` as in :func:`forward_train`)."""
     plan = _plan(cfg, rules, "prefill", batch, global_batch)
     if plan is not None:
-        x, positions = plan.embed_tokens(params, batch["tokens"])
-        b, s = positions.shape
+        x, positions = plan.embed(params, batch)
+        b, s = positions.shape[:2]
         cap = max(max_len or s, s)
         cache = plan.init_cache(b, cap, x.device)
         x, _ = _run_stack(params, cache, x, cfg, positions, mode="prefill",
@@ -639,7 +667,7 @@ def forward_decode(params, cache, batch, cfg, *, rules=None,
     pos = cache["pos"]
     plan = _plan(cfg, rules, "decode", batch, global_batch)
     if plan is not None:
-        x, _ = plan.embed_tokens(params, batch["token"])
+        x, _ = plan.embed(params, batch)
         x, _ = _run_stack(params, cache, x, cfg, None, mode="decode",
                           pos=pos, plan=plan)
         return plan.serve_logits(params, x), dict(cache, pos=pos + 1)
@@ -657,33 +685,25 @@ def forward_decode(params, cache, batch, cfg, *, rules=None,
 # ---------------------------------------------------------------------------
 
 def plane_supported(cfg) -> bool:
-    """Whether the model plane runs ``cfg`` above one rank: the dense, MoE,
-    xLSTM and RG-LRU hybrid families on token inputs."""
-    return cfg.frontend == "none" and set(cfg.layer_kinds) <= {
-        "attn", "local_attn", "rglru", "mlstm", "slstm"}
-
-
-def plane_item(cfg) -> str:
-    """The ROADMAP item that ports ``cfg``'s family to the model plane."""
-    return _PLANE_ITEMS["vlm" if cfg.frontend == "vision_stub" else "audio"]
+    """Whether the model plane runs ``cfg``: every block kind of it is one
+    the plane has (every config of the package: the dense, MoE, xLSTM,
+    RG-LRU hybrid, vision-stub and audio-codec families)."""
+    return set(cfg.layer_kinds) <= {"attn", "local_attn", "rglru", "mlstm",
+                                    "slstm"}
 
 
 def _plan(cfg, rules, mode, batch, global_batch=None):
-    """The step's :class:`_Plan`, or None: no rules, or a family the model
-    plane does not run on a one-rank mesh (it runs as without rules). A
-    plan is made once per (config, step kind, sequence length, batch
-    layout) and kept on ``rules``, so a step repeats none of its layout
-    work. ``global_batch`` (the whole batch's rows; above one data rank
-    the caller must pass it) says whether the batch is replicated over the
+    """The step's :class:`_Plan`, or None without rules. A plan is made
+    once per (config, step kind, sequence length, batch layout) and kept on
+    ``rules``, so a step repeats none of its layout work; the sequence
+    length is the positions the step embeds (``batch_rows_len``).
+    ``global_batch`` (the whole batch's rows; above one data rank the
+    caller must pass it) says whether the batch is replicated over the
     data axes, as ``rules.spec`` places a BATCH the axes do not divide
     (``launch.specs.place_batch``)."""
     if rules is None:
         return None
-    if not plane_supported(cfg):
-        if sh.ModelPlane(rules).size["all"] > 1:
-            raise NotImplementedError(_LATER.format(plane_item(cfg)))
-        return None
-    rows, seq = next(iter(batch.values())).shape[:2]
+    rows, seq = batch_rows_len(batch)
     plans = rules.__dict__.setdefault("_plans", {})
     plane = sh.ModelPlane(rules)
     if global_batch is None:
@@ -776,8 +796,23 @@ class _Plan:
             if self.moe_ep:
                 return 0, (self.experts,)
             return (1 if path[1] == "wo" else 2), (self.moe_ff,)
-        if path in (("embed", "tok"), ("head",)):
-            return (0 if path == ("embed", "tok") else 1), (self.vocab,)
+        nq, v = self.cfg.n_codebooks, self.cfg.vocab_size
+        if path == ("embed", "tok"):    # an audio table (nq, V, D): V on dim 1
+            return (1 if nq else 0), (self.vocab,)
+        if path == ("head",):
+            # an audio head's nq * V columns: the rank's rows of every
+            # codebook (stored in contiguous parts of all nq * V, so
+            # gathered over "model" and cut; on one rank the stored whole)
+            v0, v1 = self.vocab
+            if not nq:
+                return 1, ((v0, v1),)
+            if v1 - v0 < v:
+                return 1, tuple((q * v + v0, q * v + v1) for q in range(nq))
+            return 1, ((0, nq * v),)
+        if path == ("embed", "proj") and self.seq_shard:
+            # the image rows enter on model rank 0 alone (``embed``): the
+            # projector's gradient is summed over "model" (``copy``)
+            return 0, ((0, spec.shape[0]),)
         return None
 
     def _need_recurrent(self, kind, path, spec):
@@ -969,12 +1004,9 @@ class _Plan:
             return k[:, :, self.kv_range[0]:self.kv_range[1]]
         return k.index_select(2, self.kv_index.to(k.device))
 
-    def embed_tokens(self, params, tokens):
-        """The vocab-parallel embedding of (B,S) tokens: each rank looks up
-        the tokens in its rows (zero elsewhere), then the ranks' rows are
-        summed over "model" (split along S under ``seq_shard``). Returns
-        (x, positions)."""
-        table = self._outer(params, ("embed",))["embed"]["tok"]
+    def _lookup(self, tokens, table):
+        """This rank's vocab rows' part of the embedding of ``tokens`` in
+        the activation dtype: the rows it holds, zero elsewhere."""
         v0, v1 = self.vocab
         if (v0, v1) == (0, self.cfg.vocab_size):
             e = table[tokens]
@@ -982,31 +1014,85 @@ class _Plan:
             inside = (tokens >= v0) & (tokens < v1)
             e = table[torch.where(inside, tokens - v0, 0)] * \
                 inside[..., None].to(table.dtype)
-        # one rank's term is nonzero, so the sum is exact in any dtype
-        e = e.to(self.cfg.act_dtype)
-        x = self.plane.scatter(e, "model", 1) if self.seq_shard else \
-            self.plane.psum(e, "model")
-        b, s = tokens.shape
-        return x, torch.arange(s, device=x.device)[None].expand(b, s)
+        return e.to(self.cfg.act_dtype)
+
+    def _rows_sum(self, e, dim: int):
+        """The ranks' parts summed over "model", split along S (``dim``)
+        under ``seq_shard``. One rank's term of each entry is nonzero, so
+        the sum is exact in any dtype."""
+        if self.seq_shard:
+            return self.plane.scatter(e, "model", dim)
+        return self.plane.psum(e, "model")
+
+    def embed(self, params, batch):
+        """The step's input embedding, vocab-parallel, and its positions
+        (None in decode): each rank looks up the tokens in its rows (zero
+        elsewhere) and the ranks' parts are summed over "model" (split
+        along S under ``seq_shard``). An audio batch's codebooks are
+        looked up so, stacked (nq, B, S, D) into one sum, then added in
+        codebook order as ``embed_inputs`` adds them. A vision batch's
+        image rows (``embeds @ proj`` in the activation dtype, whole on
+        every rank) go ahead of the summed text rows; under ``seq_shard``
+        they enter the sum on model rank 0 alone. The positions are the
+        batch's, whole along S (attention reads them after ``enter``), or
+        ``batch_positions``'."""
+        cfg = self.cfg
+        # a decode step embeds tokens alone: the projector is not gathered
+        keys = ("tok",) if self.mode == "decode" else tuple(params["embed"])
+
+        def specs():
+            emb = model_specs(cfg)["embed"]
+            return {"embed": {k: emb[k] for k in keys}}
+        emb = self.weights(("embed",) + keys, specs, {"embed": {
+            k: params["embed"][k] for k in keys}})["embed"]
+        if cfg.frontend == "audio_codec":
+            codes = batch["codes"]
+            e = self._rows_sum(torch.stack([
+                self._lookup(codes[..., q], emb["tok"][q])
+                for q in range(cfg.n_codebooks)]), 2)
+            x = e[0]
+            for q in range(1, cfg.n_codebooks):
+                x = x + e[q]
+        elif cfg.frontend == "vision_stub" and self.mode != "decode":
+            dt = cfg.act_dtype
+            ximg = torch.matmul(batch["embeds"].to(dt), emb["proj"].to(dt))
+            e = self._lookup(batch["tokens"], emb["tok"])
+            if self.seq_shard:
+                keep = float(self.plane.rank["model"] == 0)
+                x = self._rows_sum(torch.cat([ximg * keep, e], 1), 1)
+            else:
+                x = torch.cat([ximg, self._rows_sum(e, 1)], 1)
+        else:
+            x = self._rows_sum(self._lookup(
+                batch["token" if self.mode == "decode" else "tokens"],
+                emb["tok"]), 1)
+        if self.mode == "decode":
+            return x, None
+        return x, batch_positions(batch, cfg, x.device)
 
     def logits(self, params, x, last: bool = False):
         """This rank's vocab columns of the logits (B,S,V_r), or of the
-        last position's (``last``). The head is column-parallel: its input
-        enters as the blocks' products do (under ``seq_shard`` the final
-        norm runs on each rank's part of S, then one all-gather)."""
+        last position's (``last``); an audio config's (B,S,nq,V_r), the
+        rank's columns of each codebook. The head is column-parallel: its
+        input enters as the blocks' products do (under ``seq_shard`` the
+        final norm runs on each rank's part of S, then one all-gather)."""
         w = self._outer(params, ("final_norm", "head"))
         if last and not self.seq_shard:
             x = x[:, -1:]
         h = self.enter(cm.rms_norm(x, w["final_norm"]))
         if last and self.seq_shard:
             h = h[:, -1:]
-        return cm.dense(h, w["head"].to(h.dtype),
-                        getattr(torch, self.cfg.logits_dtype))
+        out = cm.dense(h, w["head"].to(h.dtype),
+                       getattr(torch, self.cfg.logits_dtype))
+        if self.cfg.n_codebooks:
+            out = out.reshape(*out.shape[:2], self.cfg.n_codebooks, -1)
+        return out
 
     def serve_logits(self, params, x, last: bool = False):
         """The logits over the whole vocab, all-gathered over "model"."""
-        return self.plane.all_gather_uneven(self.logits(params, x, last),
-                                            "model", 2, self.cfg.vocab_size)
+        out = self.logits(params, x, last)
+        return self.plane.all_gather_uneven(out, "model", out.dim() - 1,
+                                            self.cfg.vocab_size)
 
     # -- the cache -----------------------------------------------------------
     def init_cache(self, b: int, cap: int, device):
@@ -1065,7 +1151,7 @@ def grad_sum_axes(cfg, rules, seq_len: int):
     backwards sum them. The MoE router takes no "model" sum: every rank
     computes it whole on the whole rows, so its gradient is whole on each
     (``replicate`` keeps the rank's slice)."""
-    if rules is None or not plane_supported(cfg):
+    if rules is None:
         return None
     plane = sh.ModelPlane(rules)
     seq = cfg.act_seq_shard and plane.m > 1 and seq_len % plane.m == 0

@@ -58,8 +58,9 @@ the draws map their uniforms onto every client's size, and the exchange's
 result gather brings the new sizes, so keeping them whole costs no
 collective of its own.
 
-The model half (:class:`ModelPlane`) runs the dense, MoE and recurrent
-transformer families on a (data, model) or (pod, data, model) mesh
+The model half (:class:`ModelPlane`) runs every transformer family (the
+dense, MoE, recurrent, vision-stub and audio-codec configs) on a (data,
+model) or (pod, data, model) mesh
 (``models.transformer``): each rank holds the shards ``ShardingRules.spec``
 gives it (:func:`place_params`) and computes on them; every collective the
 layout needs goes through the plane's autograd functions, whose backward
@@ -224,6 +225,52 @@ gradients of the leaves stored whole there (the recurrent blocks' conv,
 gate and bias weights); under seq the norm scales' all-reduce over M
 covers the blocks' own ``ln``. ``tests/test_torch_recurrent_plane.py``
 holds every count to these tables on gloo ranks.
+
+The frontends' layers are dense units. What they add is at the step's
+ends (``transformer._Plan.embed``, ``_Plan.logits``):
+
+========  ==================================================================
+vision    the projector ``embed.proj`` (F, D) is stored FSDP over D and
+          whole over M; it joins the embedding's all-gather over D (one
+          buffer, no call of its own; a decode step embeds no image and
+          gathers the token table alone). Its image rows ``embeds @ proj``
+          are whole on every rank and go ahead of the text rows after the
+          lookup's all-reduce over M, so they never enter that sum. Under
+          seq the whole sequence's rows are reduce-scattered along S: the
+          image rows enter the sum on M rank 0 alone (zeros elsewhere), so
+          each position has one nonzero term; the backward adds one
+          all-reduce over M, the projector's ``copy`` (its gradient is
+          nonzero on rank 0 alone). M-RoPE's (B, S, 3) positions are the
+          batch's, whole along S.
+audio     the table (nq, V, D) lies over M along V; each codebook's lookup
+          is masked to the rank's rows and the (nq, B, S, D) stack of
+          partial rows is summed in one all-reduce over M (under seq one
+          reduce-scatter along S), then added in codebook order: each
+          entry has one nonzero term, so every mesh sums the codebooks in
+          the unsharded order and rounding; a local sum and one all-reduce
+          of (B, S, D) would move 1/nq of the bytes but round differently
+          above one rank. The head (D, nq V) stores contiguous parts of
+          nq V columns, where the rank needs ``q V + split_range(V, M, r)``
+          of every codebook (the loss's and the serve gather's split): it
+          is all-gathered over M and cut (at M = 1 the stored whole), as
+          the mLSTM's ``w_up`` is. The (D, nq V) weight moves fewer bytes
+          than the rank's (B, S, nq V / M) logits would at any train or
+          prefill shape of the configs
+========  ==================================================================
+
+Added to the dense table's counts, over M only:
+
+=================  ====================  =========================
+                   vision                audio
+=================  ====================  =========================
+prefill                                  AG 1
+decode step                              AG 1
+train, remat                             AG 1; RS 1
+train, remat, seq  AR 1                  AG 1; RS 1
+=================  ====================  =========================
+
+``tests/test_torch_frontend_plane.py`` holds every count to these tables
+on gloo ranks.
 
 The default process group is never initialised on import; the mesh
 constructors in ``launch.mesh`` do that.

@@ -7,6 +7,9 @@ import torch
 
 from repro.core import batching as jb
 from repro_torch.core import batching as tb
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _ragged(seed=0, sizes=(5, 9, 3, 7)):

@@ -22,6 +22,9 @@ from repro_torch.fl import trainer as ttr
 from repro_torch.launch import serve as tsrv
 from repro_torch.models.autoencoder import AEConfig
 from repro_torch.models.registry import build_model
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \

@@ -11,6 +11,9 @@ from repro.data.partition import partition_by_classes as j_partition
 from repro.data.synthetic import make_split_dataset as j_split
 from repro_torch.data import (fmnist_like_split, make_image_dataset,
                               make_split_dataset, partition_by_classes)
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("circular", [True, False])

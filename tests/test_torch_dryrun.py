@@ -176,6 +176,20 @@ def test_counted_flops_against_xla_cost_analysis():
     assert m.get_total_flops() == rec["cost"]["flops"]
 
 
+def test_plane_prefill_counts_the_rank_cache_alone():
+    """A prefill on a rank of 16 x 16 counts its own cache shards, not the
+    whole batch's cache whose shapes the plane reads on the meta device:
+    Llama-3.2-1B's peak at 16 layers exceeds 4 layers' by about 12 layers'
+    shards (1 MiB each at 64 x 2,048), and the whole cache (256 MiB a
+    layer) is not among the step's temporaries."""
+    cfg = dr.get_config("llama3.2-1b")
+    shape = InputShape("plane", 2048, 64, "prefill")
+    peaks = [dr.count_step(dataclasses.replace(cfg, n_layers=n), shape,
+                           rules=dr.mesh_rules("pod16x16"))["memory"]
+             ["temp_size_in_bytes"] for n in (4, 16)]
+    assert 0 <= peaks[1] - peaks[0] <= 16 * 2 ** 20
+
+
 def test_flash_work_counts_the_keys_each_query_sees():
     """A prefill's attention is counted as its kernel's work: the causal
     triangle (and the window), not the plain version's S x L product."""

@@ -13,6 +13,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import recon_gate as rg_kernel
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _case(seed, shape, mask_p=0.7):

@@ -8,6 +8,9 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("causal,window,q_offset,h,kv", [

@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 
 from repro_torch import meshlab
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EXACT = ("segment", "in_edge", "moved", "n_live", "n_failed", "retried",
          "retry_delivered", "n_available", "rediscovered")

@@ -23,6 +23,9 @@ port and the reference.
 * The (2, 2) prefill logits and train loss from JAX's parameters (through
   ``convert.lm_params``) equal JAX's ``model.prefill`` and ``loss_fn``
   within 1e-5.
+* The plane keeps the batch's ``positions`` (3 t + 5 here): the prefill
+  logits and loss equal ``rules=None``'s with the same positions bit for
+  bit on one rank (``launch.mesh.host_rules``) and within 1e-5 at (2, 2).
 * The dry run's counted collective bytes for the smoke Llama at a
   shape-only (2, 2) mesh equal the bytes the gloo (2, 2) run moved.
 * The client plane on a (pod 2, data 2) mesh, whose client axis is the
@@ -282,6 +285,26 @@ def test_collectives_equal_the_docstring_table(mesh, reports):
             "decode", cfg.n_layers, kvg, False, mesh), (name, "decode")
         assert rep[f"{name}_train_counts"]["train"][0] == expected_counts(
             "train", cfg.n_layers, kvg, seq, mesh), (name, "train")
+
+
+def test_one_rank_plane_keeps_the_batch_positions():
+    """Under one rank's rules (``launch.mesh.host_rules``) the smoke Llama's
+    prefill logits and loss with the batch's positions 3 t + 5 equal
+    ``rules=None``'s with the same positions bit for bit, and those
+    positions move the logits away from the token indices'."""
+    from repro_torch.launch.mesh import host_rules
+    with host_rules(device="cpu") as rules:
+        rep = meshlab.positions_report(rules)
+    assert rep["bitwise"] and rep["logits"] == 0.0 and rep["loss"] == 0.0
+    assert rep["from_indices"] > 1e-3
+
+
+def test_plane_keeps_the_batch_positions_at_2x2(world4):
+    rep = world4["plane"][1]
+    assert rep["mesh"] == (2, 2)
+    pos = rep["positions"]
+    assert pos["logits"] <= TOL and pos["loss"] <= TOL
+    assert pos["from_indices"] > 1e-3
 
 
 def test_jax_prefill_and_loss_at_2x2(world4):

@@ -23,6 +23,9 @@ from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
 from repro_torch import convert, optim
 from repro_torch.models import common as cm
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _np_tree(rng, scale=1.0):

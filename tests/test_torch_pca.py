@@ -6,10 +6,14 @@ the projector U U^T. Tolerance: 1e-4 absolute (float32 eigensolvers on a
 64 x 64 covariance with well separated leading eigenvalues)."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import pca as jpca
 from repro_torch.core import pca as tpca
+from test_torch_draws import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _stack(seed=0, n=4, cap=30, d=64):

@@ -85,16 +85,22 @@ def world():
 
 
 def test_the_plane_takes_both_families():
-    """Above one rank the plane runs both recurrent configs; only the
-    frontends' item is left, and a frontend config still raises there."""
-    for arch in ARCH.values():
-        assert tf.plane_supported(get_config(arch)), arch
-    assert set(tf._PLANE_ITEMS.values()) == {
-        "17 (the vision and audio frontends on the model axis)"}
-    cfg = get_config("musicgen-medium")
-    batch = {"codes": np.zeros((16, 8, cfg.n_codebooks))}
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tf._plan(cfg, dr.mesh_rules("pod16x16"), "prefill", batch)
+    """The plane runs every config of the package, both recurrent ones
+    among them: each builds a prefill plan for one rank of 16 x 16 from
+    the dry run's batch (a vision batch's S the patches and the text
+    together)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import specs as sp
+    shape = INPUT_SHAPES["prefill_32k"]
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        assert tf.plane_supported(cfg), arch
+        rules = dr.mesh_rules("pod16x16")
+        plan = tf._plan(cfg, rules, "prefill",
+                        sp.input_specs(cfg, shape, rules),
+                        shape.global_batch)
+        assert plan.plane.m == 16 and plan.vocab == sh.split_range(
+            cfg.vocab_size, 16, 0), arch
 
 
 def test_one_rank_cache_equals_the_unsharded_cache():

@@ -170,9 +170,9 @@ def test_prefill_plus_decode_matches_own_full_forward(lm, use_flash):
 
 def test_unported_families_raise_naming_the_roadmap():
     """``act_seq_shard`` without a mesh changes nothing (as the reference's
-    constraint returns x outside a model axis); a frontend config on a
-    model axis above one rank raises, naming its ROADMAP item, and a
-    recurrent and an MoE prefill there are counted; MoE, the recurrent
+    constraint returns x outside a model axis); an audio-codec, a
+    recurrent and an MoE prefill on a model axis above one rank are
+    counted (no family is left unported there); MoE, the recurrent
     kinds
     (rglru, mlstm, slstm), the vision stub with M-RoPE and the audio codec
     build, MoE and the frontends with JAX's parameter counts."""
@@ -219,10 +219,19 @@ def test_unported_families_raise_naming_the_roadmap():
                                                     "model": 16}))
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long, device="meta")}
     am = build_model(get_smoke_config("musicgen-medium"))
-    codes = {"codes": torch.zeros((1, 4, am.cfg.n_codebooks),
+    # 16 positions: the 2 KV heads lie over the cache's slots, 1 a rank
+    codes = {"codes": torch.zeros((1, 16, am.cfg.n_codebooks),
                                   dtype=torch.long, device="meta")}
-    with pytest.raises(NotImplementedError, match="item 17"):
-        am.prefill(am.param_shapes(pod), codes, rules=pod)
+    # the codebooks' logits: the head gathered over "model" and cut to the
+    # rank's columns of each codebook, then all-gathered along V
+    apod = sh.ShardingRules.default(sh.CountingMesh({"data": 16,
+                                                     "model": 16}))
+    alogits, _ = am.prefill(am.param_shapes(apod), codes, rules=apod,
+                            global_batch=1)
+    assert tuple(alogits.shape) == (1, 1, am.cfg.n_codebooks,
+                                    am.cfg.vocab_size)
+    assert apod.mesh.calls[("all-gather", ("model",))] == \
+        am.cfg.n_layers + 2
     # the smoke recurrentgemma's two RG-LRU blocks: each reduce-scatters
     # its gates' sums over "model"
     rpod = sh.ShardingRules.default(sh.CountingMesh({"data": 16,

@@ -197,7 +197,9 @@
    cuDNN's default mode differ by more, both gaps printed); (c) phase
    6's ``burst-outage`` run with the mesh-1 rules (each segment's
    ``in_edge`` and moved held to phase 6's, its seconds printed beside
-   them). The kernels get local CUDA tensors, never a DTensor; the phase
+   them). Each part counts every ``torch.distributed`` call and fails if
+   one ran: over a one-rank client axis every collective is the identity.
+   The kernels get local CUDA tensors, never a DTensor; the phase
    destroys its process group.
 16. Drives the model plane (``models.transformer`` under ``rules=``):
    (a) on a one-rank NCCL mesh from ``launch.mesh.host_rules``,
@@ -239,7 +241,12 @@
    launches a prefill) and trained at 4 x 1,500; logits, tokens, losses
    and final parameters bit for bit, no collective; (c) the tensor-core
    flash kernel at both models' per-rank attention for model 2, 4 and 16
-   against the plain version, timed beside its bound and one SDPA call.
+   against the plain version, timed beside its bound and one SDPA call;
+   (d) the dry run of musicgen-medium served at 1,500 + 32 frames on one
+   rank of 16 x 16, whose 1,532-slot cache the model axis does not divide:
+   the cache lies whole on every rank and a decode step counts no softmax
+   combine (its collectives over "model" asserted, the rank's bytes
+   printed).
 
 Phases 4, 5, 6 (a), 7 (a, b), 8 (a, c, d), 9 (a, b), 10, 11, 12, 13
 (b, c), 14 (a, b), 15 (a, b, c), 16 (a), 17 (a, b), 18 (a, b) and 19 (a,
@@ -3707,9 +3714,11 @@ def _zero_launches(ops):
 
 def lab_parity_phase(torch, ops, dev):
     """Phase 15 (a): ``meshlab.parity_report`` at the lab size on the card
-    (mesh 1 against ``rules=None``, every digest equal), then the lab's
-    clustering and gate programs once without and once with the rules,
-    launch counts read around each. Returns the rules run's launches.
+    (mesh 1 against ``rules=None``, every digest equal; every
+    ``torch.distributed`` call counted, and none may run at mesh 1, where
+    each collective is the identity), then the lab's clustering and gate
+    programs once without and once with the rules, launch counts read
+    around each. Returns the rules run's launches.
 
     cuDNN's default backward algorithms at the lab's shapes are not
     deterministic run to run: two ``rules=None`` pretrainings differ in a
@@ -3728,7 +3737,7 @@ def lab_parity_phase(torch, ops, dev):
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        rep = meshlab.parity_report(cfg, 1, device=dev)
+        rep = meshlab.parity_report(cfg, 1, device=dev, count=True)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = saved
@@ -3736,9 +3745,12 @@ def lab_parity_phase(torch, ops, dev):
              "disc_warm")
     same = {p: rep[f"{p}_digest_mesh1"] == rep[f"{p}_digest_base"]
             for p in paths}
+    calls = {stage: sum(c.values())
+             for stage, c in rep["collectives_mesh1"].items()}
     log(f"  lab parity (N={cfg.n_clients}, {cfg.rl_episodes}-episode "
         f"bursts) at mesh 1 on the card: {time.perf_counter() - t0:.2f} s; "
         f"digests equal to rules=None: {same}")
+    log(f"  torch.distributed calls at mesh 1 by stage: {calls}")
     counts = {}
     for tag, rules in (("base", None), ("mesh1", meshlab.make_rules(1, dev))):
         _zero_launches(ops)
@@ -3751,6 +3763,8 @@ def lab_parity_phase(torch, ops, dev):
     log(f"  lab clustering + gate launches: rules=None {counts['base']}, "
         f"mesh 1 {counts['mesh1']}")
     failed = [p for p, ok in same.items() if not ok]
+    failed += [f"{stage}: {n} collectives at mesh 1"
+               for stage, n in calls.items() if n]
     if counts["base"] != counts["mesh1"]:
         failed.append("launch counts differ")
     if counts["mesh1"]["kmeans_assign"] < 1 or \
@@ -3800,6 +3814,8 @@ def sharded_main_path(torch, ops, dev, rules, main_rec, before):
     more each with ``cudnn.deterministic`` on and are held within 1e-5;
     the sharded rounds are held within 1e-5 of phase 4's too unless phase
     4's own FL does not repeat within 1e-5."""
+    from collections import Counter
+    from repro_torch import meshlab
     from repro_torch.core.pipeline import PipelineConfig, run_pipeline
     from repro_torch.fl import FLConfig, fl_train, linear_evaluation
     from repro_torch.models.autoencoder import AEConfig
@@ -3809,18 +3825,21 @@ def sharded_main_path(torch, ops, dev, rules, main_rec, before):
     warm = warm_pipeline(torch, dev, main_rec, world=(xs, ys, ev, gen))
     base = reset_peak(torch, "sharded main path")
     _zero_launches(ops)
+    calls = Counter()
     t0 = time.perf_counter()
-    res = run_pipeline(xs, ys, ae_cfg, PipelineConfig(), generator=gen,
-                       device=dev, rules=rules)
-    torch.cuda.synchronize()
+    with meshlab.count_collectives(calls):
+        res = run_pipeline(xs, ys, ae_cfg, PipelineConfig(), generator=gen,
+                           device=dev, rules=rules)
+        torch.cuda.synchronize()
     t_pipe = time.perf_counter() - t0
     fl_cfg = FLConfig(total_iters=20, tau_a=10, batch_size=64,
                       eval_every=10)
     state = gen.get_state()
     t0 = time.perf_counter()
-    fl = fl_train(res.client_data, ae_cfg, fl_cfg, ev.images, generator=gen,
-                  device=dev, rules=rules)
-    torch.cuda.synchronize()
+    with meshlab.count_collectives(calls):
+        fl = fl_train(res.client_data, ae_cfg, fl_cfg, ev.images,
+                      generator=gen, device=dev, rules=rules)
+        torch.cuda.synchronize()
     t_fl = time.perf_counter() - t0
     after = gen.get_state()
     t0 = time.perf_counter()
@@ -3876,8 +3895,10 @@ def sharded_main_path(torch, ops, dev, rules, main_rec, before):
         f"cudnn.deterministic, sharded to unsharded {det_err:.3e}")
     log(f"  {peak_text(torch, base)}; accuracy {acc:.4f}; lambda max diff "
         f"{lam_err:.3e}")
-    log(f"  launches {launches}")
+    log(f"  launches {launches}; torch.distributed calls in run_pipeline "
+        f"and fl_train at mesh 1: {dict(calls)}")
     checks = {
+        "no collective at mesh 1": not calls,
         "in_edge as phase 4": torch.equal(rec["in_edge"], main_rec["in_edge"]),
         "moved as phase 4": torch.equal(rec["moved"], main_rec["moved"]),
         "gate decisions as phase 4":
@@ -3900,19 +3921,26 @@ def sharded_online(torch, ops, dev, rules, online_segs, online_secs):
     """Phase 15 (c): phase 6's ``burst-outage`` run with the mesh-1 rules;
     each segment's graph and moved count held to phase 6's. Returns the
     launches."""
+    from collections import Counter
+    from repro_torch import meshlab
     xs, ys, ev, _ = full_world(torch, dev)
-    res, launches, total = _online_run(torch, ops, dev, (xs, ys, ev),
-                                       _online_cfg(), "burst-outage", rules)
+    calls = Counter()
+    with meshlab.count_collectives(calls):
+        res, launches, total = _online_run(torch, ops, dev, (xs, ys, ev),
+                                           _online_cfg(), "burst-outage",
+                                           rules)
     secs, seg_secs = online_secs
     for a, b, t, t6 in zip(res.trace.segments, online_segs,
                            res.segment_seconds, seg_secs):
         log(f"  segment {a.segment}: {t:.3f} s (phase 6: {t6:.3f} s); "
             f"in_edge as phase 6 {bool((a.in_edge == b.in_edge).all())}, "
             f"moved {a.moved} (phase 6: {b.moved})")
-    log(f"  run_orchestrator {total:.3f} s (phase 6: {secs:.3f} s)")
+    log(f"  run_orchestrator {total:.3f} s (phase 6: {secs:.3f} s); "
+        f"torch.distributed calls at mesh 1: {dict(calls)}")
     checks = {f"segment {a.segment}: in_edge and moved as phase 6":
               bool((a.in_edge == b.in_edge).all()) and a.moved == b.moved
               for a, b in zip(res.trace.segments, online_segs)}
+    checks["no collective at mesh 1"] = not calls
     checks["5 segments"] = len(res.trace.segments) == len(online_segs) == 5
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -4658,6 +4686,51 @@ def frontend_plane_serve(torch, ops, dev, rules, arch, layers, b, s, gen):
     return launches, checks
 
 
+def frontend_dryrun():
+    """Phase 19 (d): one rank of 16 x 16 counted (``dryrun.count_step`` on
+    meta tensors) serving musicgen-medium as phase 12 does, 4 x 1,500
+    frames + 32: the prefill into a cache of 1,532 slots and a decode
+    step on it. Its 24 KV heads do not divide the model axis and 16 does
+    not divide the 1,532 slots, so the cache lies whole on every rank and
+    a decode step runs no softmax combine: over "model" it all-reduces
+    2L + 1 times (each block's two row-parallel sums and the embedding)
+    and all-gathers L + 2 (each block's KV columns, the codec head's
+    columns, the logits). Prints the rank's bytes and each kind of
+    collective."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    cfg = get_config("musicgen-medium")
+    b, s, gen = 4, 1500, 32
+    layers = cfg.n_layers
+    t0 = time.perf_counter()
+    recs = {}
+    for kind, shape, max_len in (
+            ("prefill", InputShape("serve", s, b, "prefill"), s + gen),
+            ("decode", InputShape("serve", s + gen, b, "decode"), None)):
+        rec = dryrun.count_step(cfg, shape, max_len=max_len,
+                                rules=dryrun.mesh_rules("pod16x16"))
+        mem = rec["memory"]
+        calls = {f"{r['kind']} {'x'.join(r['axes'])}": r["calls"]
+                 for r in rec["collective_calls"]}
+        cache = (f", {mem['cache_size_in_bytes'] / 2**30:.3f} GiB of them "
+                 "the cache") if kind == "decode" else ""
+        log(f"  dry run, musicgen-medium {kind} {b} x {s} + {gen} on one "
+            f"rank of 16 x 16: arguments "
+            f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB{cache}, peak "
+            f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB above them; "
+            f"collectives {calls}, bytes {rec['collectives']}")
+        recs[kind] = calls
+    log(f"  phase 19 (d) {time.perf_counter() - t0:.1f} s")
+    dec = recs["decode"]
+    want = {"all-reduce model": 2 * layers + 1,
+            "all-gather model": layers + 2}
+    got = {k: dec.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"phase 19 (d): the decode step's collectives "
+                             f"over model {got}, not {want} (a softmax "
+                             "combine over a whole cache?)")
+
+
 def frontend_plane_phase(torch, ops, ref, fa_mod, dev):
     """Phase 19: (a) qwen2-vl-72b (8 of 80 layers) and (b) musicgen-medium
     served at phase 12's shapes (``FRONTEND_SERVES``) and trained at phase
@@ -4665,8 +4738,9 @@ def frontend_plane_phase(torch, ops, ref, fa_mod, dev):
     Qwen2-VL's grid) under ``launch.mesh.host_rules`` (a one-rank NCCL
     group made over a ``HashStore``, destroyed after), each against
     ``rules=None``; then (c) the tensor-core flash kernel at both models'
-    per-rank attention (``FRONTEND_PLANE_HEADS``). Returns {arch: the
-    serve's launches} and (c)'s rows."""
+    per-rank attention (``FRONTEND_PLANE_HEADS``) and (d) the dry run of
+    musicgen-medium served on one rank of 16 x 16 (``frontend_dryrun``).
+    Returns {arch: the serve's launches} and (c)'s rows."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4703,6 +4777,7 @@ def frontend_plane_phase(torch, ops, ref, fa_mod, dev):
         shapes += plane_flash(torch, ops, ref, fa_mod, dev, heads, hd, arch,
                               s, f32_heads=None, seed=19)
     log(f"  phase 19 (c) {time.perf_counter() - t0:.1f} s")
+    frontend_dryrun()
     return launches, shapes
 
 

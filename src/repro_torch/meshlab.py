@@ -742,6 +742,10 @@ DENSE = ("base", "sliding", "seq")
 MOE = ("moe_gather", "moe_einsum", "moe_grouped_seq")
 RECURRENT = ("recurrentgemma", "xlstm", "recurrentgemma_seq", "xlstm_seq")
 FRONTEND = ("vlm", "audio", "vlm_seq", "audio_seq")
+# every family on a model axis that divides none of its widths
+# (``UNEVEN_S``-position prompts: the cache of UNEVEN_S + PLANE_GEN slots)
+UNEVEN = DENSE + MOE + RECURRENT + FRONTEND
+UNEVEN_S = 61
 
 
 def plane_configs():
@@ -764,7 +768,9 @@ def plane_configs():
     the recurrent families in float32, each also under ``act_seq_shard``
     (``<name>_seq``): the smoke recurrentgemma at 3 layers, one (rglru,
     rglru, local_attn) unit (2 query heads, 1 KV head, local window 64),
-    and the smoke xlstm (one mLSTM and one sLSTM block); and the frontends
+    and the smoke xlstm (one mLSTM and one sLSTM block), and
+    ``recurrentgemma_250``, the 3-layer one with 250 RG-LRU channels; and
+    the frontends
     in float32, each also under ``act_seq_shard``: the smoke qwen2-vl
     (``vlm``: 4 query heads, 2 KV heads, so model 4 takes the KV_SEQ
     cache; projector width 128; M-RoPE) and the smoke musicgen
@@ -781,6 +787,7 @@ def plane_configs():
     return {"base": base,
             "recurrentgemma": rg, "xlstm": xl,
             "recurrentgemma_seq": dc.replace(rg, act_seq_shard=True),
+            "recurrentgemma_250": dc.replace(rg, rglru_d_rnn=250),
             "xlstm_seq": dc.replace(xl, act_seq_shard=True),
             "vlm": vlm, "audio": audio,
             "vlm_seq": dc.replace(vlm, act_seq_shard=True),
@@ -813,17 +820,19 @@ def grid_positions(b: int, n_img: int, n_txt: int, grid_w: int):
     return torch.cat([img, txt])[None].expand(b, n_img + n_txt, 3)
 
 
-def plane_inputs(cfg, seed: int = 0):
+def plane_inputs(cfg, seed: int = 0, s: int | None = None):
     """Whole parameters, prompt and Gumbel noise from seeded host
     generators (the same on every rank). The prompt is a (B, S) token
-    tensor, or a frontend's batch: vision ``PLANE_IMG`` patch embeddings,
+    tensor (S ``s``, by default ``plane_prompt_len``), or a frontend's
+    batch: vision ``PLANE_IMG`` patch embeddings,
     the text tokens, ``grid_positions`` and (B, S) labels; audio (B, S,
     nq) codes (their own labels), whose noise is (gen, B, 1, nq, V)."""
     from repro_torch.launch.serve import gumbel_noise
     from repro_torch.models.registry import build_model
     g = torch.Generator().manual_seed(seed)
     params = build_model(cfg).init(g, device="cpu")
-    b, s, v = PLANE_B, plane_prompt_len(cfg), cfg.vocab_size
+    b, v = PLANE_B, cfg.vocab_size
+    s = s or plane_prompt_len(cfg)
     nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     if cfg.frontend == "audio_codec":
         prompt = {"codes": torch.randint(0, v, (b, s) + nq, generator=g)}
@@ -1036,8 +1045,23 @@ def _diff(a, b) -> float:
                for x, y in zip(sh._leaves(a), sh._leaves(b)))
 
 
+def cache_layout(cfg, m: int, cap: int) -> str:
+    """Where a model axis of ``m`` ranks puts ``cfg``'s attention cache
+    of capacity ``cap`` (its global attention's, else its local one's):
+    "heads" (m divides the KV heads), "slots" (over its slots) or
+    "whole" (on every rank); None for a config with no attention."""
+    from repro_torch.models import transformer as tf
+    kinds = [k for k in ("attn", "local_attn") if k in cfg.layer_kinds]
+    if not kinds:
+        return None
+    if cfg.n_kv_heads % m == 0:
+        return "heads"
+    kind = kinds[0]
+    return "whole" if tf.attn_cache_len(cfg, kind, cap) % m else "slots"
+
+
 def plane_mesh_report(data: int, model: int, jax_params=None,
-                      ref=None, names=DENSE) -> dict:
+                      ref=None, names=DENSE, s: int | None = None) -> dict:
     """One (data, model) mesh on every rank of the group: for each config
     of ``names`` (``plane_configs``) its prefill, decode, sampling and
     donated AdamW steps with the rules and with ``rules=None`` (the
@@ -1053,9 +1077,16 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
     loss from those parameters (``convert.lm_params``), whole, keyed
     ``<name>_jax_...``. A config ``<name>_seq`` other than an MoE one is
     held to ``<name>``'s ``rules=None`` runs. ``ref`` keeps the
-    ``rules=None`` runs for the next mesh."""
+    ``rules=None`` runs for the next mesh. With ``s`` every prompt has
+    ``s`` positions (under ``act_seq_shard`` the most at most ``s`` that
+    the model axis divides, so the flag takes effect), the seq configs
+    held to their own ``rules=None`` runs, and the report gives each
+    config's ``<name>_paths``: the recurrent blocks that run whole on
+    every model rank and its attention cache's layout
+    (:func:`cache_layout`)."""
     from repro_torch import convert
     from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
     from repro_torch.models.registry import build_model
     cfgs = plane_configs()
     rules = make_model_rules(data, model, "cpu")
@@ -1067,11 +1098,17 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
         if cfg.act_seq_shard and plane.m == 1 and not cfg.is_moe:
             continue
         mdl = build_model(cfg)
-        params, prompt, noise = plane_inputs(cfg)
+        sl = s and (s - s % plane.m if cfg.act_seq_shard else s)
+        params, prompt, noise = plane_inputs(cfg, s=sl)
         logical = mdl.param_logical()
         placed = sh.place_params(params, logical, rules)
         key = "base" if name == "seq" else name.removesuffix("_seq") \
             if not cfg.is_moe else name
+        if s:
+            key = name
+            out[f"{name}_paths"] = {
+                "whole": sorted(tf._Plan(cfg, plane, "train", sl).whole),
+                "cache": cache_layout(cfg, plane.m, sl + PLANE_GEN)}
         margins, dropped = [], []
         with router_margins(margins, cfg.experts_per_token):
             if key not in ref:
@@ -1125,43 +1162,16 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
                 torch.equal(a, b) for a, b in zip(cm.tree_leaves(trained),
                                                   cm.tree_leaves(base_params))))
         out[f"{name}_train_counts"] = counts
-    m = plane.m
-    from repro_torch.models import transformer as tf
-    if "base" in names:
-        base = cfgs["base"]
-        hd = base.head_dim
-        out["paths"] = {
-            "half_head": (base.n_kv_heads * hd // m) % hd != 0,
-            "kv_seq": base.n_kv_heads % m != 0,
-            "ring": cfgs["sliding"].window < PLANE_S + PLANE_GEN}
-    elif "recurrentgemma" in names:
-        rg = cfgs["recurrentgemma"]
-        h0, h1 = tf._Plan(rg, plane, "train", RECURRENT_S).heads
-        out["paths"] = {
-            "kv_seq": rg.n_kv_heads % m != 0,
-            "ring": rg.local_window < RECURRENT_S,
-            "heads": sorted(_gather_ints(h1 - h0)),
-            "slstm_heads_split": cfgs["xlstm"].n_heads % m == 0}
-    elif "vlm" in names:
-        plan = tf._Plan(cfgs["audio"], plane, "train", PLANE_S)
-        out["paths"] = {
-            "kv_seq": cfgs["vlm"].n_kv_heads % m != 0,
-            # the model ranks whose part of S holds image rows under seq
-            "image_ranks": -(-PLANE_IMG * m // PLANE_S),
-            "head_ranges": len(plan._need(None, ("head",), None)[1])}
-    else:
-        out["paths"] = {
-            name: "experts" if tf._Plan(cfgs[name], plane, "train",
-                                        PLANE_S).moe_ep else "d_ff"
-            for name in names}
-    if "base" in names:
-        out["positions"] = positions_report(rules, ref)
+    if not s:
+        out["paths"] = _lab_paths(cfgs, plane, names)
+        if "base" in names:
+            out["positions"] = positions_report(rules, ref)
     for name, jp in (jax_params or {}).items():
         cfg = cfgs[name]
         mdl = build_model(cfg)
         local = convert.lm_params(jp, rules=rules,
                                   logical=mdl.param_logical())
-        _, prompt, _ = plane_inputs(cfg)
+        _, prompt, _ = plane_inputs(cfg, s=s)
         margins = []
         with router_margins(margins, cfg.experts_per_token):
             logits, _ = mdl.prefill(local, _rows(prefill_batch(prompt), rules),
@@ -1173,6 +1183,37 @@ def plane_mesh_report(data: int, model: int, jax_params=None,
         if cfg.is_moe:
             out[f"{name}_jax_margin"] = -_max_over_ranks(-min(margins))
     return out
+
+
+def _lab_paths(cfgs, plane, names) -> dict:
+    """Which paths the lab's configs ``names`` take on ``plane``'s mesh."""
+    from repro_torch.models import transformer as tf
+    m = plane.m
+    if "base" in names:
+        base = cfgs["base"]
+        hd = base.head_dim
+        return {
+            "half_head": (base.n_kv_heads * hd // m) % hd != 0,
+            "kv_seq": base.n_kv_heads % m != 0,
+            "ring": cfgs["sliding"].window < PLANE_S + PLANE_GEN}
+    if "recurrentgemma" in names:
+        rg = cfgs["recurrentgemma"]
+        h0, h1 = tf._Plan(rg, plane, "train", RECURRENT_S).heads
+        return {
+            "kv_seq": rg.n_kv_heads % m != 0,
+            "ring": rg.local_window < RECURRENT_S,
+            "heads": sorted(_gather_ints(h1 - h0)),
+            "slstm_heads_split": cfgs["xlstm"].n_heads % m == 0}
+    if "vlm" in names:
+        plan = tf._Plan(cfgs["audio"], plane, "train", PLANE_S)
+        return {
+            "kv_seq": cfgs["vlm"].n_kv_heads % m != 0,
+            # the model ranks whose part of S holds image rows under seq
+            "image_ranks": -(-PLANE_IMG * m // PLANE_S),
+            "head_ranges": len(plan._need(None, ("head",), None)[1])}
+    return {name: "experts" if tf._Plan(cfgs[name], plane, "train",
+                                        PLANE_S).moe_ep else "d_ff"
+            for name in names}
 
 
 def positions_report(rules, ref=None) -> dict:
@@ -1208,12 +1249,77 @@ def positions_report(rules, ref=None) -> dict:
             "from_indices": _diff(logits0, indices)}
 
 
-def plane_reports(meshes, jax_params=None, names=DENSE) -> list:
+def plane_reports(meshes, jax_params=None, names=DENSE,
+                  s: int | None = None) -> list:
     """:func:`plane_mesh_report` for each (data, model) mesh in turn; the
-    JAX parameters go to the (2, 2) mesh's."""
+    JAX parameters go to the (2, 2) mesh's, or to the only mesh's."""
     ref = {}
-    return [plane_mesh_report(d, m, jax_params if (d, m) == (2, 2) else None,
-                              ref, names) for d, m in meshes]
+    return [plane_mesh_report(
+        d, m, jax_params if (d, m) == (2, 2) or len(meshes) == 1 else None,
+        ref, names, s) for d, m in meshes]
+
+
+# the grouped MoE whose groups straddle data ranks: SEGMENTS_B rows of
+# PLANE_S tokens over SEGMENTS_B data ranks in groups of SEGMENTS_GROUP
+SEGMENTS_B, SEGMENTS_GROUP = 3, 24
+
+
+def moe_segments_report() -> dict:
+    """The smoke qwen2-moe (float32, capacity factor 0.5) with both
+    dispatches in groups of ``SEGMENTS_GROUP`` tokens, ``SEGMENTS_B`` rows
+    of ``PLANE_S`` tokens on a (``SEGMENTS_B``, 1) mesh: each rank's 16
+    tokens neither tile nor are tiled by the 24-token groups, so a rank
+    routes segments of 8, a group's across two ranks. The prefill's and a
+    decode step's logits, the loss and every leaf's gradient against
+    ``rules=None``'s (the largest differences over the ranks), the
+    smallest router margin of the ``rules=None`` runs and the choices
+    dropped only for a lower rank's (summed over the ranks)."""
+    import dataclasses as dc
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+    from repro_torch.models.registry import build_model
+    b, s = SEGMENTS_B, PLANE_S
+    rules = make_model_rules(b, 1, "cpu")
+    out = {}
+    for dispatch in ("gather", "einsum"):
+        cfg = dc.replace(plane_configs()["moe_einsum"], moe_dispatch=dispatch,
+                         moe_group_size=SEGMENTS_GROUP)
+        mdl = build_model(cfg)
+        params, toks, _ = plane_inputs(cfg)
+        toks = toks[:b]
+        placed = sh.place_params(params, mdl.param_logical(), rules)
+        batch = {"tokens": toks, "labels": toks}
+
+        def run(p, r):
+            rows = _rows(batch, r)
+            logits, cache = mdl.prefill(p, {"tokens": rows["tokens"]},
+                                        max_len=s + 1, rules=r,
+                                        global_batch=b)
+            step, _ = mdl.decode(p, cache, {"token": rows["tokens"][:, -1:]},
+                                 rules=r, global_batch=b)
+            loss, grads = cm.value_and_grad(
+                lambda q: mdl.loss_fn(q, rows, rules=r, global_batch=b)[0],
+                p)
+            if r is not None:
+                grads, _ = registry._plane_grads(mdl, sh.ModelPlane(r), grads,
+                                                 s)
+            return torch.cat([logits, step], 1), loss, grads
+        margins, dropped = [], []
+        with router_margins(margins, cfg.experts_per_token):
+            logits0, loss0, grads0 = run(params, None)
+        with dropped_across(dropped):
+            logits, loss, grads = run(placed, rules)
+        full = lambda x: sh.whole_params(
+            x, (sh.BATCH,) + (None,) * (x.dim() - 1),
+            torch.empty((b,) + tuple(x.shape[1:]), device="meta"), rules)
+        grads = sh.whole_params(grads, mdl.param_logical(), params, rules)
+        out[dispatch] = {
+            "logits": _max_over_ranks(_diff(full(logits), logits0)),
+            "loss": _max_over_ranks(abs(float(loss - loss0))),
+            "grads": _max_over_ranks(_diff(grads, grads0)),
+            "margin": min(margins),
+            "dropped_across": _sum_over_ranks(sum(dropped))}
+    return out
 
 
 def replicated_batch_report(name: str, data: int = 2) -> dict:
@@ -1264,13 +1370,22 @@ def replicated_batch_report(name: str, data: int = 2) -> dict:
 
 
 def plane_world(meshes, jax_params=None, pod_lab=None,
-                names=DENSE, replicated=None) -> dict:
+                names=DENSE, replicated=None, s=None, uneven=None,
+                segments=False) -> dict:
     """Every rank of one spawned group: :func:`plane_reports` of the
-    configs ``names`` over ``meshes``; with ``pod_lab`` (a
-    :class:`LabConfig`), the client plane's :func:`parity_report` on a
-    (pod 2, data 2) mesh, counted; with ``replicated`` (a config name),
-    its :func:`replicated_batch_report`."""
-    out = {"plane": plane_reports(meshes, jax_params, names)}
+    configs ``names`` over ``meshes`` (prompts of ``s`` positions when
+    given); with ``pod_lab`` (a :class:`LabConfig`), the client plane's
+    :func:`parity_report` on a (pod 2, data 2) mesh, counted; with
+    ``replicated`` (a config name), its :func:`replicated_batch_report`;
+    with ``uneven`` ((data, model), names, s), :func:`plane_mesh_report`
+    of those configs there with ``s``-position prompts; with
+    ``segments``, :func:`moe_segments_report`."""
+    out = {"plane": plane_reports(meshes, jax_params, names, s)}
+    if uneven is not None:
+        (data, model), u_names, u_s = uneven
+        out["uneven"] = plane_mesh_report(data, model, names=u_names, s=u_s)
+    if segments:
+        out["segments"] = moe_segments_report()
     if pod_lab is not None:
         out["pod"] = parity_report(pod_lab, (2, 2), "cpu", count=True)
     if replicated is not None:

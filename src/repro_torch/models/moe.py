@@ -39,11 +39,15 @@ consecutive batch rows of the token stream): each rank then ranks its
 choices after the lower data ranks' choices in the group (their counts
 from one small all-gather) and fills only its own tokens' slots, the
 others staying zero (the expert MLP maps a zero row to zero), so no token
-crosses ranks. The load-balance loss's two (E,) sums and token count are
-summed over the data ranks before its product.
+crosses ranks. Where a rank's tokens neither tile nor are tiled by the
+groups, it routes them in segments of gcd(T, its tokens), each inside one
+group, ranked after the group's earlier segments. The load-balance loss's
+two (E,) sums and token count are summed over the data ranks before its
+product.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -74,7 +78,7 @@ class Part(NamedTuple):
     tokens: int         # T: the tokens of a whole group (sets the capacity)
     xe: torch.Tensor    # the expert branch's input (through "model"'s copy)
     gates: Any          # the router gates -> as the expert branch reads them
-    offsets: Any        # None, or (G, E) counts -> lower data ranks' counts
+    offsets: Any        # None, or (G, E) counts -> the group's earlier ones
     total: Any          # None, or the aux sums -> their sums over data ranks
 
 
@@ -131,6 +135,14 @@ def group_size(cfg, b: int, s: int) -> int:
     return t // (max(1, t // gs) if gs else b)
 
 
+def _segment(t: int, n: int, part) -> int:
+    """The tokens a routing row holds, of ``n`` tokens in groups of ``t``:
+    a group, or all n where a group is larger; under ``part`` gcd(t, n),
+    so a segment of a group that spans data ranks lies inside this
+    rank's tokens and inside one group."""
+    return min(t, n) if part is None else math.gcd(t, n)
+
+
 def routing(params, x, cfg, part=None) -> Routing:
     """The einsum dispatch's routing of x (B, S, D): groups of batch rows,
     or of ``cfg.moe_group_size`` tokens; under ``part`` this rank's
@@ -138,7 +150,7 @@ def routing(params, x, cfg, part=None) -> Routing:
     ranks' choices."""
     b, s, d = x.shape
     t = group_size(cfg, b, s) if part is None else part.tokens
-    tl = min(t, b * s)
+    tl = _segment(t, b * s, part)
     xt = x.reshape((b * s) // tl, tl, d)
     g, _, _ = xt.shape
     probs = router_probs(params, xt.reshape(g * tl, d))
@@ -297,7 +309,7 @@ def _moe_forward_gather(params, x, cfg, part=None):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     tg = group_size(cfg, b, s) if part is None else part.tokens
-    tl = min(tg, b * s)
+    tl = _segment(tg, b * s, part)
     g = (b * s) // tl
     cap = capacity(k, tg, cfg.capacity_factor, e)
     xt = x.reshape(g, tl, d)

@@ -3,12 +3,12 @@
 
 ``build_model(cfg)`` returns a :class:`Model` bundling init and spec trees
 and the train / prefill / decode entry points; ``make_train_step(model,
-tc)`` is the training step the launcher and the federated-LLM example call. The
-JAX package's ``make_prefill_step`` / ``make_decode_step`` wrappers have no
-caller here: ``launch.serve`` calls ``Model.prefill(..., use_flash=True)``
-and ``Model.decode`` directly, and the prefill allocates its own cache.
-``Model.init_cache`` builds that cache on its own for ``launch.dryrun``'s
-decode step.
+tc)`` is the training step the launcher and the federated-LLM example call.
+``make_prefill_step`` and ``make_decode_step`` are the reference's
+wrappers of ``Model.prefill`` and ``Model.decode`` (``launch.serve`` calls
+the entry points directly, with ``use_flash=True``); the prefill allocates
+its own cache, and ``Model.init_cache`` builds one on its own for
+``launch.dryrun``'s decode step.
 
 Each entry point takes ``rules=`` (a ``sharding.ShardingRules`` over a
 (data, model) mesh): the parameters, moments, batch and cache are then
@@ -193,3 +193,23 @@ def _plane_grads(model, plane, grads, seq_len: int):
     return cm.tree_unflatten(grads, leaves), {
         "counted": counted,
         "reduce": lambda t: plane.all_reduce(t, "all")}
+
+
+def make_prefill_step(model: Model, *, rules=None,
+                      global_batch=None) -> Callable:
+    """``prefill_step(params, batch) -> (last_token_logits, cache)``:
+    ``Model.prefill`` with ``rules`` and ``global_batch`` bound."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, rules=rules,
+                             global_batch=global_batch)
+    return prefill_step
+
+
+def make_decode_step(model: Model, *, rules=None,
+                     global_batch=None) -> Callable:
+    """``decode_step(params, cache, batch) -> (logits, cache)``:
+    ``Model.decode`` with ``rules`` and ``global_batch`` bound."""
+    def decode_step(params, cache, batch):
+        return model.decode(params, cache, batch, rules=rules,
+                            global_batch=global_batch)
+    return decode_step

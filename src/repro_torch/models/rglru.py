@@ -111,7 +111,9 @@ def rglru_block(p, x, cfg, state: RGLRUState | None = None, plan=None):
     (their input through ``plan.enter``), the conv, Λ, the scan and its
     state on the rank's channels, the gates' products by the rank's rows of
     w_a and w_i reduce-scattered to its channels (``plan.channel_sums``),
-    ``w_out`` row-parallel (``plan.exit``)."""
+    ``w_out`` row-parallel (``plan.exit``). Where m does not divide its
+    channels (``plan.whole``) the block runs whole on every rank, its
+    weights and state whole, with no collective inside it."""
     b = x.shape[0]
     if state is None:
         state = rglru_init_state(b, p["w_x"].shape[1], cfg.rglru_conv_width,
@@ -119,7 +121,7 @@ def rglru_block(p, x, cfg, state: RGLRUState | None = None, plan=None):
     xin = cm.rms_norm(x, p["ln"])
     mix = None
     if plan is not None:
-        xin, mix = plan.enter(xin), plan.channel_sums()
+        xin, mix = plan.enter(xin, "rglru"), plan.channel_sums()
     xr = cm.dense(xin, p["w_x"].to(x.dtype))         # (B,S,Dr)
     gate = F.gelu(cm.dense(xin, p["w_gate"].to(x.dtype)), approximate="tanh")
     xc, conv_state = causal_conv(xr, p["conv_w"].to(x.dtype),
@@ -131,5 +133,5 @@ def rglru_block(p, x, cfg, state: RGLRUState | None = None, plan=None):
         h, h_last = rglru_scan(xc, p, state.h, mix)
     y = h.to(x.dtype) * gate
     out = cm.dense(y, p["w_out"].to(x.dtype))
-    return x + (out if plan is None else plan.exit(out)), \
+    return x + (out if plan is None else plan.exit(out, "rglru")), \
         RGLRUState(h_last, conv_state)

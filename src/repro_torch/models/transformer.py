@@ -26,6 +26,7 @@ min(capacity, window). A recurrent block carries O(1) state: rglru {"h",
 states in float32 and the conv histories in the activation dtype.
 :func:`init_cache` allocates every buffer once; prefill writes the prompt's
 K/V and final states into them, and each decode step updates them in place.
+Under the model plane the cache also holds its capacity, "cap".
 
 An MoE config's attention blocks take ``moe.moe_forward`` as their second
 residual branch; each adds its router loss times ``cfg.router_aux_weight``
@@ -60,9 +61,12 @@ and the cache:
     stored in pieces that cut a head), ``wk``/``wv`` are all-gathered over
     "model" and every rank computes all KV heads, the ones its query heads
     read taken from them; the cache then lies over its sequence slots
-    (KV_SEQ): prefill writes each rank's slots, decode writes at the slot's
-    owner and combines the ranks' partial softmaxes (``attention.
-    decode_attention_kv_seq``);
+    (KV_SEQ) where m divides them: prefill writes each rank's slots, decode
+    writes at the slot's owner and combines the ranks' partial softmaxes
+    (``attention.decode_attention_kv_seq``); where m does not, the cache
+    lies whole on every rank, prefill writes every slot, and a decode step
+    writes its slot and attends with the rank's own query heads, no
+    collective;
   * the MLP: ``wi_gate``/``wi_up`` column-parallel, ``wo`` row-parallel and
     all-reduced;
   * the MoE (:meth:`_Plan.moe`): the router whole on every rank (gathered
@@ -88,7 +92,12 @@ and the cache:
     rank; the sLSTM's ``W x`` all-gathered along its columns once a block
     and its loop over time run whole on every rank, no collective inside
     it. A recurrent block under ``act_seq_shard`` starts with ``enter``
-    (the whole S) and needs no carry between ranks;
+    (the whole S) and needs no carry between ranks. Where m does not
+    divide a block's channels (the RG-LRU's, the mLSTM's inner width, the
+    sLSTM's 4 D columns of ``W x``), the block runs whole on every rank
+    (``_Plan.whole``): its weights and state whole, no collective inside
+    it, its input and output through ``replicate`` and ``split`` along S
+    under ``act_seq_shard``;
   * the embedding (:meth:`_Plan.embed`): vocab-parallel, a masked local
     lookup then an all-reduce; the head: vocab-parallel logits
     (all-gathered where serving samples them), the loss
@@ -112,13 +121,21 @@ and the cache:
     or with no rules, it changes nothing, as the reference's constraint
     returns x outside a model axis.
 
-A weight whose storage does not match the rank's part (a dimension the
-mesh does not divide is stored whole) is taken whole and cut. A collective
-over axes of one rank is the identity, so on a one-rank mesh none runs and
-the results are the unsharded ones bit for bit.
+The plane follows ``rules.spec``, which stores a dimension whole over
+"model" where m does not divide it. A rank's share of a layer (query
+heads, d_ff columns, vocab rows, an expert's d_ff) is then still its
+``split_range``, uneven, and the weight is taken whole and cut (its
+gradient summed over "model"); a part whose state or cache would have to
+lie split (the KV_SEQ cache's slots, a recurrent block's channels) is
+computed whole on every model rank, with no collective inside it, and its
+weights' gradients come out whole on each rank. A collective over axes of
+one rank is the identity, so on a one-rank mesh none runs and the results
+are the unsharded ones bit for bit.
 """
 from __future__ import annotations
 
+import copy
+import math
 from typing import Any
 
 import torch
@@ -301,7 +318,10 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     """An empty cache of capacity ``seq_len``; prefill fills it. With
     ``rules``, this rank's shards of it, each leaf where ``rules.spec``
     puts it (``cache_logical`` for the mesh's model axis): the batch split
-    over the data axes when ``batch`` divides them."""
+    over the data axes when ``batch`` divides them, a KV_SEQ cache over
+    "model" along its slots where m divides them and whole on every rank
+    where it does not. Such a cache also holds its capacity, ``"cap"``:
+    its shards alone do not say which of the two layouts they are."""
     if rules is not None:
         plane = sh.ModelPlane(rules)
         # the whole cache's shapes, as meta tensors made outside any
@@ -317,7 +337,7 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
         for block in local["scan"] + local["tail"]:
             if "m" in block:    # the xLSTM stabilisers start at -1e9
                 block["m"].fill_(-1e9)
-        return local
+        return dict(local, cap=seq_len)
     period, n_units, tail_kinds = scan_meta(cfg)
     scan_caches = tuple(
         init_block_cache(cfg, kind, batch, seq_len, dtype, (n_units,), device)
@@ -400,22 +420,30 @@ def attn_block_seq(p, x, cfg, kind, positions, *, aux, cache=None,
     x = x + (out if plan is None else plan.exit(out))
     x, aux = _ffn(p, x, cfg, aux, plan)
     if cache is not None and plan is not None and plan.kv_seq:
-        plan.write_prefill(cache, k, v, s)
+        plan.write_prefill(cache, kind, k, v, s)
     elif cache is not None:
-        w = cache["k"].shape[1]
-        if w >= s:      # linear region: positions 0..s-1 land at slots 0..s-1
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
-        else:           # ring: keep the last w positions at slot p % w
-            cache["k"].copy_(torch.roll(k[:, -w:], s % w, dims=1))
-            cache["v"].copy_(torch.roll(v[:, -w:], s % w, dims=1))
+        write_prompt(cache, k, v, s)
     return x, aux
 
 
-def attn_block_step(p, cache, x, cfg, pos: int, aux, plan=None):
+def write_prompt(cache, k, v, s: int):
+    """An ``s``-token prompt's K/V (B,S,Kv,hd) into the whole ring buffers
+    of ``cache``: positions 0..s-1 at slots 0..s-1 when they fit, else the
+    last W positions, position p at slot p % W."""
+    w = cache["k"].shape[1]
+    if w >= s:      # linear region: positions 0..s-1 land at slots 0..s-1
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    else:           # ring: keep the last w positions at slot p % w
+        cache["k"].copy_(torch.roll(k[:, -w:], s % w, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -w:], s % w, dims=1))
+
+
+def attn_block_step(p, cache, x, cfg, pos: int, aux, plan=None,
+                    kind: str = "attn"):
     """Single-token decode; returns (x, aux). x: (B,1,D); pos: absolute
     position (under M-RoPE every stream at ``pos``). Writes the token's K/V
-    into ``cache`` in place."""
+    into ``cache`` (the ``kind`` block's) in place."""
     h = cm.rms_norm(x, p["ln1"])
     if plan is not None:
         h = plan.enter(h)
@@ -425,7 +453,7 @@ def attn_block_step(p, cache, x, cfg, pos: int, aux, plan=None):
                       dtype=torch.int64, device=x.device)
     q, k = _apply_rope(q, k, posb, cfg)
     if plan is not None and plan.kv_seq:
-        y = plan.decode_kv_seq(q, k, v, cache, pos)
+        y = plan.decode_kv_seq(q, k, v, cache, pos, kind)
     else:
         w = cache["k"].shape[1]
         kc, vc = attn.cache_write(cache["k"], cache["v"], k, v, pos, w)
@@ -450,7 +478,7 @@ def apply_block(p, cache, x, cfg, kind, positions, *, mode, pos, aux,
     this rank computes with them (:meth:`_Plan.weights`)."""
     if kind in ("attn", "local_attn"):
         if mode == "decode":
-            return attn_block_step(p, cache, x, cfg, pos, aux, plan)
+            return attn_block_step(p, cache, x, cfg, pos, aux, plan, kind)
         return attn_block_seq(p, x, cfg, kind, positions, aux=aux,
                               cache=cache, use_flash=use_flash, plan=plan)
     if kind == "rglru":
@@ -645,6 +673,7 @@ def forward_prefill(params, batch, cfg, *, max_len=None, use_flash=False,
         x, positions = plan.embed(params, batch)
         b, s = positions.shape[:2]
         cap = max(max_len or s, s)
+        plan = plan.for_cache(cap)
         cache = plan.init_cache(b, cap, x.device)
         x, _ = _run_stack(params, cache, x, cfg, positions, mode="prefill",
                           use_flash=use_flash, plan=plan)
@@ -667,6 +696,7 @@ def forward_decode(params, cache, batch, cfg, *, rules=None,
     pos = cache["pos"]
     plan = _plan(cfg, rules, "decode", batch, global_batch)
     if plan is not None:
+        plan = plan.for_cache(cache.get("cap"))
         x, _ = plan.embed(params, batch)
         x, _ = _run_stack(params, cache, x, cfg, None, mode="decode",
                           pos=pos, plan=plan)
@@ -723,14 +753,21 @@ def _plan(cfg, rules, mode, batch, global_batch=None):
     return plans[key]
 
 
+# a recurrent block's leaf whose length is its channels (D_FF)
+_CHANNELS = {"rglru": "lam", "mlstm": "conv_b", "slstm": "b_gates"}
+
+
 class _Plan:
     """How one rank computes a step under the model plane: its query heads,
     KV heads, d_ff columns, experts (or expert d_ff columns), recurrent
     channels and vocab rows on "model", whether the KV heads lie whole on
     every rank (``kv_seq``: m does not divide them; the cache then lies
-    over its slots), whether the activations between units are split along
+    over its slots where m divides those, else whole), which recurrent
+    blocks run whole on every model rank (``whole``: m does not divide
+    their channels), whether the activations between units are split along
     S (``seq_shard``) and whether the batch is replicated over the data
-    axes (``replicated``)."""
+    axes (``replicated``). A serving step binds the capacity of its cache
+    (``for_cache``)."""
 
     def __init__(self, cfg, plane: sh.ModelPlane, mode: str, seq_len: int,
                  replicated: bool = False):
@@ -761,9 +798,22 @@ class _Plan:
             self.experts = sh.split_range(e, m, r) if self.moe_ep else (0, e)
             self.moe_ff = sh.split_range(f, m, r)
             self.shared_ff = sh.split_range(cfg.n_shared_experts * f, m, r)
+        self.whole = {kind for kind, leaf in _CHANNELS.items()
+                      if kind in cfg.layer_kinds and plane.spec(
+                          (sh.D_FF,), block_specs(cfg, kind)[leaf].shape)[0]
+                      is None}
         self.seq_shard = (cfg.act_seq_shard and mode != "decode" and m > 1
                           and seq_len % m == 0)
+        self.cap = None
         self._layouts = {}
+
+    def for_cache(self, cap):
+        """This plan for a step on a cache of capacity ``cap`` (None: not
+        known), which fixes its KV_SEQ slots' layout (``_slots``); the
+        layouts of the weights are shared."""
+        bound = copy.copy(self)
+        bound.cap = cap
+        return bound
 
     # -- weights -----------------------------------------------------------
     def _need(self, kind, path, spec):
@@ -773,7 +823,8 @@ class _Plan:
         None for a weight every rank uses whole as stored (split over
         "model" nowhere), "whole" for one every rank computes with whole
         whatever its storage (the MoE router; the sLSTM's recurrence and
-        bias, and the mLSTM's group norm, whose cells run whole)."""
+        bias, and the mLSTM's group norm, whose cells run whole; every
+        channel weight of a recurrent block in ``whole``)."""
         if kind in ("rglru", "mlstm", "slstm") and path[0] != "mlp":
             return self._need_recurrent(kind, path, spec)
         hd = self.cfg.head_dim
@@ -822,24 +873,24 @@ class _Plan:
         equal parts); the mLSTM's ``w_up`` its part of each half, x_i and
         z (stored in contiguous parts of the concatenated columns: at m = 2
         rank 0 stores all of x_i, so the rank's columns are gathered over
-        "model" and cut, not used as stored)."""
+        "model" and cut, not used as stored). A block in ``whole`` takes
+        its channel weights whole (the sLSTM's FFN stays a column/row
+        pair)."""
         name = path[0]
         if name in ("ln", "ln2", "b_if"):
             return None
         if kind == "slstm":
-            if name in ("r_gates", "b_gates"):
+            if name in ("r_gates", "b_gates") or \
+                    name == "w_gates" and kind in self.whole:
                 return "whole"
             if name not in ("w_gates", "ffn_up", "ffn_down"):
                 return None
-        elif name == "gn":
+        elif name == "gn" or kind in self.whole:
             return "whole"
         d = 1 if name in ("w_x", "w_gate", "conv_w", "w_up", "w_gates",
                           "ffn_up") else 0
         m, r = self.plane.m, self.plane.rank["model"]
         width = spec.shape[d]
-        if name in ("w_x", "w_gates") and width % m:
-            raise ValueError(f"the {kind} block's {width} channels must "
-                             f"divide the model axis ({m})")
         if name != "w_up":
             return d, (sh.split_range(width, m, r),)
         di = width // 2
@@ -926,16 +977,28 @@ class _Plan:
         return self.weights(names, specs, {k: params[k] for k in names})
 
     # -- activations ---------------------------------------------------------
-    def enter(self, h):
+    def enter(self, h, kind=None):
         """Before a column-parallel product: the whole sequence (an
-        all-gather along S) or, unsplit, ``copy`` (its gradient summed)."""
+        all-gather along S) or, unsplit, ``copy`` (its gradient summed).
+        Before a ``kind`` block in ``whole``, which every rank computes
+        whole and alike: the whole sequence through ``replicate`` (the
+        backward keeps this rank's part of the whole gradient), or h
+        itself."""
+        if kind in self.whole:
+            return self.plane.replicate(h, "model", 1) if self.seq_shard \
+                else h
         if self.seq_shard:
             return self.plane.gather(h, "model", 1)
         return self.plane.copy(h, "model")
 
-    def exit(self, out):
+    def exit(self, out, kind=None):
         """After a row-parallel product: the sum over "model", split along S
-        (a reduce-scatter) or whole (an all-reduce)."""
+        (a reduce-scatter) or whole (an all-reduce). After a ``kind`` block
+        in ``whole`` (its output whole and alike on every rank): this
+        rank's part of S (``split``), or out itself."""
+        if kind in self.whole:
+            return self.plane.split(out, "model", 1) if self.seq_shard \
+                else out
         if self.seq_shard:
             return self.plane.scatter(out, "model", 1)
         return self.plane.psum(out, "model")
@@ -944,8 +1007,9 @@ class _Plan:
         """The RG-LRU gates' sums: (2, ..., Dr) partial products of this
         rank's channels by its rows of w_a and w_i -> their sums over
         "model", this rank's channels of each (one reduce-scatter along
-        the last dim); None on one model rank (nothing to sum)."""
-        if self.plane.m == 1:
+        the last dim); None on one model rank or for a block in ``whole``
+        (nothing to sum)."""
+        if self.plane.m == 1 or "rglru" in self.whole:
             return None
         return lambda t: self.plane.scatter(t, "model", t.dim() - 1).unbind(0)
 
@@ -968,16 +1032,21 @@ class _Plan:
         xw = plane.replicate(xin, "model", 1) if self.seq_shard else xin
         b, s, _ = xw.shape
         n = b * s
-        t = moe_lib.group_size(cfg, b if self.replicated else b * plane.k_dp,
-                               s)
-        if t % n and n % t:
+        rows = b if self.replicated else b * plane.k_dp
+        t = moe_lib.group_size(cfg, rows, s)
+        if (rows * s) % t:
             raise ValueError(
-                f"an MoE group of {t} tokens neither tiles nor is tiled by "
-                f"a data rank's {n} tokens")
+                f"MoE groups of {t} tokens do not tile the batch's "
+                f"{rows * s} tokens (the unsharded layer reshapes to them)")
         h = plane.copy(xw, "model")
+        # the rank's tokens in segments of gcd(t, n): each inside one group
+        # and one rank (``moe_lib.Part``), ranked after the group's earlier
+        # segments when a group is not inside the rank (never for a batch
+        # replicated over the data axes: its n tokens are the batch's)
+        u = math.gcd(t, n)
         part = moe_lib.Part(
             self.experts, t, h, lambda gates: plane.copy(gates, "model"),
-            self._offsets(t // n) if t > n else None,
+            self._offsets(t // u) if u < t else None,
             (lambda v: plane.psum(v, "dp")) if self.mode == "train" else None)
         out = moe_lib.moe_forward(p, xw, cfg, part)
         y = out.y if plane.m > 1 else out.y.to(xin.dtype)
@@ -986,14 +1055,19 @@ class _Plan:
         return self.exit(y).to(xin.dtype), out.aux_loss
 
     def _offsets(self, q: int):
-        """For a group spanning ``q`` data ranks (one segment of it on each):
-        this rank's (1, E) choice counts -> the counts of the lower ranks
-        of its group (one all-gather over the data axes)."""
+        """For groups of ``q`` segments, over data ranks that each hold G
+        consecutive segments of the token stream: this rank's (G, E) choice
+        counts -> for each of its segments the counts of the earlier
+        segments of its group (one all-gather over the data axes): for a
+        group of q ranks' tokens (G = 1) the lower ranks' of its group."""
         r = self.plane.rank["dp"]
 
         def offsets(counts):
-            every = self.plane.gather_counts(counts)        # (k_dp, 1, E)
-            return torch.sum(every[r - r % q:r], 0)
+            g = counts.shape[0]
+            every = self.plane.gather_counts(counts).flatten(0, 1)
+            before = torch.cumsum(every, 0) - every         # (k_dp G, E)
+            seg = torch.arange(r * g, (r + 1) * g, device=counts.device)
+            return before[seg] - before[seg - seg % q]
         return offsets
 
     def kv_heads(self, k):
@@ -1097,39 +1171,60 @@ class _Plan:
     # -- the cache -----------------------------------------------------------
     def init_cache(self, b: int, cap: int, device):
         """This rank's empty cache shards for its ``b`` rows."""
-        cache = init_cache(self.cfg, b * self.plane.k_dp, cap,
-                           self.cfg.act_dtype, device, rules=self.plane.rules)
-        for kind in set(self.cfg.layer_kinds) & {"attn", "local_attn"}:
-            w = attn_cache_len(self.cfg, kind, cap)
-            if self.kv_seq and w % self.plane.m:
-                raise ValueError(
-                    f"the {kind} cache's {w} slots must divide the model "
-                    f"axis ({self.plane.m}) when its {self.cfg.n_kv_heads} "
-                    "KV heads do not")
-        return cache
+        return init_cache(self.cfg, b * self.plane.k_dp, cap,
+                          self.cfg.act_dtype, device, rules=self.plane.rules)
 
-    def _slots(self, cache):
-        w_loc = cache["k"].shape[1]
-        lo = self.plane.rank["model"] * w_loc
-        return w_loc * self.plane.m, lo, lo + w_loc
+    def _slots(self, kind: str, cache):
+        """(W, lo, hi): the W slots of the ``kind`` blocks' KV_SEQ cache of
+        the bound capacity and this rank's [lo, hi) of them, as
+        ``rules.spec`` lays them: over "model" where m divides W, else
+        whole on every rank (lo, hi = 0, W)."""
+        if self.cap is None:
+            raise ValueError(
+                "a cache that lies over its slots needs its capacity, "
+                "'cap', which init_cache(rules=) and prefill give it")
+        w = attn_cache_len(self.cfg, kind, self.cap)
+        lo, hi = 0, w
+        if self.plane.spec((sh.KV_SEQ,), (w,))[0] is not None:
+            lo, hi = sh.split_range(w, self.plane.m, self.plane.rank["model"])
+        if cache["k"].shape[1] != hi - lo:
+            raise ValueError(
+                f"a {kind} cache of capacity {self.cap} holds {hi - lo} of "
+                f"its {w} slots on this rank, not {cache['k'].shape[1]}")
+        return w, lo, hi
 
-    def write_prefill(self, cache, k, v, s: int):
+    def write_prefill(self, cache, kind: str, k, v, s: int):
         """This rank's slots of the cache after an ``s``-token prompt: slot
         j holds the latest position p < s with p % W == j (positions 0..s-1
         at slots 0..s-1 when the prompt fits). The slot map is computed on
-        the host from the static sizes."""
-        w, lo, hi = self._slots(cache)
+        the host from the static sizes. A cache whole on every rank takes
+        the prompt as without the plane (every rank computes every KV
+        head)."""
+        w, lo, hi = self._slots(kind, cache)
+        if hi - lo == w:
+            write_prompt(cache, k, v, s)
+            return
         held = attn.cache_slot_positions(s - 1, w)[lo:hi]
         dst = torch.nonzero(held >= 0).flatten()
         src, dst = held[dst].to(k.device), dst.to(k.device)
         cache["k"].index_copy_(1, dst, k.index_select(1, src))
         cache["v"].index_copy_(1, dst, v.index_select(1, src))
 
-    def decode_kv_seq(self, q, k, v, cache, pos: int):
+    def decode_kv_seq(self, q, k, v, cache, pos: int, kind: str):
         """One token's attention over a cache that lies over its slots: the
         slot's owner writes k/v, the query heads are all-gathered, the
-        ranks' partial softmaxes combined, and this rank's heads kept."""
-        w, lo, hi = self._slots(cache)
+        ranks' partial softmaxes combined, and this rank's heads kept. Over
+        a cache whole on every rank, each rank writes the slot and attends
+        with its own query heads to the KV heads they read, no collective
+        (a rank with no query head computes nothing)."""
+        w, lo, hi = self._slots(kind, cache)
+        if hi - lo == w:
+            kc, vc = attn.cache_write(cache["k"], cache["v"], k, v, pos, w)
+            if q.shape[2] == 0:
+                return q
+            return attn.decode_attention(
+                q, self.kv_heads(kc), self.kv_heads(vc),
+                attn.cache_slot_positions(pos, w, q.device), pos=pos)
         slot = pos % w
         if lo <= slot < hi:
             cache["k"][:, slot - lo:slot - lo + 1] = k.to(cache["k"].dtype)
@@ -1150,7 +1245,9 @@ def grad_sum_axes(cfg, rules, seq_len: int):
     leaves' gradients are whole already: the gathers' and copies'
     backwards sum them. The MoE router takes no "model" sum: every rank
     computes it whole on the whole rows, so its gradient is whole on each
-    (``replicate`` keeps the rank's slice)."""
+    (``replicate`` keeps the rank's slice); nor does a recurrent block in
+    ``_Plan.whole``, whose weights every rank differentiates whole and
+    alike."""
     if rules is None:
         return None
     plane = sh.ModelPlane(rules)

@@ -268,14 +268,16 @@ def mlstm_block(p, x, cfg, state=None, conv_state=None, plan=None):
     cell and the per-head group norm run whole on every rank (the state
     has no model axis), and the rank keeps its channels of the output
     (``ModelPlane.split``) for ``* silu(z)`` and the row-parallel
-    ``w_down``."""
+    ``w_down``. Where m does not divide the inner width (``plan.whole``)
+    the block runs whole on every rank, with no collective inside it."""
     b = x.shape[0]
     h = cfg.n_heads
     di = p["wq"].shape[1]
     dh = di // h
+    split = plan is not None and "mlstm" not in plan.whole
     xin = cm.rms_norm(x, p["ln"])
     if plan is not None:
-        xin = plan.enter(xin)
+        xin = plan.enter(xin, "mlstm")
     s = xin.shape[1]
     up = cm.dense(xin, p["w_up"].to(x.dtype))
     xi, z = up.chunk(2, dim=-1)
@@ -286,7 +288,7 @@ def mlstm_block(p, x, cfg, state=None, conv_state=None, plan=None):
     k = cm.dense(xc, p["wk"].to(x.dtype))
     v = cm.dense(xi, p["wv"].to(x.dtype))
     gates = cm.dense(xc, p["w_if"].to(x.dtype))
-    if plan is not None:
+    if split:
         q, k, v, gates = plan.plane.psum_packed([q, k, v, gates], "model")
     q = q.reshape(b, s, h, dh) * dh ** -0.5
     k = k.reshape(b, s, h, dh) * dh ** -0.5
@@ -303,11 +305,12 @@ def mlstm_block(p, x, cfg, state=None, conv_state=None, plan=None):
     else:
         hy, state = mlstm_chunkwise(q, k, v, i_pre, f_pre, state)
     hy = cm.group_norm_heads(hy, p["gn"].reshape(h, dh), h).reshape(b, s, di)
-    if plan is not None:
+    if split:
         hy = plan.plane.split(hy, "model", 2)
     out = hy.to(x.dtype) * F.silu(z)
     y = cm.dense(out, p["w_down"].to(x.dtype))
-    return x + (y if plan is None else plan.exit(y)), (state, conv_state)
+    return x + (y if plan is None else plan.exit(y, "mlstm")), \
+        (state, conv_state)
 
 
 def slstm_block(p, x, cfg, state=None, plan=None):
@@ -320,17 +323,20 @@ def slstm_block(p, x, cfg, state=None, plan=None):
     (``replicate``), and the loop over time runs whole on every rank, no
     collective inside it (the state has no model axis). Under
     ``act_seq_shard`` the rank keeps its part of S of the cell's output
-    (``ModelPlane.split``). The post-FFN is the dense MLP's column/row
-    pair."""
+    (``ModelPlane.split``). Where m does not divide ``W x``'s columns
+    (``plan.whole``) every rank computes it whole, with no collective. The
+    post-FFN is the dense MLP's column/row pair."""
     b, s, d = x.shape
     nh = cfg.n_heads
     xin = cm.rms_norm(x, p["ln"])
     wx = None
     if plan is not None:
-        xin = plan.enter(xin)
+        xin = plan.enter(xin, "slstm")
         s = xin.shape[1]
         xw = xin[:, 0] if s == 1 else xin
-        wx = plan.plane.replicate(_input_gates(xw, p), "model", xw.dim() - 1)
+        wx = _input_gates(xw, p)
+        if "slstm" not in plan.whole:
+            wx = plan.plane.replicate(wx, "model", xw.dim() - 1)
     if state is None:
         state = slstm_init_state(b, d, device=x.device)
     if s == 1:

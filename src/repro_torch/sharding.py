@@ -27,9 +27,10 @@ collective a ``NamedSharding`` implies; eager PyTorch does not, so here:
     the plane runs an operator on a DTensor.
 
 A replicated stack is computed whole on every rank, exactly as unsharded,
-and then no collective runs; nor does any at ``rules=None``. The sharded
-plane's collectives, stage by stage (several tensors travel packed in one
-buffer):
+and then no collective runs; nor does any at ``rules=None``, nor on a
+one-rank client axis, where each is the identity. The sharded plane's
+collectives above one rank, stage by stage (several tensors travel packed
+in one buffer):
 
 ============  ===========================================================
 clustering    an all-reduce of the PCA moments (sum x, sum x x^T, n)
@@ -67,7 +68,9 @@ layout needs goes through the plane's autograd functions, whose backward
 is the adjoint collective. Per
 unit (one attention block with its MLP) of L, with "D" the data axes and
 "M" the model axis; ``kvg`` is 1 when M does not divide the KV heads (their
-columns are then all-gathered over M, and the cache lies over its slots):
+columns are then all-gathered over M), and ``kvs`` 1 when the cache then
+lies over its slots (M divides them; else it lies whole on every rank,
+below):
 
 ========  ==================================================================
 prefill   a unit: an all-gather over D (its weights, one buffer), kvg over
@@ -75,7 +78,7 @@ prefill   a unit: an all-gather over D (its weights, one buffer), kvg over
           MLP's ``wo``; the step: an all-gather over D of the embedding,
           an all-reduce over M of the lookup, an all-gather over D of the
           final norm and head, one over M of the logits
-decode    as prefill, and per unit with kvg: an all-gather over M of the
+decode    as prefill, and per unit with kvs: an all-gather over M of the
           query heads and three all-reduces over M (the softmax's max, its
           sum, the partial P V)
 train     the forward as prefill's (no logits gather) plus, for the loss,
@@ -111,9 +114,10 @@ prefill            AG L + 2    AG L kvg + 1
 prefill, seq       AG L + 2    AG L kvg
                                + 2L + 2
                                RS 2L + 1
-decode step        AG L + 2    AG 2L kvg + 1
+decode step        AG L + 2    AG L kvg + 1
+                               + L kvs
                                AR 2L + 1
-                               + 3L kvg
+                               + 3L kvs
 train, remat       AG 2L + 2   AG 2L kvg     AR 1
                    RS L + 2    RS L kvg
                    AR 1        AR 5L + 4
@@ -126,8 +130,9 @@ train, remat, seq  AG 2L + 2   AG 2L kvg     AR 1
 
 (kvg as counted assumes M divides the KV columns, as every dense config's
 do on the meshes here; a weight stored whole is ``copy``-ed instead, whose
-forward moves nothing.) ``tests/test_torch_model_plane.py`` holds every
-count to this table on gloo ranks. On a :class:`CountingMesh` the same
+forward moves nothing: see the uneven table below.)
+``tests/test_torch_model_plane.py`` holds every count to this table on
+gloo ranks. On a :class:`CountingMesh` the same
 calls record their bytes instead of running (``launch.dryrun``'s
 production meshes).
 
@@ -271,6 +276,66 @@ train, remat, seq  AR 1                  AG 1; RS 1
 
 ``tests/test_torch_frontend_plane.py`` holds every count to these tables
 on gloo ranks.
+
+A model axis that does not divide a width: ``rules.spec`` stores such a
+dimension whole over M, and the plane computes it as stored. A part of a
+layer that each rank computes on its own share (query heads, d_ff, vocab,
+an expert's d_ff) stays split, unevenly, by ``split_range``; a part whose
+state or cache would have to be split (the KV_SEQ cache, the recurrent
+channels) is computed whole on every model rank, with no collective
+inside it, as the xLSTM cells already were:
+
+=============  ===============================================================
+what           how; its collectives over M
+=============  ===============================================================
+a weight       (heads, d_ff, vocab, an expert's d_ff; the KV columns where M
+stored whole,  divides neither them nor the heads) cut to the rank's part
+cut            through ``copy``: forward nothing, backward one all-reduce a
+               block of all such weights' gradients ("cp"); the KV columns'
+               copy stands in for kvg's all-gather
+KV_SEQ cache   (M divides neither the KV heads nor the cache's W slots)
+               whole on every rank, as ``init_cache(rules=)`` lays it:
+               prefill writes every slot, a decode step writes its slot on
+               every rank and each rank attends with its own query heads to
+               the KV heads they read; kvs 0: no query all-gather, no
+               combine. The cache holds its capacity ("cap"): its local
+               shape alone does not tell the two layouts apart
+rglru          (M does not divide its channels) whole on every rank: its
+               weights, h and conv state whole; no enter, no reduce-scatter
+               of the gates, no exit; under seq its input is gathered along S
+               through ``replicate`` (backward: this rank's part) and its
+               output cut by ``split`` (backward: an all-gather); its MLP
+               stays the dense pair
+mlstm          (M does not divide the inner width) whole on every rank, as
+               the RG-LRU: no ``w_up`` or ``gn`` gather, no all-reduce of
+               q, k, v and the gates, no split of the cell's output
+slstm          (M does not divide W x's 4 D columns) W x computed whole: no
+               all-gather of it or of ``b_gates``; the loop and the FFN's
+               pair as above
+=============  ===============================================================
+
+A whole block's weights' gradients are whole on every rank, so a step sums
+none of them over M (``transformer.grad_sum_axes``); under seq its norm
+scale is applied to the rank's part of S and summed over M as the others
+are. Per block, in the recurrent table's terms (a block that divides keeps
+its row there):
+
+=============  ================================  ==========================
+block          forward                           backward (train)
+=============  ================================  ==========================
+rglru, whole   AG D; seq: AG M; the MLP's pair   RS D; seq: AG M; the
+                                                 pair's; cp
+mlstm, whole   AG D; seq: AG M                   RS D; seq: AG M
+slstm, whole   AG D; seq: AG M; h AG M           RS D; seq: AG M; the
+               (r_gates); the FFN's pair         pair's; cp
+=============  ================================  ==========================
+
+and an attention block with cp adds one all-reduce over M to its backward.
+At the step's ends the embedding and the head, stored whole and cut where
+M does not divide the vocab, add one all-reduce over M each to a train
+step's backward (the vision projector's copy under seq joins the
+embedding's). ``tests/test_torch_uneven_plane.py`` holds every count to
+these rows at M = 3, which divides no width of the smoke configs.
 
 The default process group is never initialised on import; the mesh
 constructors in ``launch.mesh`` do that.
@@ -541,13 +606,14 @@ class ClientSlice:
     does not divide the client axis (the stack is then replicated), it is
     the whole stack and every collective is the identity, so a stage body
     written against it is the unsharded program. On a one-rank client axis
-    the collectives run over the one-rank group."""
+    the stack is placed ``Shard(0)`` all the same, and every collective is
+    the identity too: it returns its input and runs nothing."""
 
     def __init__(self, rules: Optional[ShardingRules], n: int):
         self.rules, self.n = rules, int(n)
         ax = None if rules is None else rules.spec((CLIENTS,), (self.n,))[0]
         # placed: Shard(0) over the client axis, perhaps of one rank, whose
-        # collectives then run over a one-rank group
+        # collectives are then the identity
         self.sharded = ax is not None
         self.k = _axis_size(rules.shape, ax) if self.sharded else 1
         rank = 0
@@ -616,9 +682,10 @@ class ClientSlice:
     # -- collectives ------------------------------------------------------
     def gather(self, tree):
         """Local rows of every leaf -> the whole (N, ...) tensors on every
-        rank, in one all-gather (leaves of any dtype, packed as bytes)."""
+        rank, in one all-gather (leaves of any dtype, packed as bytes); the
+        identity on one rank."""
         leaves = [x for x in _leaves(tree) if x.dim() > 0]
-        if not self.sharded or not leaves:
+        if self.k == 1 or not leaves:
             return tree
         full = _unpack_rows(_all_gather(_pack_rows(leaves), self.rules,
                                         self.k), leaves)
@@ -628,9 +695,10 @@ class ClientSlice:
 
     def psum(self, tree):
         """Partial sums over this slice's clients -> the sums over all N, in
-        one all-reduce (floating leaves of one dtype)."""
+        one all-reduce (floating leaves of one dtype); the identity on one
+        rank."""
         leaves = _leaves(tree)
-        if not self.sharded or not leaves:
+        if self.k == 1 or not leaves:
             return tree
         flat = torch.cat([x.reshape(-1) for x in leaves])
         _all_reduce(flat, self.rules)

@@ -190,6 +190,68 @@ def test_plane_prefill_counts_the_rank_cache_alone():
     assert 0 <= peaks[1] - peaks[0] <= 16 * 2 ** 20
 
 
+def test_musicgen_served_on_16x16_counts_a_whole_cache():
+    """musicgen-medium served as phase 12 serves it (4 x 1,500 frames + 32)
+    on one rank of 16 x 16: its 24 KV heads and its 1,532 slots do not
+    divide the model axis, so the cache lies whole on every rank (4 rows,
+    replicated over the data ranks) and the prefill and decode step count
+    without raising. The decode step runs no softmax combine: over "model"
+    it all-reduces each block's two row-parallel sums and the embedding's
+    (2L + 1), and all-gathers each block's KV columns, the codec head and
+    the logits (L + 2)."""
+    cfg = get_config("musicgen-medium")
+    layers = cfg.n_layers
+    shapes = {"prefill": (InputShape("serve", 1500, 4, "prefill"), 1532),
+              "decode": (InputShape("serve", 1532, 4, "decode"), None)}
+    recs = {kind: dr.count_step(cfg, shape, max_len=max_len,
+                                rules=dr.mesh_rules("pod16x16"))
+            for kind, (shape, max_len) in shapes.items()}
+    calls = {(r["kind"], tuple(r["axes"])): r["calls"]
+             for r in recs["decode"]["collective_calls"]}
+    assert calls[("all-reduce", ("model",))] == 2 * layers + 1
+    assert calls[("all-gather", ("model",))] == layers + 2
+    whole = 2 * layers * 4 * 1532 * cfg.n_kv_heads * cfg.head_dim * 2
+    assert recs["decode"]["memory"]["cache_size_in_bytes"] == whole
+    assert recs["prefill"]["memory"]["temp_size_in_bytes"] >= whole
+
+
+@pytest.mark.parametrize("mesh", ((1, 3), (2, 3)),
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_smoke_configs_count_where_three_divides_no_width(arch, mesh):
+    """Every smoke config's prefill (61 tokens into 65 slots) and decode
+    step (on 61 slots) count on a rank of a (data, 3) mesh, which divides
+    none of their KV heads, cache slots, recurrent channels or inner
+    widths."""
+    cfg = get_smoke_config(arch)
+    data, model = mesh
+    for shape, max_len in ((InputShape("p", 61, 2 * data, "prefill"), 65),
+                           (InputShape("p", 61, 2 * data, "decode"), None)):
+        rules = sh.ShardingRules.default(sh.CountingMesh(
+            {"data": data, "model": model}))
+        rec = dr.count_step(cfg, shape, max_len=max_len, rules=rules)
+        assert rec["collective_calls"], shape.kind
+
+
+def test_plane_decode_needs_the_cache_capacity():
+    """A cache that lies over its slots or whole on every rank has the same
+    local shape for some capacities (5 slots whole, or 15 over 3 ranks):
+    a decode step reads the layout from the cache's "cap", and raises
+    without it."""
+    cfg = get_smoke_config("llama3.2-1b")
+    model = build_model(cfg)
+    rules = sh.ShardingRules.default(sh.CountingMesh({"data": 1, "model": 3}))
+    params = model.param_shapes(rules)
+    batch = {"token": torch.zeros((2, 1), dtype=torch.int64, device="meta")}
+    for cap in (5, 15):
+        cache = model.init_cache(2, cap, device="meta", rules=rules)
+        assert cache["cap"] == cap and cache["scan"][0]["k"].shape[2] == 5
+        model.decode(params, cache, batch, rules=rules)
+        cache.pop("cap")
+        with pytest.raises(ValueError, match="capacity"):
+            model.decode(params, cache, batch, rules=rules)
+
+
 def test_flash_work_counts_the_keys_each_query_sees():
     """A prefill's attention is counted as its kernel's work: the causal
     triangle (and the window), not the plain version's S x L product."""

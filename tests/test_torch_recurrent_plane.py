@@ -23,6 +23,12 @@ port and the reference.
 * The dry run's counted collective bytes at a shape-only (2, 2) mesh equal
   the gloo (2, 2) run's; one rank of the 16 x 16 production mesh counts
   both families' decode steps.
+* In the same spawn, two widths that 4 does not divide on mesh (1, 4),
+  each within 1e-5 of ``rules=None`` and with the collectives of
+  ``test_torch_uneven_plane.uneven_counts``: the smoke Llama served from
+  a 61-token prompt into a 65-slot cache (whole on every rank) and
+  trained, and recurrentgemma at 3 layers with 250 RG-LRU channels (the
+  blocks whole on every rank, the local window's 64 slots over them).
 """
 import dataclasses
 
@@ -41,6 +47,7 @@ from repro_torch.launch import dryrun as dr
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xlstm_lib
 from test_torch_draws import one_torch_thread  # noqa: F401
+from test_torch_uneven_plane import uneven_counts
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -48,6 +55,8 @@ TOL = 1e-5
 MESHES = ((1, 1), (2, 2), (1, 4))
 CFGS = meshlab.plane_configs()
 FAMILIES = ("recurrentgemma", "xlstm")
+# the widths 4 does not divide: a 65-slot cache, 250 RG-LRU channels
+UNEVEN = ((1, 4), ("base", "recurrentgemma_250"), meshlab.UNEVEN_S)
 ARCH = {"recurrentgemma": "recurrentgemma-2b", "xlstm": "xlstm-125m"}
 
 
@@ -78,7 +87,7 @@ def _jax_setup():
 def world():
     jparams, ref = _jax_setup()
     out = meshlab.spawn(meshlab.plane_world, 4, MESHES, jparams, None,
-                        meshlab.RECURRENT)
+                        meshlab.RECURRENT, None, None, UNEVEN)
     out["reports"] = {tuple(r["mesh"]): r for r in out["plane"]}
     out["jax"] = ref
     return out
@@ -308,3 +317,19 @@ def test_production_mesh_counts_recurrent_decode(arch):
         # 16: r_gates whole); the logits
         assert calls[("all-gather", ("model",))] == \
             2 * kinds.count("mlstm") + 2 * kinds.count("slstm") + 1
+
+
+@pytest.mark.parametrize("name", UNEVEN[1])
+def test_widths_four_ranks_do_not_divide(name, world):
+    rep = world["uneven"]
+    assert rep[f"{name}_logits"] <= TOL and rep[f"{name}_tokens_equal"]
+    assert rep[f"{name}_loss_diff"] <= TOL
+    assert rep[f"{name}_param_diff_above_floor"] <= TOL
+    assert max(rep[f"{name}_grad_diffs"].values()) <= TOL
+    assert rep[f"{name}_paths"] == {
+        "base": {"whole": [], "cache": "whole"},
+        "recurrentgemma_250": {"whole": ["rglru"], "cache": "slots"}}[name]
+    cfg = meshlab.plane_configs()[name]
+    counts = dict(rep[f"{name}_serve_counts"], **rep[f"{name}_train_counts"])
+    for step, (calls, _) in counts.items():
+        assert calls == uneven_counts(step, cfg, 4, UNEVEN[2]), step

@@ -130,3 +130,39 @@ def test_main_runs_on_the_host():
     res = srv.main(["--arch", "llama3.2-1b", "--smoke", "--batch", "1",
                     "--prompt-len", "8", "--gen", "3", "--device", "cpu"])
     assert res.tokens.shape == (1, 3)
+
+
+def test_step_wrappers_equal_the_entry_points():
+    """``registry.make_prefill_step`` and ``make_decode_step`` (the
+    reference's wrappers) give ``Model.prefill`` and ``Model.decode``'s
+    logits and cache bit for bit on the smoke Llama, with ``rules=None``
+    and under a one-rank mesh's rules, which they pass through."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch.mesh import host_rules
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import (make_decode_step,
+                                             make_prefill_step)
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+
+    def runs(prefill, decode, p):
+        logits, cache = prefill(p, {"tokens": tokens})
+        step, cache = decode(p, cache, {"token": tokens[:, -1:]})
+        return [logits, step] + cm.tree_leaves((cache["scan"],
+                                                 cache["tail"]))
+
+    with host_rules(device="cpu") as rules:
+        for r in (None, rules):
+            p = sh.place_params(params, model.param_logical(), r)
+            direct = runs(
+                lambda q, b: model.prefill(q, b, rules=r, global_batch=2),
+                lambda q, c, b: model.decode(q, c, b, rules=r,
+                                             global_batch=2), p)
+            wrapped = runs(make_prefill_step(model, rules=r, global_batch=2),
+                           make_decode_step(model, rules=r, global_batch=2),
+                           p)
+            assert all(torch.equal(a, b) for a, b in zip(direct, wrapped))
